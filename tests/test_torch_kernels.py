@@ -2,7 +2,7 @@
 oracle and Pallas kernel, its call forms, and its no-fallback rules.
 
 On the CPU the wrapper takes the plain version (the CUDA kernel needs the
-card); the card cases run where ``torch.cuda.is_available()``.
+card); the card cases are in ``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -14,13 +14,6 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
-    return torch.device("cuda:0")
 
 
 def _inputs(n, C, bf16, seed=0):
@@ -148,29 +141,3 @@ def test_library_path_is_keyed_by_source():
     p = _build.library_path("agg_weighted_sum")
     assert p.parent == _build.BUILD_DIR
     assert p.name.startswith("agg_weighted_sum-") and p.suffix == ".so"
-
-
-# ---------------------------------------------------------------------------
-# on the card
-# ---------------------------------------------------------------------------
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1000, 100001, 1207440])
-@pytest.mark.parametrize("C", [1, 5, 8])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(cuda, n, C, dtype):
-    g = torch.Generator(device=cuda).manual_seed(0)
-    acc = torch.randn(n, device=cuda, generator=g)
-    D = torch.randn(C, n, device=cuda, generator=g).to(dtype)
-    w = np.linspace(0.5, 2.0, C).tolist()
-    ref = agg_weighted_sum_plain(acc, D, w)
-    scale = acc.abs() + sum(abs(wc) * D[c].float().abs()
-                            for c, wc in enumerate(w))
-    launches = ops.agg_launches
-    for out in (ops.agg_weighted_sum(acc, D, w),
-                ops.agg_fold_batch(acc.clone(), [r.clone() for r in D], w,
-                                   inplace=True)):
-        torch.cuda.synchronize()
-        # FMA contraction is the only difference (same client order, fp32)
-        assert bool(((out - ref).abs() <= 1e-5 * scale).all())
-    assert ops.agg_launches == launches + 2
