@@ -20,9 +20,10 @@ from repro_torch.comm.base import Communicator
 
 def _nbytes(payload: Any) -> int:
     # lazy import: repro_torch.core.round imports this module (cycle
-    # otherwise)
-    from repro_torch.core.aggregation import payload_bytes
-    return payload_bytes(payload)
+    # otherwise).  wire_bytes counts a compressed partial at its achieved
+    # wire size (the compressed segments plus the uncompressed rest).
+    from repro_torch.core.aggregation import wire_bytes
+    return wire_bytes(payload)
 
 
 class LocalComm(Communicator):

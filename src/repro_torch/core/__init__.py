@@ -2,6 +2,8 @@
 
   scheduler.py / workload.py — heterogeneity-aware task scheduling (Alg. 3)
   aggregation.py             — hierarchical local→global aggregation (§4.2)
+  compression.py             — partial compression (top-k error feedback,
+                               int8, PowerSGD) and the compressed wire
   flat.py                    — flatten-once layout for batched folds
   state_manager.py           — client state manager for stateful FL (§3.4)
   algorithms.py              — 6 FL algorithms over nested dicts (§5.1)
@@ -13,11 +15,16 @@
   tree.py                    — nested-container helpers in jax.tree order
 """
 from repro_torch.core.aggregation import (ClientResult, LocalAggregator, Op,
-                                          flat_aggregate, global_aggregate)
+                                          flat_aggregate, global_aggregate,
+                                          merge_partials, scale_partial,
+                                          staleness_weight, wire_bytes)
 from repro_torch.core.algorithms import (ALGORITHMS, ClientData, FLAlgorithm,
                                          make_algorithm, value_and_grad)
 from repro_torch.core.client_step import ClientStepEngine, engine_for
 from repro_torch.core.clock import TickTimer, VirtualClock
+from repro_torch.core.compression import (CompressedTensor, Int8Compressor,
+                                          PowerSGDCompressor, TopKCompressor,
+                                          make_compressor)
 from repro_torch.core.engine import BSPEngine, RoundEngine, make_engine
 from repro_torch.core.executor import (ExecutorFailure, SequentialExecutor,
                                        dynamic_env, hetero_gpus, homogeneous)
@@ -36,13 +43,15 @@ from repro_torch.core.workload import (RunRecord, WorkloadEstimator,
 __all__ = [
     "ALGORITHMS", "BSPEngine", "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
-    "EagerPopulation", "ExecutorFailure", "FLAlgorithm", "FlatLayout",
-    "LocalAggregator", "Op", "ParrotScheduler", "ParrotServer",
-    "RoundEngine", "RoundMetrics", "RunRecord", "Schedule",
-    "SequentialExecutor", "TickTimer", "VirtualClock", "WorkloadEstimator",
+    "CompressedTensor", "EagerPopulation", "ExecutorFailure", "FLAlgorithm",
+    "FlatLayout", "Int8Compressor", "LocalAggregator", "Op",
+    "ParrotScheduler", "ParrotServer", "PowerSGDCompressor", "RoundEngine",
+    "RoundMetrics", "RunRecord", "Schedule", "SequentialExecutor",
+    "TickTimer", "TopKCompressor", "VirtualClock", "WorkloadEstimator",
     "WorkloadModel", "as_population", "dynamic_env", "engine_for",
     "flat_aggregate", "fleet_average", "global_aggregate", "hetero_gpus",
-    "homogeneous", "make_algorithm", "make_engine", "oracle_makespan",
-    "owner_host", "predict_span", "run_flat_reference", "split_chunks",
-    "value_and_grad",
+    "homogeneous", "make_algorithm", "make_compressor", "make_engine",
+    "merge_partials", "oracle_makespan", "owner_host", "predict_span",
+    "run_flat_reference", "scale_partial", "split_chunks",
+    "staleness_weight", "value_and_grad", "wire_bytes",
 ]

@@ -22,7 +22,9 @@ to B with zero-weight rows: the kernel takes any row count C <= 64 with no
 per-shape compile, so padding would only move bytes.
 
 The partial's wire format is flat: ``{"sums": {"__flat__": True,
-"buffers": {group: (n,) fp32}}, "layout": FlatLayout, ...}``.
+"buffers": {group: (n,) fp32}}, "layout": FlatLayout, ...}``.  Behind a
+compressor a group buffer may arrive in compressed wire form
+(``core/compression.py``); the server-side folds consume it directly.
 """
 from __future__ import annotations
 
@@ -34,7 +36,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import tree
-from repro_torch.core.flat import FlatLayout, flat_sums, is_flat_partial
+from repro_torch.core.compression import (CompressedTensor, densify_buffer,
+                                          fold_buffer_into, scale_buffer)
+from repro_torch.core.flat import (FlatLayout, flat_sums, is_compressed_buffer,
+                                   is_flat_partial)
 from repro_torch.kernels import ops as kops
 
 
@@ -194,13 +199,15 @@ def merge_partials(acc: Optional[Dict[str, Any]],
     """Fold one flat partial into a running partial-of-partials (same wire
     format), so a server-side buffer stays O(s_a) however many partials
     land.  ``acc=None`` starts the accumulator (copied shallowly so later
-    merges never mutate an executor's live buffers).  Dense buffers only:
-    compressed wire buffers come with the compression slice."""
+    merges never mutate an executor's live buffers).  Compressed wire
+    buffers decode into the dense accumulator as they fold."""
     if not is_flat_partial(partial):
         raise ValueError("the port merges flat partials only")
     if acc is None:
         out = dict(partial)
-        out["sums"] = flat_sums(dict(partial["sums"]["buffers"]))
+        out["sums"] = flat_sums(
+            {g: (densify_buffer(b) if is_compressed_buffer(b) else b)
+             for g, b in partial["sums"]["buffers"].items()})
         out["weights"] = dict(partial.get("weights", {}))
         out["counts"] = dict(partial.get("counts", {}))
         out["collected"] = {k: list(v)
@@ -212,7 +219,13 @@ def merge_partials(acc: Optional[Dict[str, Any]],
         raise ValueError("flat partials built under different layouts")
     bufs = acc["sums"]["buffers"]
     for g, b in partial["sums"]["buffers"].items():
-        bufs[g] = b if g not in bufs else bufs[g] + b.to(bufs[g].device)
+        if g not in bufs:
+            bufs[g] = densify_buffer(b) if is_compressed_buffer(b) else b
+        elif is_compressed_buffer(b):
+            # fused decompress-into-fold: no dense copy of the partial
+            bufs[g] = fold_buffer_into(bufs[g], b)
+        else:
+            bufs[g] = bufs[g] + b.to(bufs[g].device)
     for field_ in ("weights", "counts"):
         dst = acc[field_]
         for k, v in partial.get(field_, {}).items():
@@ -241,6 +254,40 @@ def tree_reduce_partials(partials: List[Dict[str, Any]],
             nxt.append(acc)
         level = nxt
     return level
+
+
+def staleness_weight(staleness: float, lam: float) -> float:
+    """Bounded-staleness discount γ = 1 / (1 + λ·s): a partial computed
+    against a model ``s`` server versions old contributes with weight γ."""
+    return 1.0 / (1.0 + lam * max(float(staleness), 0.0))
+
+
+def scale_partial(partial: Dict[str, Any], gamma: float) -> Dict[str, Any]:
+    """Scale a flat partial's *contribution* by ``gamma`` on the wire format.
+
+    Numerators (the group buffers, compressed ones without decoding) and
+    denominators (per-entry weights and counts) scale together, so a
+    γ-scaled partial enters WEIGHTED_AVG / AVG entries with relative weight
+    γ versus fresh partials, SUM entries are discounted to γ·Σ, and COLLECT
+    entries keep their values with γ-scaled client weights.  ``gamma == 1``
+    returns the partial unchanged (no copy)."""
+    if gamma == 1.0:
+        return partial
+    if not is_flat_partial(partial):
+        raise ValueError("the port scales flat partials only")
+    g32 = float(np.float32(gamma))     # an fp32 factor, as on the JAX side
+    out = dict(partial)
+    out["sums"] = flat_sums(
+        {g: (scale_buffer(b, gamma) if is_compressed_buffer(b)
+             else b * g32)
+         for g, b in partial["sums"]["buffers"].items()})
+    out["weights"] = {k: v * gamma
+                      for k, v in partial.get("weights", {}).items()}
+    out["counts"] = {k: v * gamma
+                     for k, v in partial.get("counts", {}).items()}
+    out["collected"] = {k: [(w * gamma, v) for w, v in lst]
+                        for k, lst in partial.get("collected", {}).items()}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +320,19 @@ def reduce_flat_partials(partials: List[Dict[str, Any]], ops: Dict[str, Op],
     for g in (layout.group_sizes if layout is not None else {}):
         bufs = [p["sums"]["buffers"][g] for p in partials
                 if g in p["sums"]["buffers"]]
-        if bufs:
+        if not bufs:
+            continue
+        if any(is_compressed_buffer(b) for b in bufs):
+            # compressed wire buffers: order-preserving fused
+            # decompress-into-fold (reduce_fn takes dense buffers)
+            total = (densify_buffer(bufs[0])
+                     if is_compressed_buffer(bufs[0]) else bufs[0])
+            for b in bufs[1:]:
+                total = (fold_buffer_into(total, b)
+                         if is_compressed_buffer(b)
+                         else total + b.to(total.device))
+            totals[g] = total
+        else:
             totals[g] = reduce_fn(bufs)
     out: Dict[str, Any] = {}
     for name, op in ops.items():
@@ -318,15 +377,28 @@ def flat_aggregate(results: List[ClientResult],
 
 def payload_bytes(obj: Any) -> int:
     """Wire size of a payload/partial: tensors and arrays at numel x
-    itemsize (flat group buffers included), Python scalars at 8; layout
-    metadata is free."""
+    itemsize (flat group buffers included), compressed tensors at their
+    data arrays' bytes, Python scalars at 8; layout metadata is free."""
     total = 0
     for a in tree.leaves(obj):
         if isinstance(a, torch.Tensor):
             total += a.numel() * a.element_size()
         elif isinstance(a, (np.ndarray, np.generic)):
             total += int(a.nbytes)
+        elif isinstance(a, CompressedTensor):
+            total += a.nbytes
         elif isinstance(a, (int, float, bool)):
             total += 8
     return total
 
+
+def wire_bytes(payload: Any) -> int:
+    """Achieved wire size of a payload: a compressed partial (compressors
+    stamp ``_wire_bytes`` on the sums they shrank) counts its compressed
+    sums plus the uncompressed rest; everything else is ``payload_bytes``.
+    This is the size the comm layer accounts."""
+    if isinstance(payload, dict) and "_wire_bytes" in payload:
+        rest = {k: v for k, v in payload.items()
+                if k not in ("sums", "_wire_bytes")}
+        return int(payload["_wire_bytes"]) + payload_bytes(rest)
+    return payload_bytes(payload)

@@ -205,9 +205,13 @@ class BSPEngine(RoundEngine):
                     rnd, [t], payload, srv.data_by_client))
 
         # the partial that reaches aggregation is the one that crossed the
-        # comm layer
+        # comm layer: compress once, ship, and aggregate the decompressed
+        # copy (error-feedback residuals and the aggregated values stay in
+        # sync)
         for rep in reports:
-            srv.comm.executor_send(rep.executor, rep.partial, tag="partial")
-            rep.partial = srv.comm.recv_from_executor(rep.executor,
-                                                      tag="partial")
+            srv.comm.executor_send(
+                rep.executor, srv._maybe_compress(rep.partial, rep.executor),
+                tag="partial")
+            rep.partial = srv._maybe_decompress(
+                srv.comm.recv_from_executor(rep.executor, tag="partial"))
         return reports, len(failed)

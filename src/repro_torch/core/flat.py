@@ -206,3 +206,10 @@ def is_flat_sums(sums: Any) -> bool:
 
 def is_flat_partial(partial: Dict[str, Any]) -> bool:
     return isinstance(partial, dict) and is_flat_sums(partial.get("sums"))
+
+
+def is_compressed_buffer(buf: Any) -> bool:
+    """A group buffer in compressed wire form (see core/compression.py):
+    ``{"__compressed__": True, "segments": [...], "size": n}`` instead of a
+    dense 1-D tensor.  Compiled codecs ship these all the way to the fold."""
+    return isinstance(buf, dict) and bool(buf.get("__compressed__"))

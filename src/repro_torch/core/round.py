@@ -11,6 +11,8 @@ minimises.
 
 Executor failures mid-round re-run the dead executor's remaining work on
 the survivors and K shrinks for subsequent rounds (elastic membership).
+A ``compressor`` (an object, or "topk" / "int8" / "powersgd") shrinks each
+partial before it crosses the comm layer (``core/compression.py``).
 
 Knobs of later slices raise ``NotImplementedError`` naming their ROADMAP
 item rather than being ignored.
@@ -29,6 +31,7 @@ from repro_torch.core.aggregation import (flat_aggregate, global_aggregate,
                                           is_flat_partial,
                                           tree_reduce_partials)
 from repro_torch.core.algorithms import ClientData, FLAlgorithm
+from repro_torch.core.compression import make_compressor
 from repro_torch.core.engine import make_engine
 from repro_torch.core.executor import SequentialExecutor
 from repro_torch.core.population import ClientPopulation, as_population
@@ -38,7 +41,6 @@ from repro_torch.device import resolve_device
 
 # knob -> the ROADMAP.md item (modules queue) that ports it
 _LATER_KNOBS = {
-    "compressor": "item 12 (compression)",
     "checkpoint_manager": "item 11 (checkpoints)",
     "network": "item 13 (network and faults)",
     "availability": "item 13 (network and faults)",
@@ -82,6 +84,7 @@ class ParrotServer:
                  round_engine: str = "bsp",
                  engine_opts: Optional[Dict[str, Any]] = None,
                  fold_fan_in: int = 16,
+                 compressor: Optional[Any] = None,
                  seed: int = 0,
                  device: Optional[Any] = None,
                  **later_knobs: Any):
@@ -111,6 +114,13 @@ class ParrotServer:
                                          warmup_rounds=warmup_rounds,
                                          policy=scheduler_policy)
         self.comm = comm or LocalComm()
+        if isinstance(compressor, str):
+            # compressor="topk"/"int8"/"powersgd" builds the compiled default
+            compressor = make_compressor(compressor)
+        self.compressor = compressor
+        # achieved wire/raw compression ratio; the network model (ROADMAP
+        # item 13) prices predicted uploads with it
+        self._wire_ratio = 1.0
         # cumulative simulated time across rounds
         self.virtual_now = 0.0
         self.overlap_scheduling = overlap_scheduling
@@ -198,6 +208,21 @@ class ParrotServer:
                 out[key] = val - self._sm_stats_prev.get(key, 0)
         self._sm_stats_prev = total
         return out
+
+    def _maybe_compress(self, partial: Dict,
+                        executor: Optional[int] = None) -> Dict:
+        if self.compressor is None:
+            return partial
+        # key stateful compressor state (top-k error-feedback residuals) by
+        # the sending executor: each executor owns its residual stream, so
+        # compressed values don't depend on cross-executor ship order
+        return self.compressor.compress_partial(
+            partial, key=None if executor is None else f"exec{executor}")
+
+    def _maybe_decompress(self, partial: Dict) -> Dict:
+        if self.compressor is None:
+            return partial
+        return self.compressor.decompress_partial(partial)
 
     def _drop_executor(self, k: int) -> None:
         """Elastic K shrink: drop a dead executor."""

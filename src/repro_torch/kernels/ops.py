@@ -1,17 +1,20 @@
 """Public wrappers around the port's kernels (port of
-``repro/kernels/ops.py``, the aggregation fold part).
+``repro/kernels/ops.py``: the aggregation fold and the fused top-k).
 
 A wrapper picks the kernel or its plain version by the device of the tensor
 it is given, and by nothing else: a CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the hand-written Hopper kernel or raises.
 There is no fallback from a failed build or launch.
 
-Two plain-integer counters stand in for ``agg_dispatch_count``:
+Each kernel has two plain-integer counters (``agg_dispatch_count``'s
+counterparts):
 
-* :data:`agg_dispatches` — every call of a fold wrapper, either route;
-* :data:`agg_launches` — CUDA kernel launches only, incremented exactly
-  where the kernel is launched (``chip_smoke.py`` reads it to show that the
-  main path went through the kernel).
+* :data:`agg_dispatches` / :data:`topk_dispatches` — every call of the
+  kernel's wrapper, either route;
+* :data:`agg_launches` / :data:`topk_launches` — CUDA launches only,
+  incremented exactly where the kernel is launched (``chip_smoke.py`` reads
+  them to show that the main path went through the kernels).  A top-k
+  launch is one launch sequence, for one span.
 """
 from __future__ import annotations
 
@@ -20,9 +23,12 @@ from typing import Sequence, Union
 import torch
 
 from repro_torch.kernels import agg_weighted_sum as _agg
+from repro_torch.kernels import topk_compress as _tkc
 
 agg_dispatches = 0
 agg_launches = 0
+topk_dispatches = 0
+topk_launches = 0
 
 
 def reset_agg_counts() -> None:
@@ -112,3 +118,51 @@ def agg_fold(acc: torch.Tensor, delta: torch.Tensor,
     out = agg_weighted_sum(flat_acc, [delta.reshape(-1).contiguous()],
                            [weight])
     return out.reshape(acc.shape)
+
+
+def reset_topk_counts() -> None:
+    global topk_dispatches, topk_launches
+    topk_dispatches = 0
+    topk_launches = 0
+
+
+def _check_topk(x: torch.Tensor, res: torch.Tensor, k: int) -> None:
+    for name, t in (("x", x), ("res", res)):
+        if t.dtype != torch.float32 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 1-D float32 tensor")
+    if res.shape != x.shape or res.device != x.device:
+        raise ValueError("res must have x's shape and device")
+    if not 1 <= k <= x.numel() or x.numel() > 2**31 - 1:
+        raise ValueError(f"top-k takes 1 <= k <= n < 2^31, got k={k} "
+                         f"n={x.numel()}")
+
+
+def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
+               inplace: bool = False):
+    """Fused error-feedback top-k for one 1-D fp32 span: residual-add, the
+    k largest ``|x + res|`` (ties to the lower index), gather, scatter-zero
+    residual.  Returns ``(idx, vals, new_res)``; ``idx`` is ascending int32.
+
+    ``inplace=True`` writes ``new_res`` into ``res`` (the compressor's own
+    residual buffer; never pass the partial).  ``x`` and ``res`` may be
+    views into larger buffers (a span of a group buffer)."""
+    global topk_dispatches, topk_launches
+    topk_dispatches += 1
+    k = int(k)
+    if x.device.type == "cpu":
+        idx, vals, new_res = _tkc.topk_with_residual_plain(x, res, k)
+        if inplace:
+            res.copy_(new_res)
+            new_res = res
+        return idx, vals, new_res
+    if x.device.type != "cuda":
+        raise ValueError(f"no top-k kernel for device {x.device}")
+    _check_topk(x, res, k)
+    idx = torch.empty(k, dtype=torch.int32, device=x.device)
+    vals = torch.empty(k, dtype=torch.float32, device=x.device)
+    new_res = res if inplace else torch.empty_like(x)
+    scratch = torch.empty(_tkc.scratch_words(), dtype=torch.int32,
+                          device=x.device)
+    _tkc.topk_with_residual_cuda(x, res, k, idx, vals, new_res, scratch)
+    topk_launches += 1
+    return idx, vals, new_res

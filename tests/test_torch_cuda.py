@@ -1,5 +1,6 @@
-"""The port on the card: the CUDA fold kernel against its plain version,
-and a main-path run that must go through it.
+"""The port on the card: the CUDA kernels (the fold and the fused top-k)
+against their plain versions, and main-path runs that must go through
+them.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine that has only PyTorch; there, skip ``tests/conftest.py`` (which
@@ -17,6 +18,7 @@ import repro_torch.core as T
 from repro_torch.data import make_classification_clients
 from repro_torch.kernels import ops
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
+from repro_torch.kernels.topk_compress import topk_with_residual_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -61,16 +63,99 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                    torch.ones(8)], [1.0, 1.0])
 
 
+def _bits(t):
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+@pytest.mark.parametrize("n", [1, 300, 1000, 100001, 1207440])
+@pytest.mark.parametrize("frac", [0.0, 0.01, 1.0])
+@pytest.mark.parametrize("ties", [False, True])
+def test_cuda_topk_matches_plain_bitwise(cuda, n, frac, ties):
+    """Spans at an odd offset of a larger buffer; with ``ties`` the values
+    are quantised to halves and carry ±0, NaN and inf."""
+    k = max(1, int(n * frac))
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    buf = torch.randn(n + 9, device=cuda, generator=g)
+    rbuf = torch.randn(n + 9, device=cuda, generator=g)
+    if ties:
+        buf = torch.round(buf * 2) / 2
+        rbuf = torch.round(rbuf * 2) / 2 * (rbuf > 0)
+        buf[::37] = -0.0
+        buf[1::53] = float("nan")
+        buf[2::101] = float("inf")
+    x, res = buf[3:3 + n], rbuf[3:3 + n]
+    want = topk_with_residual_plain(x, res, k)
+    launches = ops.topk_launches
+    got = ops.fused_topk(x, res, k)
+    inplace = rbuf.clone()
+    got_inplace = ops.fused_topk(x, inplace[3:3 + n], k, inplace=True)
+    torch.cuda.synchronize()
+    assert ops.topk_launches == launches + 2
+    for a, b, c in zip(want, got, got_inplace):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(c))
+    assert torch.equal(_bits(inplace[3:3 + n]), _bits(want[2]))
+    assert torch.equal(inplace[:3], rbuf[:3])
+    assert torch.equal(inplace[3 + n:], rbuf[3 + n:])
+
+
+def test_cuda_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.ones(16, device=cuda)
+    with pytest.raises(ValueError):                      # not fp32
+        ops.fused_topk(x.double(), torch.zeros(16, device=cuda,
+                                               dtype=torch.float64), 2)
+    with pytest.raises(ValueError):                      # not contiguous
+        ops.fused_topk(torch.ones(32, device=cuda)[::2],
+                       torch.zeros(16, device=cuda), 2)
+    with pytest.raises(ValueError):                      # wrong device
+        ops.fused_topk(x, torch.zeros(16), 2)
+    with pytest.raises(ValueError):                      # k out of range
+        ops.fused_topk(x, torch.zeros(16, device=cuda), 17)
+
+
+def _loss(params, batch):
+    logits = batch["x"] @ params["w"] + params["b"]
+    gold = torch.gather(logits, -1, batch["y"][:, None].long())[:, 0]
+    return torch.mean(torch.logsumexp(logits, -1) - gold)
+
+
+def test_cuda_compressed_quickstart_goes_through_the_topk_kernel(cuda):
+    """The quickstart with a top-k codec (fraction 0.1) on the card: every
+    executor's partial launches the kernel, and the rounds match the same
+    rounds on the CPU (makespans and comm bytes identical)."""
+    def run(device):
+        algo = T.make_algorithm("fedavg", T.value_and_grad(_loss), lr=0.05,
+                                local_epochs=2)
+        timer = T.TickTimer(1.0)
+        execs = [T.SequentialExecutor(k, algo, timer=timer, device=device)
+                 for k in range(4)]
+        srv = T.ParrotServer(
+            params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
+            algorithm=algo, executors=execs,
+            data_by_client=make_classification_clients(
+                100, dim=32, n_classes=10, partition="natural", seed=0),
+            clients_per_round=20, seed=0, device=device,
+            compressor=T.make_compressor("topk", 0.1))
+        srv.run(3)
+        return srv
+
+    ops.reset_topk_counts()
+    on_card = run(cuda)
+    launches = ops.topk_launches
+    on_cpu = run("cpu")
+    assert launches == 3 * 4                 # one span per executor a round
+    assert [(m.makespan, m.comm_bytes) for m in on_card.history] == \
+        [(m.makespan, m.comm_bytes) for m in on_cpu.history]
+    for k in on_cpu.params:
+        torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
+                                   atol=1e-5, rtol=1e-5)
+
+
 def test_cuda_main_path_goes_through_the_kernel(cuda, tmp_path):
     """A short SCAFFOLD run on the card: every fold launches the kernel,
     and the run matches the same run on the CPU."""
     def run(device):
-        def loss(params, batch):
-            logits = batch["x"] @ params["w"] + params["b"]
-            gold = torch.gather(logits, -1, batch["y"][:, None].long())[:, 0]
-            return torch.mean(torch.logsumexp(logits, -1) - gold)
-
-        algo = T.make_algorithm("scaffold", T.value_and_grad(loss), lr=0.1)
+        algo = T.make_algorithm("scaffold", T.value_and_grad(_loss), lr=0.1)
         sm = T.ClientStateManager(str(tmp_path / str(device)),
                                   memory_budget_bytes=4096)
         timer = T.TickTimer(1.0)
