@@ -6,21 +6,19 @@
 ``chip_smoke.py`` phase 5 runs the full-width MLP (FedProx, top-k 0.01)
 under a ``TickTimer`` on the card and on the CPU: the params agree after
 round 0, and from round 1 an executor's partial parts far beyond fp32
-rounding.  This script separates the codec from the client step:
+rounding.  This script looks for the cause:
 
-1. round 0 on the CPU, keeping the params after it and round 1's queues;
-2. every executor's round-1 queue run on the card and on the CPU from
-   those same params — the client step alone, no compression;
-3. for the executor that differs most, each client's eager update on both
-   devices from the same params;
-4. for the client that differs most, its local SGD replayed step by step
-   on both devices: the first step and layer where the ReLU patterns of
-   the two devices disagree, and the pre-activations there.
+1. the same two runs, 2 rounds each, keeping per device the params after
+   round 0, round 1's queues and each executor's round-1 partial (before
+   compression): do the queues and params agree, which partial parts?
+2. that executor's round-1 queue re-run by a fresh executor, no
+   compression, on the card from the card run's params, on the CPU from
+   the CPU run's params, and on the card from the CPU run's params: does
+   a fresh executor reproduce its device's in-run partial?
 """
 import os
 import sys
 
-import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,17 +26,53 @@ sys.path[:0] = [os.path.join(HERE, "..", "src"), os.path.join(HERE, "..")]
 
 import chip_smoke as cs  # noqa: E402  (the phase-5 configuration)
 
-DEVS = ("cuda", "cpu")
-
-
-def flat(tree_):
-    return torch.cat([v.detach().reshape(-1).cpu()
-                      for _, v in sorted(tree_.items())])
-
 
 def fedprox(T):
     return T.make_algorithm("fedprox", T.value_and_grad(cs.mlp_loss), 0.05,
                             local_epochs=1)
+
+
+def two_rounds(T, dev):
+    """2 compressed TickTimer rounds: params after round 0, round-1 queues
+    (client ids by executor) and round-1 partials (host copies)."""
+    got = {"partials": {}}
+
+    def prepare(srv):
+        got["srv"] = srv
+        sched, comp = srv.scheduler.schedule, srv.compressor.compress_partial
+
+        def schedule(rnd, tasks, executors, **kw):
+            s = sched(rnd, tasks, executors, **kw)
+            if rnd == 1:
+                got["queues"] = {k: list(s.queue(k)) for k in executors}
+            return s
+
+        def compress_partial(partial, key=None):
+            if srv.round == 1:
+                got["partials"][key] = \
+                    partial["sums"]["buffers"]["weighted"].cpu()
+            return comp(partial, key=key)
+
+        srv.scheduler.schedule = schedule
+        srv.compressor.compress_partial = compress_partial
+
+    def after(r, m, wall):
+        if r == 0:
+            got["params"] = {k: v.detach().cpu().clone()
+                             for k, v in got["srv"].params.items()}
+
+    cs.full_width(T, dev, 2, after,
+                  compressor=T.make_compressor("topk", 0.01),
+                  timer=T.TickTimer(1.0), prepare=prepare)
+    return got
+
+
+def rerun(T, k, queue, params, dev, data):
+    ex = T.SequentialExecutor(k, fedprox(T), client_block=8, device=dev,
+                              timer=T.TickTimer(1.0))
+    rep = ex.run_queue(1, queue, {"params": {
+        n: v.to(dev) for n, v in params.items()}}, data)
+    return rep.partial["sums"]["buffers"]["weighted"].cpu()
 
 
 def main() -> int:
@@ -50,107 +84,36 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), flush=True)
 
-    # 1. round 0 on the CPU; round 1's queues and the params it starts from
-    got = {}
+    g, c = two_rounds(T, "cuda"), two_rounds(T, "cpu")
+    ids = {d: {k: [t.client for t in q] for k, q in r["queues"].items()}
+           for d, r in (("cuda", g), ("cpu", c))}
+    perr = max(float((g["params"][n] - p).abs().max())
+               for n, p in c["params"].items())
+    diffs = {k: float((g["partials"][k] - c["partials"][k]).abs().max())
+             for k in c["partials"]}
+    print(f"1. round-1 queues equal on card and CPU: "
+          f"{ids['cuda'] == ids['cpu']} ({ids['cuda']} / {ids['cpu']}); "
+          f"params after round 0 max |card - CPU| {perr:.3g}; round-1 "
+          f"partials max |card - CPU|: "
+          + ", ".join(f"{k} {d:.3g}" for k, d in diffs.items()), flush=True)
 
-    def prepare(srv):
-        got["srv"] = srv
-        inner = srv.scheduler.schedule
-
-        def schedule(rnd, tasks, executors, **kw):
-            s = inner(rnd, tasks, executors, **kw)
-            got.setdefault("queues", {})[rnd] = {
-                k: list(s.queue(k)) for k in executors}
-            return s
-
-        srv.scheduler.schedule = schedule
-
-    def after(r, m, wall):
-        if r == 0:
-            s = got["srv"]
-            got["params"] = {k: v.clone() for k, v in s.params.items()}
-
-    cs.full_width(T, "cpu", 2, after,
-                  compressor=T.make_compressor("topk", 0.01),
-                  timer=T.TickTimer(1.0), prepare=prepare)
-    params, queues, data = got["params"], got["queues"][1], cs.mlp_clients(T)
-    zero_bias = float(np.mean([float((params[f"b{i}"] == 0).float().mean())
-                               for i in range(len(cs.DIMS) - 1)]))
-    print(f"params after round 0: {100 * zero_bias:.1f} % of the biases "
-          f"are exactly 0", flush=True)
-
-    # 2. each executor's round-1 queue, client step only, on both devices
-    algos = {dev: fedprox(T) for dev in DEVS}
-    diffs = {}
-    for k, queue in sorted(queues.items()):
-        parts = {}
-        for dev in DEVS:
-            ex = T.SequentialExecutor(k, algos[dev], client_block=8,
-                                      device=dev, timer=T.TickTimer(1.0))
-            rep = ex.run_queue(1, queue, {"params": params}, data)
-            parts[dev] = rep.partial["sums"]["buffers"]["weighted"].cpu()
-        diffs[k] = float((parts["cuda"] - parts["cpu"]).abs().max())
-    print("round-1 partials without compression, max |card - CPU| by "
-          "executor: " + ", ".join(f"exec{k} {d:.3g}"
-                                   for k, d in diffs.items()), flush=True)
-
-    # 3. that executor's clients, eager updates from the same params
-    worst = max(diffs, key=diffs.get)
-    per_client = {}
-    for task in queues[worst]:
-        upd = {}
-        for dev in DEVS:
-            p = {k: v.to(dev) for k, v in params.items()}
-            res, _ = algos[dev].client_update({"params": p},
-                                              data[task.client], None)
-            upd[dev] = flat(res.payload["delta"])
-        per_client[task.client] = float((upd["cuda"] - upd["cpu"]).abs().max())
-    print(f"exec{worst}'s clients, eager update max |card - CPU|: "
-          + ", ".join(f"client {c} {d:.3g}" for c, d in per_client.items()),
-          flush=True)
-
-    # 4. that client's local SGD replayed step by step on both devices
-    client = max(per_client, key=per_client.get)
-    algo = algos["cpu"]
-    w = {dev: {k: v.to(dev).clone() for k, v in params.items()}
-         for dev in DEVS}
-    anchor = {dev: {k: v.to(dev) for k, v in params.items()} for dev in DEVS}
-    grad = T.value_and_grad(cs.mlp_loss)
-    last = len(cs.DIMS) - 2
-    reported = False
-    for step, batch in enumerate(data[client].batches):
-        zs = {}
-        for dev in DEVS:
-            h = torch.as_tensor(batch["x"], device=dev)
-            zs[dev] = []
-            for i in range(last):
-                z = h @ w[dev][f"w{i}"] + w[dev][f"b{i}"]
-                zs[dev].append(z.cpu())
-                h = torch.relu(z)
-        for i in range(last):
-            zg, zc = zs["cuda"][i], zs["cpu"][i]
-            flip = (zg > 0) != (zc > 0)
-            if bool(flip.any()) and not reported:
-                reported = True
-                print(f"client {client}: first ReLU disagreement at local "
-                      f"step {step}, layer {i}: {int(flip.sum())} of "
-                      f"{flip.numel()} units; there |z| card "
-                      f"{float(zg[flip].abs().max()):.3g}, CPU "
-                      f"{float(zc[flip].abs().max()):.3g}; median |z| of the "
-                      f"layer {float(zc.abs().median()):.3g}; |b| of those "
-                      f"units {float(w['cpu'][f'b{i}'][flip.nonzero()[:, 1]].abs().max()):.3g}",
-                      flush=True)
-        for dev in DEVS:
-            b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
-            _, g = grad(w[dev], b)
-            w[dev] = {k: w[dev][k] - algo.lr * (g[k] + algo.mu * (
-                w[dev][k] - anchor[dev][k])) for k in w[dev]}
-    if not reported:
-        print(f"client {client}: card and CPU ReLU patterns agree at every "
-              f"step and layer", flush=True)
-    print(f"client {client}: max |card - CPU| after {step + 1} steps "
-          f"{float((flat(w['cuda']) - flat(w['cpu'])).abs().max()):.3g}",
-          flush=True)
+    key = max(diffs, key=diffs.get)
+    k = int(key[len("exec"):])
+    data = cs.mlp_clients(T)
+    fresh = {
+        "card, card params": rerun(T, k, g["queues"][k], g["params"], "cuda",
+                                   data),
+        "CPU, CPU params": rerun(T, k, c["queues"][k], c["params"], "cpu",
+                                 data),
+        "card, CPU params": rerun(T, k, c["queues"][k], c["params"], "cuda",
+                                  data),
+    }
+    for name, part in fresh.items():
+        print(f"2. {key} fresh ({name}): max |diff| to the card run's "
+              f"partial {float((part - g['partials'][key]).abs().max()):.3g},"
+              f" to the CPU run's "
+              f"{float((part - c['partials'][key]).abs().max()):.3g}",
+              flush=True)
     return 0
 
 
