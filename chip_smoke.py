@@ -262,11 +262,22 @@ def topk_inputs(n, kind, gen):
     return buf, rbuf
 
 
+def topk_abs_err(a, b):
+    """Largest |a - b| over two float tensors, 0 where their bits agree
+    (so equal NaNs and infs count as no error), inf where a NaN or an inf
+    meets anything else."""
+    same = a.view(torch.int32) == b.view(torch.int32)
+    diff = (a.double() - b.double()).abs().nan_to_num(nan=float("inf"))
+    return float(torch.where(same, 0.0, diff).max()) if a.numel() else 0.0
+
+
 def phase_topk_grid(ops, plain):
     """Kernel against plain, bit for bit on idx, vals and new_res, fresh
-    and in place, over n in TOPK_GRID_N and k in {1, 7, n // 100, n}."""
+    and in place, over n in TOPK_GRID_N and k in {1, 7, n // 100, n}.
+    Returns the largest |kernel - plain| over vals and new_res."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_cases = 0
+    max_err = 0.0
     for n in TOPK_GRID_N:
         for k in sorted({1, 7, n // 100, n}):
             if not 1 <= k <= n:
@@ -280,6 +291,8 @@ def phase_topk_grid(ops, plain):
                 got_in = ops.fused_topk(x, inplace[3:3 + n], k, inplace=True)
                 torch.cuda.synchronize()
                 for form, out in (("fresh", got), ("in place", got_in)):
+                    max_err = max(max_err, topk_abs_err(want[1], out[1]),
+                                  topk_abs_err(want[2], out[2]))
                     for name, a, b in zip(("idx", "vals", "new_res"), want,
                                           out):
                         if not torch.equal(a.view(torch.int32),
@@ -296,8 +309,9 @@ def phase_topk_grid(ops, plain):
                 del buf, rbuf, want, got, got_in, inplace
     log(f"phase 2: topk_compress matches its plain version bit for bit on "
         f"{n_cases} cases (n in {TOPK_GRID_N}, k in {{1, 7, n//100, n}}, "
-        f"normal / ties+±0+NaN+inf, odd offset, fresh / in place)")
-    return 0.0
+        f"normal / ties+±0+NaN+inf, odd offset, fresh / in place); "
+        f"max |kernel - plain| {max_err}")
+    return max_err
 
 
 def phase_topk_timing(ops, plain):

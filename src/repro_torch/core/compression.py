@@ -15,7 +15,7 @@ All three operate on the FLAT partial wire format: an entry occupies one
 contiguous span of its group buffer (``core.flat.FlatLayout``), so the span
 table of a group is static (``PartialCompressor._span_plans``):
 
-- compress (``compiled=True``, the ``make_compressor`` default) walks the
+- compress (``compiled=True``, the default) walks the
   targeted spans of a group buffer as contiguous views, with no copy.  The
   top-k path calls ``kernels.ops.fused_topk`` once per span: on the card
   the hand-written CUDA kernel, which writes the new residual into the
@@ -32,7 +32,8 @@ win; exact magnitude ties go to the LOWER index and indices ship sorted
 ascending, so compiled and eager wires are bit-identical (and bit-identical
 to the JAX package's).
 
-The eager per-segment path (``compiled=False``) is kept as the reference.
+The eager per-segment path (``compiled=False``) is kept as the reference;
+the top-k one runs on the host in numpy and refuses a tensor on the card.
 The JAX package's legacy nested ``{entry: pytree}`` partials are not
 ported: every partial of the port is flat.  Compressors expose
 ``state_dict``/``load_state_dict`` (host numpy arrays, the JAX package's
@@ -333,15 +334,15 @@ class PartialCompressor:
 class TopKCompressor(PartialCompressor):
     """Magnitude top-k with per-sender error feedback.
 
-    ``compiled=True`` (the ``make_compressor`` default) holds the residual
-    as one (n,) fp32 tensor per (sender, group) on the partial's device and
-    runs ``kernels.ops.fused_topk`` on every targeted span of a group
-    buffer, updating that residual in place; ``compiled=False`` is the
-    eager per-span numpy reference (host residual dict).  Both obey the
-    same tie rule, so their wire bytes are bit-identical."""
+    ``compiled=True`` (the default) holds the residual as one (n,) fp32
+    tensor per (sender, group) on the partial's device and runs
+    ``kernels.ops.fused_topk`` on every targeted span of a group buffer,
+    updating that residual in place; ``compiled=False`` is the eager
+    per-span numpy reference (host residual dict), for CPU tensors only.
+    Both obey the same tie rule, so their wire bytes are bit-identical."""
 
     def __init__(self, fraction: float = 0.01, entries: tuple = ("delta",),
-                 compiled: bool = False):
+                 compiled: bool = True):
         self.fraction = float(fraction)
         self.entries = tuple(entries)
         self.compiled = bool(compiled)
@@ -363,7 +364,10 @@ class TopKCompressor(PartialCompressor):
 
     # --- eager reference --------------------------------------------------
     def _compress(self, a: torch.Tensor, key: str) -> CompressedTensor:
-        host = a.detach().cpu().numpy()
+        if a.device.type != "cpu":
+            raise ValueError("the eager top-k reference runs on the host; "
+                             "use compiled=True for a tensor on the card")
+        host = a.detach().numpy()
         flat = np.asarray(host, np.float32).reshape(-1)
         res = self._residual.get(key)
         if res is not None and np.shape(res) == flat.shape:
@@ -429,11 +433,11 @@ def _int8_quantize(f: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 class Int8Compressor(PartialCompressor):
     """Symmetric per-entry int8 quantisation with an fp32 scale.
 
-    ``compiled=True`` quantises every targeted span of a group buffer in one
-    call and decompresses lazily into the fold; ``compiled=False`` is the
-    per-segment reference with an eager decode."""
+    ``compiled=True`` (the default) quantises every targeted span of a
+    group buffer in one call and decompresses lazily into the fold;
+    ``compiled=False`` is the per-segment reference with an eager decode."""
 
-    def __init__(self, entries: tuple = ("delta",), compiled: bool = False):
+    def __init__(self, entries: tuple = ("delta",), compiled: bool = True):
         self.entries = tuple(entries)
         self.compiled = bool(compiled)
 

@@ -118,9 +118,6 @@ class ParrotServer:
             # compressor="topk"/"int8"/"powersgd" builds the compiled default
             compressor = make_compressor(compressor)
         self.compressor = compressor
-        # achieved wire/raw compression ratio; the network model (ROADMAP
-        # item 13) prices predicted uploads with it
-        self._wire_ratio = 1.0
         # cumulative simulated time across rounds
         self.virtual_now = 0.0
         self.overlap_scheduling = overlap_scheduling

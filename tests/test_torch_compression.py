@@ -519,3 +519,30 @@ def test_server_builds_the_compiled_topk_codec_from_a_string():
                            executors=[], data_by_client={},
                            clients_per_round=1, device="cpu",
                            **{knob: object()})
+
+
+@pytest.mark.parametrize("kind", ["topk", "int8", "powersgd"])
+def test_server_takes_a_codec_object_as_is_and_it_runs_compiled(kind):
+    """The port's codec objects default to the compiled path, the one that
+    runs on the card, and the server keeps the object it was handed."""
+    codec = {"topk": lambda: T.TopKCompressor(0.01),
+             "int8": lambda: T.Int8Compressor(),
+             "powersgd": lambda: T.PowerSGDCompressor(2)}[kind]()
+    assert codec.compiled
+    algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
+    assert T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                          executors=[], data_by_client={},
+                          clients_per_round=1, device="cpu",
+                          compressor=codec).compressor is codec
+
+
+def test_eager_topk_refuses_a_tensor_off_the_host():
+    """The eager top-k reference works in host numpy: a tensor elsewhere
+    (here on the meta device, on a card likewise) is refused, not copied
+    to the host."""
+    _, tp = _partials(0)
+    off_host = dict(tp, sums=tflat_sums(
+        {g: b.to("meta") for g, b in tp["sums"]["buffers"].items()}))
+    eager = tcomp.TopKCompressor(0.25, entries=ENTRIES, compiled=False)
+    with pytest.raises(ValueError, match="eager top-k"):
+        eager.compress_partial(off_host, key="exec0")

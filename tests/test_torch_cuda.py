@@ -119,36 +119,51 @@ def _loss(params, batch):
     return torch.mean(torch.logsumexp(logits, -1) - gold)
 
 
+def _quickstart(compressor, rounds, device=None):
+    """The quickstart's 4 executors and 20 clients a round; ``device=None``
+    takes the entry points' default, the card."""
+    algo = T.make_algorithm("fedavg", T.value_and_grad(_loss), lr=0.05,
+                            local_epochs=2)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device)
+             for k in range(4)]
+    srv = T.ParrotServer(
+        params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
+        algorithm=algo, executors=execs,
+        data_by_client=make_classification_clients(
+            100, dim=32, n_classes=10, partition="natural", seed=0),
+        clients_per_round=20, seed=0, device=device, compressor=compressor)
+    srv.run(rounds)
+    return srv
+
+
 def test_cuda_compressed_quickstart_goes_through_the_topk_kernel(cuda):
     """The quickstart with a top-k codec (fraction 0.1) on the card: every
     executor's partial launches the kernel, and the rounds match the same
     rounds on the CPU (makespans and comm bytes identical)."""
-    def run(device):
-        algo = T.make_algorithm("fedavg", T.value_and_grad(_loss), lr=0.05,
-                                local_epochs=2)
-        timer = T.TickTimer(1.0)
-        execs = [T.SequentialExecutor(k, algo, timer=timer, device=device)
-                 for k in range(4)]
-        srv = T.ParrotServer(
-            params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
-            algorithm=algo, executors=execs,
-            data_by_client=make_classification_clients(
-                100, dim=32, n_classes=10, partition="natural", seed=0),
-            clients_per_round=20, seed=0, device=device,
-            compressor=T.make_compressor("topk", 0.1))
-        srv.run(3)
-        return srv
-
     ops.reset_topk_counts()
-    on_card = run(cuda)
+    on_card = _quickstart(T.make_compressor("topk", 0.1), 3, cuda)
     launches = ops.topk_launches
-    on_cpu = run("cpu")
+    on_cpu = _quickstart(T.make_compressor("topk", 0.1), 3, "cpu")
     assert launches == 3 * 4                 # one span per executor a round
     assert [(m.makespan, m.comm_bytes) for m in on_card.history] == \
         [(m.makespan, m.comm_bytes) for m in on_cpu.history]
     for k in on_cpu.params:
         torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
                                    atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_codec_object_goes_through_the_topk_kernel(cuda):
+    """A ``TopKCompressor`` object handed to the server on the default
+    device compresses on the card through the kernel; the eager numpy
+    reference refuses the card's tensors instead of copying them to the
+    host."""
+    ops.reset_topk_counts()
+    srv = _quickstart(T.TopKCompressor(0.01), 1)
+    assert srv.params["w"].device.type == "cuda"
+    assert ops.topk_launches == 4            # one span per executor
+    with pytest.raises(ValueError, match="eager top-k"):
+        _quickstart(T.TopKCompressor(0.01, compiled=False), 1)
 
 
 def test_cuda_main_path_goes_through_the_kernel(cuda, tmp_path):

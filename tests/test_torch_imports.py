@@ -1,7 +1,6 @@
 """The port stands alone: no module under ``src/repro_torch`` (nor
-``chip_smoke.py``, the card scripts under ``scripts/``, nor the card tests)
-imports ``jax`` or the JAX package ``repro``, and the whole package imports
-with ``jax`` made unimportable."""
+``chip_smoke.py``, nor the card tests) imports ``jax`` or the JAX package
+``repro``, and the whole package imports with ``jax`` made unimportable."""
 import ast
 import os
 import pathlib
@@ -12,9 +11,9 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-# the port, the card scripts, and the card tests (run where JAX is absent)
-FILES = sorted(PORT.rglob("*.py")) + sorted((ROOT / "scripts").glob("*.py")) \
-    + [ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py"]
+# the port, the smoke script, and the card tests (run where JAX is absent)
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "tests" / "test_torch_cuda.py"]
 
 
 def _forbidden(module: str) -> bool:

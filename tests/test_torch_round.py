@@ -222,17 +222,10 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("knob", [
-    "compressor", "checkpoint_manager", "network", "availability", "faults",
-    "retry", "placement", "parallel_dispatch", "control", "telemetry"])
+    "checkpoint_manager", "network", "availability", "faults", "retry",
+    "placement", "parallel_dispatch", "control", "telemetry"])
 def test_later_slice_knobs_raise(knob):
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
-    if knob == "compressor":      # ported: any codec object is taken as is
-        codec = T.make_compressor("int8")
-        assert T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
-                              executors=[], data_by_client={},
-                              clients_per_round=1, device="cpu",
-                              compressor=codec).compressor is codec
-        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
                        executors=[], data_by_client={}, clients_per_round=1,
