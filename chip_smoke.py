@@ -7,14 +7,14 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
 
 1. Card identity: ``nvidia-smi`` name and power limit; TF32 off for
    matrix products and cuDNN, so fp32 means fp32 on the card.
-2. Every kernel of the main path (the fold ``agg_weighted_sum`` and the
-   fused top-k ``topk_compress``) is built from ``src/repro_torch/kernels/
-   csrc`` and held against its plain PyTorch version on the card, over a
-   grid of shapes and inputs, in every call form (the top-k bit for bit,
-   with planted ties, ±0, NaN payloads and spans at an odd offset); then
-   timed with CUDA events at the main path's shapes beside its plain
-   version, the one PyTorch call that computes the same function, and its
-   memory bound.
+2. Every kernel is built from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` each, in parallel).  The fold ``agg_weighted_sum`` and the
+   fused top-k ``topk_compress`` are each held against their plain
+   PyTorch version on the card, over a grid of shapes and inputs, in
+   every call form (the top-k bit for bit, with planted ties, ±0, NaN
+   payloads and spans at an odd offset); then timed with CUDA events at
+   the main path's shapes beside the plain version, the one PyTorch call
+   that computes the same function, and the memory bound.
 3. The quickstart configuration (100 clients, 4 executors, 20 per round)
    under a ``TickTimer``, on the card and on the CPU: 10 FedAvg rounds,
    then 3 SCAFFOLD rounds with a spilling ``ClientStateManager`` and an
@@ -31,12 +31,26 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    ``TickTimer``: params after round 0 allclose, later rounds' selection
    differences and partial differences reported beside how far a 1e-7
    perturbation of the CPU run's own params moves them.
+6. The LM serving path (``repro_torch.launch.serve.generate``): (a) the
+   flash-attention kernel held against its plain version on the JAX
+   kernel grid, windows, a non-causal case and the serving shape; (b) timed
+   at the serving shape beside its plain version,
+   ``scaled_dot_product_attention`` and its bound; (c) full-width
+   qwen2-0.5b (494,032,768 params, bf16, random weights from seed 0): a
+   batch of 4 prompts of 1024 tokens, prefill and 32 greedy tokens, with
+   exactly 24 kernel launches in the prefill and none in the decode, and a
+   profile of each; (d) the same model and prompt through the plain
+   ``chunked`` attention: bf16 differences reported, an fp32 copy held to
+   identical tokens and logits within 1e-4; (e) the config cut to 2
+   layers, fp32: the card (kernel) and the CPU (plain) give identical
+   tokens and logits within 1e-4.
 
-Phases 3, 4 and 5 are the main path: kernel launch counters are set to 0
-just before each and read just after, and every kernel of the path must
-have launched.  The second-to-last line is the ``{"kernels": [...]}``
+Phases 3, 4, 5 and 6(c) are the main path: kernel launch counters are set
+to 0 just before each and read just after, and every kernel of the path
+must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -811,6 +825,303 @@ def phase_full_width_topk(T, ops, plain):
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the LM serving path (qwen2-0.5b prefill and decode)
+# ---------------------------------------------------------------------------
+
+BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+
+# (B, S, H, hd, causal, window, dtype): the JAX kernel grid of
+# tests/test_kernels.py:20-50 in fp32 and bf16, causal; its windows; one
+# non-causal case; the serving shape in fp32 and bf16
+FLASH_GRID = ([(B, S, H, hd, True, 0, dt)
+               for B, S, H, hd in ((2, 256, 4, 64), (1, 128, 2, 128),
+                                   (2, 256, 3, 96), (1, 512, 1, 192))
+               for dt in (torch.float32, torch.bfloat16)]
+              + [(1, 256, 2, 64, True, w, torch.float32)
+                 for w in (32, 64, 128)]
+              + [(2, 256, 4, 64, False, 0, torch.float32)]
+              + [(4, 1024, 14, 64, True, 0, dt)
+                 for dt in (torch.float32, torch.bfloat16)])
+# qwen2-0.5b serving: 4 prompts of 1024 tokens, 32 generated; each prefill
+# layer hands the kernel q, k, v of (4, 1024, 14, 64) in bf16
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 14, 64)
+
+
+def flash_tol(dtype):
+    """tests/test_kernels.py's (atol, rtol): the kernel sums in another
+    order than the plain version; bf16 output is rounded once more."""
+    return (2e-5, 1e-3) if dtype == torch.float32 else (2e-2, 1e-2)
+
+
+def flash_bound_ms(B, S, H, hd, itemsize):
+    """Least time for causal attention: q, k, v read and o written once
+    (4·B·S·H·hd·itemsize bytes) over the memory rate vs 4·hd operations
+    for each of the B·H·S(S+1)/2 unmasked (q, k) pairs (q·k and p·v) over
+    the bf16 tensor-core rate; the larger bounds it."""
+    nbytes = 4 * B * S * H * hd * itemsize
+    flops = 4 * hd * B * H * S * (S + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def phase_flash_grid(ops, plain):
+    """Kernel against plain on the card over FLASH_GRID; raises past
+    |kernel - plain| <= atol + rtol·|plain|.  Returns the largest
+    |kernel - plain| by dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, S, H, hd, causal, window, dt in FLASH_GRID:
+        q, k, v = (torch.randn(B, S, H, hd, device="cuda",
+                               generator=gen).to(dt) for _ in range(3))
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        want = plain(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        atol, rtol = flash_tol(dt)
+        diff = (got.float() - want.float()).abs()
+        bad = diff > atol + rtol * want.float().abs()
+        case = (f"(B,S,H,hd)=({B},{S},{H},{hd}) {dt} causal={causal} "
+                f"window={window}")
+        if got.dtype != dt or not bool(torch.isfinite(got).all()) \
+                or bool(bad.any()):
+            raise AssertionError(f"flash_attention {case}: "
+                                 f"{int(bad.sum())} elements past tolerance,"
+                                 f" max err {float(diff.max())}")
+        key = str(dt).replace("torch.", "")
+        max_err[key] = max(max_err[key], float(diff.max()))
+        del q, k, v, got, want, diff, bad
+    ops.reset_flash_counts()       # comparison launches do not count
+    log(f"phase 6: flash_attention matches its plain version on "
+        f"{len(FLASH_GRID)} cases (the JAX grid in fp32/bf16, windows 32/64/"
+        f"128, non-causal, the serving shape {SERVE_SHAPE} fp32/bf16); max "
+        f"|err| fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
+    return max_err
+
+
+def phase_flash_timing(ops, plain):
+    """The kernel at the serving shape beside its plain version and
+    scaled_dot_product_attention (the yardstick; the port never calls
+    it)."""
+    import torch.nn.functional as F
+    timer = Timer()
+    B, S, H, hd = SERVE_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    k_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    host_ms = timer.host_ms(lambda: ops.flash_attention(q, k, v,
+                                                        causal=True))
+    p_ms = timer.ms(lambda: plain(q, k, v, causal=True), reps=10)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    lib_diff = float((F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True).transpose(1, 2).float()
+        - ops.flash_attention(q, k, v, causal=True).float()).abs().max())
+    bound, by, nbytes, flops = flash_bound_ms(B, S, H, hd, 2)
+    fp32_core_ms = flops / FP32_FLOP_PER_S * 1e3
+    ops.reset_flash_counts()       # comparison launches do not count
+    row = {"shape": {"B": B, "S": S, "H": H, "hd": hd, "dtype": "bfloat16",
+                     "causal": True},
+           "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+           "bytes": nbytes, "flops": flops,
+           "fp32_cuda_core_bound_ms": fp32_core_ms,
+           "library_max_abs_diff": lib_diff}
+    log(f"phase 6 timing: flash_attention {SERVE_SHAPE} bf16 causal: kernel "
+        f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
+        f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
+        f"(|diff| {lib_diff:.3g}), bound {bound:.4f} ms ({by}: {nbytes} B, "
+        f"{flops} FLOP); kernel at {100 * bound / k_ms:.2f}% of the bound, "
+        f"{100 * fp32_core_ms / k_ms:.1f}% of the fp32 CUDA-core rate")
+    return row
+
+
+def profile_generate(generate, params, prompt, cfg, gen):
+    """Device busy time and kernel time by name over one ``generate``,
+    from torch.profiler (CUPTI); None where the trace holds no device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(params, prompt, cfg, gen, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us <= 0:
+        return None
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    flash_us = sum(e.self_device_time_total for e in kernels
+                   if "flash_attention" in e.key)
+    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
+            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
+            "kernel_launches": int(sum(e.count for e in kernels)),
+            "flash_device_s": flash_us / 1e6,
+            "top_kernels": [{"name": e.key[:80], "count": int(e.count),
+                             "device_s": e.self_device_time_total / 1e6}
+                            for e in top]}
+
+
+def phase_serve(ops, lm, tree, generate, make_prompt, qwen):
+    """(c) full-width qwen2-0.5b serving through the kernel; (d) the same
+    model and prompt through the plain chunked path, in bf16 and in an
+    fp32 copy; (e) the config cut to 2 layers, fp32, card against CPU."""
+    cfg = dataclasses.replace(qwen, attention_impl="pallas")
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(a.numel() for a in tree.leaves(params))
+    if n_params != cfg.n_params():
+        raise AssertionError(f"{n_params} params, config says "
+                             f"{cfg.n_params()}")
+    prompt = make_prompt(cfg, SERVE_BATCH, SERVE_PROMPT, 0)
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+
+    # a prefill alone (generate with one token runs no decode step): the
+    # first call, untimed in the record but for its wall
+    _, _, first = generate(params, prompt, cfg, 1, "cuda")
+
+    # the main path: counts set to 0 just before, read just after; generate
+    # splits the count between its prefill and its decode loop
+    ops.reset_agg_counts()
+    ops.reset_topk_counts()
+    ops.reset_flash_counts()
+    torch.cuda.reset_peak_memory_stats()
+    toks, logits, t = generate(params, prompt, cfg, G, "cuda")
+    torch.cuda.synchronize()
+    launches = ops.flash_launches
+    peak = torch.cuda.max_memory_allocated()
+    prefill_launches = t["prefill_flash_launches"]
+    decode_launches = t["decode_flash_launches"]
+    log(f"phase 6: flash launches in the main run: {launches} in all, "
+        f"{prefill_launches} in the prefill, {decode_launches} in the "
+        f"{G - 1} decode steps")
+    if (prefill_launches, decode_launches, launches) != \
+            (cfg.n_layers, 0, cfg.n_layers):
+        raise AssertionError(f"expected {cfg.n_layers} flash launches in "
+                             f"the prefill and 0 in the decode, got "
+                             f"{prefill_launches} and {decode_launches} "
+                             f"({launches} in all)")
+    if tuple(toks.shape) != (B, G) or tuple(logits.shape) != \
+            (B, 1, cfg.vocab_size):
+        raise AssertionError(f"shapes {tuple(toks.shape)}, "
+                             f"{tuple(logits.shape)}")
+    if not bool(torch.isfinite(logits).all()) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        raise AssertionError("non-finite logits or tokens out of range")
+    serve = {"arch": cfg.name, "n_params": n_params, "batch": B,
+             "prompt": P, "gen": G, "dtype": cfg.dtype,
+             "init_s": t_init, "first_prefill_s": first["prefill_s"],
+             "prefill_ms": t["prefill_s"] * 1e3,
+             "prefill_tok_per_s": B * P / t["prefill_s"],
+             "decode_ms": t["decode_s"] * 1e3,
+             "decode_tok_per_s": B * (G - 1) / t["decode_s"],
+             "max_memory_allocated": peak,
+             "prefill_flash_launches": prefill_launches,
+             "decode_flash_launches": decode_launches}
+    log(f"phase 6 serve: {cfg.name} ({n_params} params, bf16) B={B} "
+        f"prompt={P} gen={G}: prefill {serve['prefill_ms']:.2f} ms "
+        f"({serve['prefill_tok_per_s']:.0f} tok/s; first call "
+        f"{first['prefill_s'] * 1e3:.2f} ms), decode "
+        f"{serve['decode_ms']:.2f} ms ({serve['decode_tok_per_s']:.1f} "
+        f"tok/s), max_memory_allocated {peak} B; sample tokens "
+        f"{toks[0, :8].tolist()}")
+
+    prof_p = profile_generate(generate, params, prompt, cfg, 1)
+    prof_all = profile_generate(generate, params, prompt, cfg, G)
+    if prof_p is None or prof_all is None:
+        log("phase 6 profile: the trace holds no device time (not measured)")
+    else:
+        # the profiled walls are inflated by the profiler; the idle share
+        # against the unprofiled timed run is reported beside them
+        dec_busy = prof_all["device_busy_s"] - prof_p["device_busy_s"]
+        dec_wall = prof_all["wall_s"] - prof_p["wall_s"]
+        prof_p["device_idle_share_unprofiled"] = \
+            1.0 - prof_p["device_busy_s"] / t["prefill_s"]
+        serve["profile_prefill"] = prof_p
+        serve["profile_decode"] = {
+            "wall_s": dec_wall, "device_busy_s": dec_busy,
+            "device_idle_share": 1.0 - dec_busy / dec_wall,
+            "device_idle_share_unprofiled": 1.0 - dec_busy / t["decode_s"],
+            "kernel_launches": prof_all["kernel_launches"]
+            - prof_p["kernel_launches"]}
+        log(f"phase 6 profile, prefill: wall {prof_p['wall_s']:.4f} s, "
+            f"device busy {prof_p['device_busy_s']:.4f} s, idle share "
+            f"{prof_p['device_idle_share']:.3f} (against the unprofiled "
+            f"prefill {prof_p['device_idle_share_unprofiled']:.3f}), "
+            f"{prof_p['kernel_launches']} kernel launches, flash "
+            f"{prof_p['flash_device_s'] * 1e3:.3f} ms")
+        for k in prof_p["top_kernels"]:
+            log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
+                f"{k['name']}")
+        pd = serve["profile_decode"]
+        log(f"phase 6 profile, {G - 1} decode steps (whole generate less the"
+            f" prefill): wall {dec_wall:.4f} s, device busy {dec_busy:.4f} "
+            f"s, idle share {pd['device_idle_share']:.3f} (against the "
+            f"unprofiled decode {pd['device_idle_share_unprofiled']:.3f}), "
+            f"{pd['kernel_launches']} kernel launches")
+
+    # (d) the kernel path against the plain chunked path on the card
+    chunked = dataclasses.replace(cfg, attention_impl="chunked")
+    toks_c, logits_c, _ = generate(params, prompt, chunked, G, "cuda")
+    bf16_diff = float((logits.float() - logits_c.float()).abs().max())
+    bf16_agree = int((toks == toks_c).sum())
+    del params, logits, logits_c
+    params32 = tree.map(lambda a: a.float(), lm.init_params(
+        torch.Generator(device="cuda").manual_seed(0), cfg))
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    toks_k, logits_k, _ = generate(params32, prompt, cfg32, G, "cuda")
+    toks_p, logits_p, _ = generate(
+        params32, prompt, dataclasses.replace(cfg32, attention_impl="chunked"),
+        G, "cuda")
+    fp32_diff = float((logits_k - logits_p).abs().max())
+    # tolerance: the same fp32 model, attention summed in another order
+    torch.testing.assert_close(logits_k, logits_p, atol=1e-4, rtol=0,
+                               msg="fp32 kernel vs chunked prefill logits")
+    if not torch.equal(toks_k, toks_p):
+        raise AssertionError(f"fp32 kernel vs chunked tokens differ in "
+                             f"{int((toks_k != toks_p).sum())} places")
+    del params32, logits_k, logits_p
+    log(f"phase 6: kernel path vs plain chunked path on the card: bf16 "
+        f"prefill logits max |diff| {bf16_diff:.4g}, {bf16_agree} of "
+        f"{B * G} tokens agree; fp32 copy: logits max |diff| "
+        f"{fp32_diff:.3g} (<= 1e-4), all {B * G} tokens identical")
+
+    # (e) card (kernel) against CPU (plain version), 2 layers, fp32
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p2 = lm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg2)
+    prompt2 = make_prompt(cfg2, 1, 128, 0)
+    ops.reset_flash_counts()
+    toks_g, logits_g, _ = generate(p2, prompt2, cfg2, 8, "cuda")
+    launches2 = ops.flash_launches
+    toks_h, logits_h, _ = generate(tree.map(lambda a: a.cpu(), p2), prompt2,
+                                   cfg2, 8, "cpu")
+    cpu_diff = float((logits_g.cpu() - logits_h).abs().max())
+    torch.testing.assert_close(logits_g.cpu(), logits_h, atol=1e-4, rtol=0,
+                               msg="2-layer card vs CPU prefill logits")
+    if not torch.equal(toks_g.cpu(), toks_h) or launches2 != 2:
+        raise AssertionError(f"2-layer card vs CPU: tokens {toks_g.tolist()}"
+                             f" vs {toks_h.tolist()}, {launches2} launches")
+    ops.reset_flash_counts()
+    log(f"phase 6: 2-layer fp32 config, B=1 prompt=128 gen=8: card (kernel,"
+        f" {launches2} launches) vs CPU (plain): logits max |diff| "
+        f"{cpu_diff:.3g} (<= 1e-4), tokens identical {toks_g[0].tolist()}")
+    serve.update({"kernel_vs_chunked_bf16_logit_max_diff": bf16_diff,
+                  "kernel_vs_chunked_bf16_tokens_agreeing": bf16_agree,
+                  "kernel_vs_chunked_fp32_logit_max_diff": fp32_diff,
+                  "card_vs_cpu_2_layer_logit_max_diff": cpu_diff})
+    return launches, serve
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -821,12 +1132,18 @@ def main() -> int:
     import repro_torch.core as T
     from repro_torch.data import make_classification_clients
     from repro_torch.kernels import _build, ops
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import tree
     from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
+    from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
+    from repro_torch.launch.serve import generate, make_prompt
+    from repro_torch.models import lm
 
     phase_card()
     t0 = time.perf_counter()
-    paths = _build.build(["agg_weighted_sum", "topk_compress"])
+    paths = _build.build(["agg_weighted_sum", "topk_compress",
+                          "flash_attention"])
     log(f"phase 2: built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log(f"--- nvcc -Xptxas -v for {name} ---")
@@ -843,6 +1160,10 @@ def main() -> int:
     fw_launches, fw_rows, fw_prof = phase_full_width(T, ops)
     c_launches, c_rows, c_prof, c_check = phase_full_width_topk(
         T, ops, topk_with_residual_plain)
+    flash_err = phase_flash_grid(ops, flash_attention_plain)
+    flash_t = phase_flash_timing(ops, flash_attention_plain)
+    s_launches, serve = phase_serve(ops, lm, tree, generate, make_prompt,
+                                    get_arch("qwen2-0.5b"))
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     record = {"kernels": [{
@@ -887,6 +1208,26 @@ def main() -> int:
         "compressed_full_width_rounds": c_rows,
         "compressed_full_width_profile": c_prof,
         "card_vs_cpu": c_check,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "launches": s_launches,
+        "max_abs_err": max(flash_err.values()),
+        "max_abs_err_by_dtype": flash_err,
+        "ms": flash_t["ms"],
+        "time_ms": flash_t["ms"],
+        "host_ms": flash_t["host_ms"],
+        "plain_ms": flash_t["plain_ms"],
+        "bound_ms": flash_t["bound_ms"],
+        "bound_by": flash_t["bound_by"],
+        "library_ms": flash_t["library_ms"],
+        "library_call": "torch.nn.functional.scaled_dot_product_attention("
+                        "is_causal=True) on (B, H, S, hd) views",
+        "shape": flash_t["shape"],
+        "timing": flash_t,
+        "serving": serve,
     }]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,21 @@
+"""qwen2.5-14b [dense] — GQA kv=8, QKV bias.
+
+48L d_model=5120 40H (GQA kv=8) d_ff=13824 vocab=152064  [hf:Qwen/Qwen2.5]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-14b",
+    family="dense",
+    n_layers=48,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=13824,
+    vocab_size=152064,
+    head_dim=128,
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    train_microbatches=1,
+    logit_chunk=16384,
+)

@@ -5,10 +5,13 @@
   topk_compress     — fused error-feedback top-k of the compressed wire
                       (CUDA C++, ``csrc/topk_compress.cu``; radix select
                       and a stable compaction; memory-bound)
+  flash_attention   — online-softmax attention of the LM prefill (CUDA
+                      C++, ``csrc/flash_attention.cu``; fp32 products on
+                      the CUDA cores, bound by operations)
 
-``ops`` holds the public wrappers and launch counters.  The three other TPU
-kernels of the JAX package (flash attention, rmsnorm, ssm scan) are not
-ported yet (ROADMAP.md, kernels queue).
+``ops`` holds the public wrappers and launch counters.  The two other TPU
+kernels of the JAX package (rmsnorm, ssm scan) are not ported yet
+(ROADMAP.md, kernels queue).
 """
 from repro_torch.kernels import ops
 

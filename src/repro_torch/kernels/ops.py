@@ -1,5 +1,6 @@
 """Public wrappers around the port's kernels (port of
-``repro/kernels/ops.py``: the aggregation fold and the fused top-k).
+``repro/kernels/ops.py``: the aggregation fold, the fused top-k and flash
+attention).
 
 A wrapper picks the kernel or its plain version by the device of the tensor
 it is given, and by nothing else: a CPU tensor takes the plain PyTorch
@@ -9,9 +10,11 @@ There is no fallback from a failed build or launch.
 Each kernel has two plain-integer counters (``agg_dispatch_count``'s
 counterparts):
 
-* :data:`agg_dispatches` / :data:`topk_dispatches` — every call of the
-  kernel's wrapper, either route;
-* :data:`agg_launches` / :data:`topk_launches` — CUDA launches only,
+* :data:`agg_dispatches` / :data:`topk_dispatches` /
+  :data:`flash_dispatches` — every call of the kernel's wrapper, either
+  route;
+* :data:`agg_launches` / :data:`topk_launches` / :data:`flash_launches` —
+  CUDA launches only,
   incremented exactly where the kernel is launched (``chip_smoke.py`` reads
   them to show that the main path went through the kernels).  A top-k
   launch is one launch sequence, for one span.
@@ -23,12 +26,15 @@ from typing import Sequence, Union
 import torch
 
 from repro_torch.kernels import agg_weighted_sum as _agg
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import topk_compress as _tkc
 
 agg_dispatches = 0
 agg_launches = 0
 topk_dispatches = 0
 topk_launches = 0
+flash_dispatches = 0
+flash_launches = 0
 
 
 def reset_agg_counts() -> None:
@@ -166,3 +172,57 @@ def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
     _tkc.topk_with_residual_cuda(x, res, k, idx, vals, new_res, scratch)
     topk_launches += 1
     return idx, vals, new_res
+
+
+def reset_flash_counts() -> None:
+    global flash_dispatches, flash_launches
+    flash_dispatches = 0
+    flash_launches = 0
+
+
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash attention takes (B, S, H, hd) q, k and v")
+    if q.dtype not in _fa.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash attention takes float32 or bfloat16 q, k and "
+                         f"v of one dtype, got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    B, _, H, hd = q.shape
+    if hd not in _fa.HEAD_DIMS:
+        raise ValueError(f"flash attention takes hd in {_fa.HEAD_DIMS}, "
+                         f"got {hd}")
+    if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (B, H, hd):
+        raise ValueError(f"k and v must be (B, Skv, H, hd) like q "
+                         f"{tuple(q.shape)}, got {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if min(q.shape[1], k.shape[1]) < 1 or B * H > _fa.MAX_BH:
+        raise ValueError(f"flash attention takes S >= 1 and B*H <= "
+                         f"{_fa.MAX_BH}")
+    if any(t.stride(3) != 1 for t in (q, k, v)):
+        raise ValueError("q, k and v need a unit stride along hd")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) — the MHA layout (GQA
+    callers pre-repeat the KV heads) -> (B, Sq, H, hd) in q's dtype.
+
+    Online-softmax attention with scale ``1/sqrt(hd)``, causal when asked
+    and with the optional sliding window ``kpos > qpos - window``.  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel, or
+    raises on what it does not take (hd, dtype, rank, a device mix)."""
+    global flash_dispatches, flash_launches
+    flash_dispatches += 1
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"q, k and v must lie on one device, got "
+                         f"{q.device}, {k.device}, {v.device}")
+    if q.device.type == "cpu":
+        return _fa.flash_attention_plain(q, k, v, causal=causal,
+                                         window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    _check_flash(q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _fa.flash_attention_cuda(q, k, v, out, causal=causal, window=int(window))
+    flash_launches += 1
+    return out

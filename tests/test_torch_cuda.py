@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA kernels (the fold and the fused top-k)
-against their plain versions, and main-path runs that must go through
-them.
+"""The port on the card: the CUDA kernels (the fold, the fused top-k and
+flash attention) against their plain versions, and main-path runs that
+must go through them.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine that has only PyTorch; there, skip ``tests/conftest.py`` (which
@@ -14,11 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
 import repro_torch.core as T
+from repro_torch.configs.registry import ARCHS
+from repro_torch.core import tree
 from repro_torch.data import make_classification_clients
 from repro_torch.kernels import ops
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.topk_compress import topk_with_residual_plain
+from repro_torch.launch.serve import generate, make_prompt
+from repro_torch.models import lm
 
 pytestmark = pytest.mark.cuda
 
@@ -202,3 +209,87 @@ def test_cuda_main_path_goes_through_the_kernel(cuda, tmp_path):
 def test_executor_defaults_to_the_card(cuda):
     algo = T.make_algorithm("fedavg", lambda p, b: (None, p), lr=0.1)
     assert T.SequentialExecutor(0, algo).device == cuda
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+# (B, S, H, hd, causal, window): the JAX kernel grid (tests/test_kernels.py),
+# its windows, a non-causal case, the reduced configs' hd 16 and a ragged
+# S, and the qwen2-0.5b serving shape
+FLASH_GRID = [(2, 256, 4, 64, True, 0), (1, 128, 2, 128, True, 0),
+              (2, 256, 3, 96, True, 0), (1, 512, 1, 192, True, 0),
+              (1, 256, 2, 64, True, 32), (1, 256, 2, 64, True, 64),
+              (1, 256, 2, 64, True, 128), (2, 256, 4, 64, False, 0),
+              (2, 33, 4, 16, True, 0), (1, 200, 2, 32, True, 0),
+              (4, 1024, 14, 64, True, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_GRID, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_matches_plain(cuda, case, dtype):
+    """Tolerances of tests/test_kernels.py: fp32 atol 2e-5 / rtol 1e-3,
+    bf16 atol 2e-2 / rtol 1e-2 (the output is rounded to bf16)."""
+    B, S, H, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    q, k, v = (torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+               for _ in range(3))
+    launches = ops.flash_launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_launches == launches + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = (2e-5, 1e-3) if dtype == torch.float32 else (2e-2, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_cuda_flash_reads_strided_inputs(cuda):
+    """q, k, v as views with a unit stride along hd only (a (B, H, S, hd)
+    buffer seen as (B, S, H, hd)): the kernel reads them in place."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(2, 4, 128, 64, device=cuda, generator=g)
+               .transpose(1, 2) for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-3)
+
+
+def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    with pytest.raises(ValueError):                      # hd 80
+        z = torch.zeros(1, 64, 2, 80, device=cuda)
+        ops.flash_attention(z, z, z)
+    with pytest.raises(ValueError):                      # rank 3
+        z = torch.zeros(2, 64, 64, device=cuda)
+        ops.flash_attention(z, z, z)
+    with pytest.raises(ValueError):                      # CPU/CUDA mix
+        ops.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.cpu(), q, q.cpu())
+    with pytest.raises(ValueError):                      # fp16
+        ops.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+def test_cuda_reduced_generate_matches_cpu(cuda, impl):
+    """qwen2-0.5b reduced (2 layers, hd 16), fp32: the card and the CPU
+    give the same 8 tokens and logits within 1e-4; with ``pallas`` the
+    prefill launches the kernel once a layer and the decode never."""
+    cfg = dataclasses.replace(ARCHS["qwen2-0.5b"].reduced(),
+                              attention_impl=impl)
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompt = make_prompt(cfg, 2, 64, seed=0)
+    ops.reset_flash_counts()
+    toks, logits, t = generate(params, prompt, cfg, 8, cuda)
+    total = ops.flash_launches
+    want_toks, want_logits, _ = generate(
+        tree.map(lambda a: a.cpu(), params), prompt, cfg, 8, "cpu")
+    expect = cfg.n_layers if impl == "pallas" else 0
+    assert (t["prefill_flash_launches"], t["decode_flash_launches"],
+            total) == (expect, 0, expect)
+    assert torch.equal(toks.cpu(), want_toks)
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
+                               rtol=0)

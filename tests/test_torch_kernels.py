@@ -141,3 +141,130 @@ def test_library_path_is_keyed_by_source():
     p = _build.library_path("agg_weighted_sum")
     assert p.parent == _build.BUILD_DIR
     assert p.name.startswith("agg_weighted_sum-") and p.suffix == ".so"
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import flash_attention_plain  # noqa: E402
+from repro_torch.models.attention import chunked_attention  # noqa: E402
+
+
+def _flash_tol(bf16):
+    """tests/test_kernels.py's tolerances: (atol, rtol)."""
+    return (2e-2, 1e-2) if bf16 else (2e-5, 1e-3)
+
+
+def _qkv(shape, bf16, seed):
+    """numpy q, k, v fed to both packages; bf16 values are rounded once (by
+    JAX) and handed to torch as the same values."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(3):
+        a = rng.normal(size=shape).astype(np.float32)
+        if bf16:
+            a = np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+        out.append(a)
+    return out
+
+
+def _pair(arrays, bf16):
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else \
+        (jnp.float32, torch.float32)
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def _assert_flash_close(got, want, bf16):
+    atol, rtol = _flash_tol(bf16)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.parametrize("B,S,H,hd", [(2, 256, 4, 64), (1, 128, 2, 128),
+                                      (2, 256, 3, 96), (1, 512, 1, 192)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flash_plain_matches_jax_ref(B, S, H, hd, bf16):
+    """The JAX kernel test grid (tests/test_kernels.py), causal, through
+    the wrapper on CPU tensors (the plain version)."""
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv((B, S, H, hd), bf16, hd), bf16)
+    got = ops.flash_attention(tq, tk, tv, causal=True)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (B, S, H, hd)
+    _assert_flash_close(got, want, bf16)
+
+
+@pytest.mark.parametrize("window", [32, 64, 128])
+def test_flash_plain_sliding_window_matches_jax_ref(window):
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv((1, 256, 2, 64), False, window),
+                                       False)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=True, window=window)
+    _assert_flash_close(got, want, False)
+
+
+def test_flash_plain_non_causal_matches_jax_ref():
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv((2, 128, 2, 64), False, 11),
+                                       False)
+    got = ops.flash_attention(tq, tk, tv, causal=False)
+    want = jref.flash_attention_ref(jq, jk, jv, causal=False)
+    _assert_flash_close(got, want, False)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flash_plain_matches_jax_pallas_interpret(window, bf16):
+    """Against the Pallas kernel itself, run in interpret mode, at
+    S = 128 (two 64-row blocks, so the KV loop carries m, l and acc)."""
+    (jq, jk, jv), (tq, tk, tv) = _pair(_qkv((1, 128, 2, 64), bf16, 12),
+                                       bf16)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    want = jops.flash_attention(jq, jk, jv, causal=True, window=window,
+                                blk_q=64, blk_k=64)
+    _assert_flash_close(got, want, bf16)
+
+
+@pytest.mark.parametrize("window", [0, 64])
+def test_flash_plain_matches_port_chunked_attention(window):
+    """The kernel's plain version == the model's chunked path (the same
+    function, two algorithms)."""
+    _, (tq, tk, tv) = _pair(_qkv((2, 256, 4, 64), False, 13), False)
+    a = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    b = chunked_attention(tq, tk, tv, causal=True, window=window, chunk=64)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=1e-3)
+
+
+def test_cpu_flash_counts_dispatch_not_launch():
+    ops.reset_flash_counts()
+    q = torch.zeros(1, 8, 2, 16)
+    ops.flash_attention(q, q, q)
+    ops.flash_attention(q, q, q, window=4)
+    assert ops.flash_dispatches == 2
+    assert ops.flash_launches == 0
+
+
+def test_flash_refuses_a_device_mix():
+    q = torch.zeros(1, 8, 2, 16)
+    with pytest.raises(ValueError, match="one device"):
+        ops.flash_attention(q, q.to("meta"), q)
+    with pytest.raises(ValueError):
+        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+
+
+def test_flash_checks_what_the_kernel_takes():
+    """The checks a CUDA tensor meets before launch, run on CPU tensors."""
+    ok = torch.zeros(2, 64, 4, 64)
+    ops._check_flash(ok, ok, ok)
+    bad = [
+        (torch.zeros(2, 64, 4, 80),) * 3,                      # hd 80
+        (torch.zeros(8, 64, 64),) * 3,                         # rank 3
+        (ok.half(),) * 3,                                      # fp16
+        (ok, ok.bfloat16(), ok),                               # dtype mix
+        (ok, torch.zeros(2, 64, 2, 64), torch.zeros(2, 64, 2, 64)),  # H
+        (ok.transpose(1, 3).contiguous().transpose(1, 3), ok, ok),   # hd stride
+    ]
+    for q, k, v in bad:
+        with pytest.raises(ValueError):
+            ops._check_flash(q, k, v)
