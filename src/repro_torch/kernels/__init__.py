@@ -8,10 +8,14 @@
   flash_attention   — online-softmax attention of the LM prefill (CUDA
                       C++, ``csrc/flash_attention.cu``; fp32 products on
                       the CUDA cores, bound by operations)
+  ssm_scan          — chunked SSD / mLSTM scan of the recurrent prefill
+                      (CUDA C++, ``csrc/ssm_scan.cu``; fp32 products on the
+                      CUDA cores, bound by operations)
+  rmsnorm           — every block norm of every LM (CUDA C++,
+                      ``csrc/rmsnorm.cu``; a warp a row, memory-bound)
 
-``ops`` holds the public wrappers and launch counters.  The two other TPU
-kernels of the JAX package (rmsnorm, ssm scan) are not ported yet
-(ROADMAP.md, kernels queue).
+``ops`` holds the public wrappers and launch counters.  Every TPU kernel of
+the JAX package has its counterpart here.
 """
 from repro_torch.kernels import ops
 

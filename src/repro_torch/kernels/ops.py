@@ -1,6 +1,6 @@
 """Public wrappers around the port's kernels (port of
-``repro/kernels/ops.py``: the aggregation fold, the fused top-k and flash
-attention).
+``repro/kernels/ops.py``: the aggregation fold, the fused top-k, flash
+attention, the SSD scan and RMSNorm).
 
 A wrapper picks the kernel or its plain version by the device of the tensor
 it is given, and by nothing else: a CPU tensor takes the plain PyTorch
@@ -11,13 +11,14 @@ Each kernel has two plain-integer counters (``agg_dispatch_count``'s
 counterparts):
 
 * :data:`agg_dispatches` / :data:`topk_dispatches` /
-  :data:`flash_dispatches` — every call of the kernel's wrapper, either
+  :data:`flash_dispatches` / :data:`ssm_scan_dispatches` /
+  :data:`rmsnorm_dispatches` — every call of the kernel's wrapper, either
   route;
-* :data:`agg_launches` / :data:`topk_launches` / :data:`flash_launches` —
-  CUDA launches only,
-  incremented exactly where the kernel is launched (``chip_smoke.py`` reads
-  them to show that the main path went through the kernels).  A top-k
-  launch is one launch sequence, for one span.
+* :data:`agg_launches` / :data:`topk_launches` / :data:`flash_launches` /
+  :data:`ssm_scan_launches` / :data:`rmsnorm_launches` — CUDA launches
+  only, incremented exactly where the kernel is launched (``chip_smoke.py``
+  reads them to show that the main path went through the kernels).  A
+  top-k launch is one launch sequence, for one span.
 """
 from __future__ import annotations
 
@@ -27,6 +28,8 @@ import torch
 
 from repro_torch.kernels import agg_weighted_sum as _agg
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import rmsnorm as _rms
+from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import topk_compress as _tkc
 
 agg_dispatches = 0
@@ -35,6 +38,10 @@ topk_dispatches = 0
 topk_launches = 0
 flash_dispatches = 0
 flash_launches = 0
+ssm_scan_dispatches = 0
+ssm_scan_launches = 0
+rmsnorm_dispatches = 0
+rmsnorm_launches = 0
 
 
 def reset_agg_counts() -> None:
@@ -226,3 +233,123 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _fa.flash_attention_cuda(q, k, v, out, causal=causal, window=int(window))
     flash_launches += 1
     return out
+
+
+def reset_ssm_scan_counts() -> None:
+    global ssm_scan_dispatches, ssm_scan_launches
+    ssm_scan_dispatches = 0
+    ssm_scan_launches = 0
+
+
+def _check_ssm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               log_a: torch.Tensor) -> None:
+    if q.dim() != 4 or k.shape != q.shape or v.dim() != 4 \
+            or log_a.dim() != 3:
+        raise ValueError("the scan takes q, k (B, S, H, N), v (B, S, H, P) "
+                         "and log_a (B, S, H)")
+    B, S, H, N = q.shape
+    if v.shape[:3] != (B, S, H) or log_a.shape != (B, S, H):
+        raise ValueError(f"v {tuple(v.shape)} and log_a "
+                         f"{tuple(log_a.shape)} must match q {tuple(q.shape)}"
+                         f" in (B, S, H)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _ssm.DTYPES:
+            raise ValueError(f"the scan takes float32 or bfloat16 {name}, "
+                             f"got {t.dtype}")
+        if t.stride(3) != 1:
+            raise ValueError(f"{name} needs a unit stride along its last "
+                             f"axis")
+    if log_a.dtype != torch.float32:
+        raise ValueError(f"log_a must be float32, got {log_a.dtype}")
+    if min(q.shape) < 1 or v.shape[3] < 1 or B * H > _ssm.MAX_BH:
+        raise ValueError(f"the scan takes non-empty shapes and B*H <= "
+                         f"{_ssm.MAX_BH}")
+    if _ssm.smem_bytes(N) > _ssm.MAX_SMEM_BYTES:
+        raise ValueError(f"state width N={N} needs {_ssm.smem_bytes(N)} B "
+                         f"of shared memory, more than a block's "
+                         f"{_ssm.MAX_SMEM_BYTES}")
+
+
+def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             log_a: torch.Tensor, *, chunk: int):
+    """q, k: (B, S, H, N); v: (B, S, H, P); log_a: (B, S, H) fp32 (<= 0)
+    -> ``(y (B, S, H, P) in v's dtype, h_final (B, H, N, P) fp32)``, from
+    h0 = 0 (the prefill; a carried state takes ``ssm_scan_plain``).
+
+    ``chunk`` is the model's chunk, which sets the plain version's
+    summation order; the kernel chunks by its own length.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel, reading q,
+    k, v and log_a through their strides (a stride of 0 along H included),
+    or raises on what it does not take."""
+    global ssm_scan_dispatches, ssm_scan_launches
+    ssm_scan_dispatches += 1
+    if any(t.device != q.device for t in (k, v, log_a)):
+        raise ValueError(f"q, k, v and log_a must lie on one device, got "
+                         f"{q.device}, {k.device}, {v.device}, "
+                         f"{log_a.device}")
+    if q.device.type == "cpu":
+        return _ssm.ssm_scan_plain(q, k, v, log_a, chunk)
+    if q.device.type != "cuda":
+        raise ValueError(f"no scan kernel for device {q.device}")
+    _check_ssm(q, k, v, log_a)
+    B, S, H, N = q.shape
+    y = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    h = torch.empty((B, H, N, v.shape[3]), dtype=torch.float32,
+                    device=q.device)
+    _ssm.ssm_scan_cuda(q, k, v, log_a, y, h)
+    ssm_scan_launches += 1
+    return y, h
+
+
+def reset_rmsnorm_counts() -> None:
+    global rmsnorm_dispatches, rmsnorm_launches
+    rmsnorm_dispatches = 0
+    rmsnorm_launches = 0
+
+
+def _check_rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The (T, d) row view of x the kernel reads; raises on what it does
+    not take."""
+    if x.dtype not in _rms.DTYPES or g.dtype not in _rms.DTYPES:
+        raise ValueError(f"rmsnorm takes float32 or bfloat16 x and g, got "
+                         f"{x.dtype}, {g.dtype}")
+    if x.dim() < 1 or g.dim() != 1 or g.shape[0] != x.shape[-1] \
+            or not g.is_contiguous():
+        raise ValueError(f"rmsnorm takes x (..., d) and a contiguous g (d,),"
+                         f" got {tuple(x.shape)}, {tuple(g.shape)}")
+    if x.numel() == 0:
+        raise ValueError("rmsnorm takes a non-empty x")
+    if x.is_contiguous():
+        return x.reshape(-1, x.shape[-1])
+    if x.dim() == 2 and x.stride(1) == 1:
+        return x
+    raise ValueError("rmsnorm takes x contiguous, or 2-D with a unit stride "
+                     "along d")
+
+
+def rmsnorm(x: torch.Tensor, g: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x: (..., d); g: (d,) -> ``x·rsqrt(mean(x²) + eps)·g`` over the last
+    axis, computed in fp32, in x's dtype.  A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel, or raises on what it does
+    not take."""
+    global rmsnorm_dispatches, rmsnorm_launches
+    rmsnorm_dispatches += 1
+    if g.device != x.device:
+        raise ValueError(f"x and g must lie on one device, got {x.device}, "
+                         f"{g.device}")
+    if x.device.type == "cpu":
+        return _rms.rmsnorm_plain(x, g, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"no rmsnorm kernel for device {x.device}")
+    x2 = _check_rmsnorm(x, g)
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    _rms.rmsnorm_cuda(x2, g, out.view(-1, x.shape[-1]), eps)
+    rmsnorm_launches += 1
+    return out
+
+
+def launch_counts() -> dict:
+    """The launch counters of the LM kernels, by kernel name."""
+    return {"flash": flash_launches, "ssm_scan": ssm_scan_launches,
+            "rmsnorm": rmsnorm_launches}

@@ -1,0 +1,145 @@
+"""The chunked scalar-decay linear scan of the SSD (Mamba-2) and mLSTM
+mixers: ``h_t = exp(log_a_t)·h_{t−1} + k_t v_tᵀ``, ``y_t = q_t·h_t``.
+
+Port of ``repro/kernels/ssm_scan.py``.  The Pallas TPU kernel
+(``_ssm_kernel``) becomes ``csrc/ssm_scan.cu``, a CUDA C++ kernel for
+Hopper written by hand; its source note gives the bound and the design.
+This module holds, on the model's layout q, k (B, S, H, N), v (B, S, H, P),
+log_a (B, S, H):
+
+* :func:`ssm_scan_plain` — the plain PyTorch version, the chunked form of
+  ``repro/models/ssm.py:chunked_linear_scan`` step for step (fp32 inside,
+  one chunk of the whole sequence when ``S % chunk != 0``, y in v's dtype).
+  The CPU route, the model's decode step (which carries a state) and the
+  tests use it, and ``chip_smoke.py`` holds the kernel against it on the
+  card.
+* :func:`ssm_scan_ref` — the sequential oracle of ``repro/kernels/ref.py:
+  ssm_scan_ref``, on its (BH, S, ·) layout, for the tests.
+* :func:`ssm_scan_cuda` — the launch of the CUDA kernel (h0 = 0, as the TPU
+  kernel), which reads q, k, v and log_a in place through their strides.
+
+The public wrapper (and the launch counter) is ``ops.ssm_scan``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_SMEM_BYTES = 232448         # dynamic shared memory a Hopper block may take
+MAX_BH = 65535                  # B*H rides on the grid's y dimension
+_L, _PT = 32, 64                # the kernel's chunk and P-tile (csrc)
+
+
+def smem_bytes(N: int) -> int:
+    """Shared memory a kernel block takes at state width N
+    (``scan_smem_bytes`` in the source)."""
+    npad = N + 1 if N % 2 == 0 else N
+    return 4 * (2 * _L * npad + _L * _PT + N * _PT + _L * (_L + 1) + _L)
+
+
+def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   log_a: torch.Tensor, chunk: int,
+                   h0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k: (B,S,H,N); v: (B,S,H,P); log_a: (B,S,H) (<= 0); h0: (B,H,N,P)
+    or None for zeros -> (y (B,S,H,P) in v's dtype, h_final (B,H,N,P)
+    fp32)."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    L = min(chunk, S)
+    if S % L:
+        L = S
+    nc = S // L
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, nc, L, H, N)
+    kf = k.to(f32).reshape(B, nc, L, H, N)
+    vf = v.to(f32).reshape(B, nc, L, H, P)
+    la = log_a.to(f32).reshape(B, nc, L, H)
+    h = (torch.zeros((B, H, N, P), dtype=f32, device=q.device) if h0 is None
+         else h0.to(f32))
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    ys = []
+    for c in range(nc):
+        qc, kc, vc, lac = qf[:, c], kf[:, c], vf[:, c], la[:, c]
+        cum = torch.cumsum(lac, dim=1)            # inclusive log decay
+        total = cum[:, -1]                        # (B,H)
+        # intra-chunk: M[t,s] = (q_t . k_s) * exp(cum_t - cum_s), s <= t
+        scores = torch.einsum("bthn,bshn->bhts", qc, kc)
+        decay = cum[:, :, None, :] - cum[:, None, :, :]        # (B,t,s,H)
+        gate = torch.where(mask[None, :, :, None], torch.exp(decay),
+                           torch.zeros((), dtype=f32, device=q.device))
+        M = scores * gate.permute(0, 3, 1, 2)                  # (B,H,t,s)
+        y_intra = torch.einsum("bhts,bshp->bthp", M, vc)
+        # inter-chunk: y_t += exp(cum_t) * q_t @ h_prev
+        qdec = qc * torch.exp(cum)[..., None]
+        y_inter = torch.einsum("bthn,bhnp->bthp", qdec, h)
+        # next state: h = exp(total) h + sum_s exp(total - cum_s) k_s v_s^T
+        kdec = kc * torch.exp(total[:, None] - cum)[..., None]
+        h = torch.exp(total)[..., None, None] * h + \
+            torch.einsum("bshn,bshp->bhnp", kdec, vc)
+        ys.append(y_intra + y_inter)
+    y = torch.stack(ys, dim=1).reshape(B, S, H, P)
+    return y.to(v.dtype), h
+
+
+def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 log_a: torch.Tensor, h0: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential recurrence.  q, k: (BH, S, N); v: (BH, S, P); log_a:
+    (BH, S); h0: (BH, N, P) -> (y (BH, S, P) in v's dtype, h_final)."""
+    f32 = torch.float32
+    h = h0.to(f32)
+    ys = []
+    for t in range(q.shape[1]):
+        a = torch.exp(log_a[:, t].to(f32))
+        h = a[:, None, None] * h + \
+            k[:, t, :, None].to(f32) * v[:, t, None, :].to(f32)
+        ys.append(torch.einsum("bn,bnp->bp", q[:, t].to(f32), h))
+    return torch.stack(ys, dim=1).to(v.dtype), h
+
+
+_lib = None
+
+
+def _launcher():
+    global _lib
+    if _lib is None:
+        fn = _build.load("ssm_scan").ssm_scan_launch
+        fn.argtypes = ([ctypes.c_void_p] * 6
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = fn
+    return _lib
+
+
+def _code(dtype: torch.dtype) -> int:
+    return 0 if dtype == torch.float32 else 1
+
+
+def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  log_a: torch.Tensor, y: torch.Tensor,
+                  h: torch.Tensor) -> None:
+    """Launch the kernel on the current stream, writing ``y`` (B, S, H, P)
+    and ``h`` (B, H, N, P) fp32, both contiguous.  The caller has checked
+    devices, dtypes, shapes and unit inner strides (``ops._check_ssm``);
+    raises if the launch fails."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    strides = [t.stride(a) for t in (q, k, v, log_a, y) for a in (0, 1, 2)]
+    arr = (ctypes.c_longlong * 15)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                         log_a.data_ptr(), y.data_ptr(), h.data_ptr(), arr,
+                         B, S, H, N, P, _code(q.dtype), _code(k.dtype),
+                         _code(v.dtype), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan launch failed: error {rc} (q "
+                           f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} "
+                           f"{v.dtype})")

@@ -5,13 +5,18 @@ CPU; on the CPU use a reduced config (the default), on the card the full
 one:
 
   python -m repro_torch.launch.serve --device cpu --arch qwen2-0.5b
+  python -m repro_torch.launch.serve --device cpu --arch hymba-1.5b
   python -m repro_torch.launch.serve --full-config --batch 4 \\
-      --prompt-len 1024 --gen 32
+      --prompt-len 1024 --gen 32 [--arch hymba-1.5b | --arch xlstm-125m]
 
+Every arch but the MoE ones (grok-1-314b, llama4-scout) is served.
 ``--attention-impl`` sets ``ModelConfig.attention_impl`` for the prefill:
 ``pallas`` (the default here) runs the hand-written Hopper flash-attention
 kernel, ``chunked`` and ``dense`` the plain PyTorch paths.  The decode step
 attends over the ring-buffer cache in plain PyTorch, as in the JAX package.
+On the card every norm runs the RMSNorm kernel, and the recurrent mixers'
+prefill scan the SSD-scan kernel; their decode steps carry the state in
+plain PyTorch.
 
 Intended differences from the JAX driver: the prompt comes from
 ``numpy.random.default_rng(seed)`` (not ``jax.random``), the params from a
@@ -53,8 +58,10 @@ def generate(params, prompt, cfg, gen: int,
     index on ties, as ``jnp.argmax`` does.  Returns ``(tokens (B, gen)
     int64, prefill logits (B, 1, V), timings)``; the timings are host
     seconds around work that ends in a device synchronise
-    (``prefill_s``, ``decode_s``), beside the flash-kernel launches each
-    part made (``prefill_flash_launches``, ``decode_flash_launches``)."""
+    (``prefill_s``, ``decode_s``), beside the launches of each LM kernel
+    that each part made (``prefill_<name>_launches`` and
+    ``decode_<name>_launches`` for ``flash``, ``ssm_scan`` and
+    ``rmsnorm``)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 
@@ -65,12 +72,12 @@ def generate(params, prompt, cfg, gen: int,
     decode = lm.make_decode_step(cfg)
     with torch.no_grad():
         synchronize(dev)
-        n0 = ops.flash_launches
+        n0 = ops.launch_counts()
         t0 = time.perf_counter()
         logits, caches = prefill(params, prompt)
         synchronize(dev)
         t_prefill = time.perf_counter() - t0
-        n1 = ops.flash_launches
+        n1 = ops.launch_counts()
 
         toks = torch.argmax(logits[:, -1], dim=-1)[:, None]
         out_tokens = [toks]
@@ -85,10 +92,12 @@ def generate(params, prompt, cfg, gen: int,
             out_tokens.append(toks)
         synchronize(dev)
         t_decode = time.perf_counter() - t0
-    return (torch.cat(out_tokens, dim=1), logits,
-            {"prefill_s": t_prefill, "decode_s": t_decode,
-             "prefill_flash_launches": n1 - n0,
-             "decode_flash_launches": ops.flash_launches - n1})
+    n2 = ops.launch_counts()
+    timings = {"prefill_s": t_prefill, "decode_s": t_decode}
+    for name in n0:
+        timings[f"prefill_{name}_launches"] = n1[name] - n0[name]
+        timings[f"decode_{name}_launches"] = n2[name] - n1[name]
+    return torch.cat(out_tokens, dim=1), logits, timings
 
 
 def main(argv=None) -> None:

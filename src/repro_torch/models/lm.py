@@ -50,7 +50,7 @@ def _head(params, h, cfg):
 def forward(params, inputs, cfg, *, positions=None, caches=None,
             cache_index=None, decode=False):
     """inputs: (B,S) ids or (B,S,d) embeddings -> (hidden (B,S,d), caches,
-    aux); aux is the blocks' auxiliary loss, 0.0 for dense blocks."""
+    aux); aux is the blocks' auxiliary loss, 0.0 for every ported block."""
     x = _embed_inputs(params, inputs, cfg)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)

@@ -1,16 +1,22 @@
 """Decoder stack: block composition over a repeating unit of block kinds.
 
-Port of ``repro/models/transformer.py`` for the ``dense`` block kind
-(RMSNorm → GQA attention → residual → RMSNorm → SwiGLU → residual).  The
-param tree is the JAX package's: a tuple over the unit's pattern positions
-of dicts whose leaves are stacked over the ``n_layers / len(unit)``
-repetitions, so ``convert.params_from_jax`` carries weights straight
-across.  A Python loop over the repetitions takes the place of
-``lax.scan``; ``cfg.remat`` and ``cfg.scan_layers`` have no effect here.
+Port of ``repro/models/transformer.py``.  Block kinds:
+  dense   — RMSNorm → GQA attention → residual → RMSNorm → SwiGLU → residual
+  hybrid  — parallel attention + mamba(SSD) heads fused by averaging (Hymba)
+  mlstm   — RMSNorm → mLSTM mixer → residual (xLSTM, no FFN)
+  slstm   — RMSNorm → sLSTM mixer → residual
 
-Not ported yet (each raises ``NotImplementedError``): the MoE FFN and the
-``hybrid``, ``mlstm`` and ``slstm`` block kinds (ROADMAP.md modules item
-17c).
+The param tree is the JAX package's: a tuple over the unit's pattern
+positions of dicts whose leaves are stacked over the ``n_layers /
+len(unit)`` repetitions, so ``convert.params_from_jax`` carries weights
+straight across.  A Python loop over the repetitions takes the place of
+``lax.scan``; ``cfg.remat`` and ``cfg.scan_layers`` have no effect here.
+Caches are updated in place: the attention layer writes its ring buffer,
+and the recurrent states, which the mixers return as new tensors (as in
+JAX), are copied into the stacked cache's views.
+
+Not ported yet: the MoE FFN raises ``NotImplementedError`` (ROADMAP.md
+modules item 17d).
 """
 from __future__ import annotations
 
@@ -19,10 +25,11 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import tree
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 
-_NOT_PORTED = ("the {what} is not ported yet (ROADMAP.md modules item 17c: "
-               "MoE, hybrid and xLSTM blocks)")
+_MOE_NOT_PORTED = ("the MoE FFN is not ported yet (ROADMAP.md modules item "
+                   "17d)")
+KINDS = ("dense", "hybrid", "mlstm", "slstm")
 
 
 def unit_pattern(cfg) -> Tuple[str, ...]:
@@ -40,10 +47,10 @@ def n_rep(cfg) -> int:
 
 
 def _check_kind(cfg, kind: str) -> None:
-    if kind != "dense":
-        raise NotImplementedError(_NOT_PORTED.format(what=f"{kind!r} block"))
-    if cfg.moe is not None:
-        raise NotImplementedError(_NOT_PORTED.format(what="MoE FFN"))
+    if kind not in KINDS:
+        raise ValueError(kind)
+    if cfg.moe is not None and kind == "dense":
+        raise NotImplementedError(_MOE_NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -54,37 +61,98 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
     _check_kind(cfg, kind)
     dtype = layers.dtype_of(cfg.dtype)
     d = cfg.d_model
-    p = {"norm1": layers.rmsnorm_init(d, dtype, gen.device),
-         "attn": attention.attn_init(gen, cfg)}
-    if cfg.d_ff > 0:
-        p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device)
-        p["ffn"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype)
+    p = {"norm1": layers.rmsnorm_init(d, dtype, gen.device)}
+    if kind in ("dense", "hybrid"):
+        p["attn"] = attention.attn_init(gen, cfg)
+        if kind == "hybrid":
+            p["mamba"] = ssm.mamba_init(gen, cfg)
+        if cfg.d_ff > 0:
+            p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device)
+            p["ffn"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype)
+    elif kind == "mlstm":
+        p["mixer"] = ssm.mlstm_init(gen, cfg)
+    else:
+        p["mixer"] = ssm.slstm_init(gen, cfg)
     return p
 
 
 def block_cache(cfg, kind: str, batch: int, seq_len: int, dtype,
                 device=None) -> dict:
-    """Decode cache pytree for one block."""
+    """Decode cache/state pytree for one block."""
     _check_kind(cfg, kind)
-    return {"attn": attention.init_cache(cfg, batch, seq_len, dtype, device)}
+    c = {}
+    if kind in ("dense", "hybrid"):
+        c["attn"] = attention.init_cache(cfg, batch, seq_len, dtype, device)
+    if kind == "hybrid":
+        c["mamba"] = ssm.mamba_init_state(cfg, batch, dtype, device)
+    if kind == "mlstm":
+        c["mixer"] = ssm.mlstm_init_state(cfg, batch, dtype, device)
+    if kind == "slstm":
+        c["mixer"] = ssm.slstm_init_state(cfg, batch, dtype, device)
+    return c
+
+
+def _store(cache: dict, state: dict) -> None:
+    """Copy a mixer's new state into the cache's views, key by key."""
+    for key, val in state.items():
+        cache[key].copy_(val)
+
+
+def _conv_tail(p, h, cfg):
+    """Streaming conv state after a prefill pass: last (K-1) pre-conv inputs.
+
+    The mamba conv operates on the in_proj output, so recompute that tail
+    from the normalised input."""
+    u = layers.dense(p["mamba"]["in_proj"], h[:, -(cfg.ssm.d_conv - 1):, :])
+    xs, _ = torch.chunk(u, 2, dim=-1)
+    return xs
 
 
 def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
                 cache_index=None, decode: bool = False):
-    """Returns (x_out, cache, aux); the cache is updated in place.  A dense
-    block has no auxiliary loss: aux is 0.0."""
+    """Returns (x_out, cache, aux); the cache is updated in place.  No
+    ported block has an auxiliary loss: aux is 0.0."""
     _check_kind(cfg, kind)
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
-    attn_cache = cache.get("attn") if cache else None
-    a_out, new_attn = attention.attention(
-        p["attn"], h, cfg, positions=positions, cache=attn_cache,
-        cache_index=cache_index)
-    new_cache = {} if new_attn is None else {"attn": new_attn}
-    x = x + a_out
-    if cfg.d_ff > 0:
-        h2 = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-        x = x + layers.swiglu(p["ffn"], h2)
-    return x, new_cache, 0.0
+    if kind in ("dense", "hybrid"):
+        attn_cache = cache.get("attn") if cache else None
+        a_out, _ = attention.attention(
+            p["attn"], h, cfg, positions=positions, cache=attn_cache,
+            cache_index=cache_index)
+        if kind == "hybrid":
+            if decode:
+                m_out, new_m = ssm.mamba_step(p["mamba"], h, cache["mamba"],
+                                              cfg)
+                _store(cache["mamba"], new_m)
+            else:
+                m_out, (_, h_st) = ssm.mamba_apply(p["mamba"], h, cfg)
+                if cache is not None:
+                    # prefill: seed the decode state from the scan tail
+                    _store(cache["mamba"], {"conv": _conv_tail(p, h, cfg),
+                                            "h": h_st})
+            a_out = (a_out + m_out) * 0.5
+        x = x + a_out
+        if cfg.d_ff > 0:
+            h2 = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
+            x = x + layers.swiglu(p["ffn"], h2)
+    elif kind == "mlstm":
+        if decode:
+            m_out, st = ssm.mlstm_step(p["mixer"], h, cache["mixer"], cfg)
+            _store(cache["mixer"], st)
+        else:
+            m_out, h_final = ssm.mlstm_apply(p["mixer"], h, cfg)
+            if cache is not None:
+                _store(cache["mixer"], {"h": h_final})
+        x = x + m_out
+    else:
+        if decode:
+            m_out, st = ssm.slstm_step(p["mixer"], h, cache["mixer"], cfg)
+        else:
+            m_out, st = ssm.slstm_apply(p["mixer"], h, cfg)
+        if cache is not None:
+            _store(cache["mixer"], st)
+        x = x + m_out
+    return x, cache, 0.0
 
 
 # ---------------------------------------------------------------------------

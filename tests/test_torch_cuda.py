@@ -1,6 +1,6 @@
-"""The port on the card: the CUDA kernels (the fold, the fused top-k and
-flash attention) against their plain versions, and main-path runs that
-must go through them.
+"""The port on the card: the CUDA kernels (the fold, the fused top-k,
+flash attention, the SSD scan and RMSNorm) against their plain versions,
+and main-path runs that must go through them.
 
 This file imports neither ``jax`` nor ``repro``, so it also runs on a
 machine that has only PyTorch; there, skip ``tests/conftest.py`` (which
@@ -23,6 +23,8 @@ from repro_torch.data import make_classification_clients
 from repro_torch.kernels import ops
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.kernels.topk_compress import topk_with_residual_plain
 from repro_torch.launch.serve import generate, make_prompt
 from repro_torch.models import lm
@@ -293,3 +295,185 @@ def test_cuda_reduced_generate_matches_cpu(cuda, impl):
     assert torch.equal(toks.cpu(), want_toks)
     torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# ssm scan
+# ---------------------------------------------------------------------------
+
+BF = torch.bfloat16
+F32 = torch.float32
+# (B, S, H, N, P, chunk, q/v dtype, k dtype, q and k shared by the heads):
+# a JAX grid point, ragged S (1, 200), the reduced configs' N = 8 and 32,
+# hymba's serving shape (q, k broadcast over 8 heads) and xlstm's (N = 384,
+# P = 385, an fp32 k beside bf16 q and v)
+SCAN_GRID = [(2, 256, 3, 16, 32, 64, F32, F32, False),
+             (2, 512, 3, 8, 64, 256, F32, F32, False),
+             (2, 1, 3, 16, 32, 64, F32, F32, False),
+             (2, 200, 3, 16, 32, 64, F32, F32, False),
+             (2, 48, 4, 32, 33, 16, F32, F32, False),
+             (4, 1024, 8, 16, 400, 256, BF, BF, True),
+             (1, 1024, 8, 16, 400, 256, F32, F32, True),
+             (4, 512, 4, 384, 385, 256, BF, F32, False)]
+
+
+def _scan_tol(dtype):
+    """tests/test_kernels.py's scan tolerance in fp32; in bf16 its bf16
+    tolerance, since y is rounded once to bf16 (a rounding of either side
+    can flip one bf16 step)."""
+    return (2e-4, 1e-3) if dtype == F32 else (2e-2, 1e-2)
+
+
+def _scan_inputs(case, device, seed):
+    B, S, H, N, P, chunk, dt, kdt, shared = case
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, device=device, generator=g)
+
+    Hq = 1 if shared else H
+    q = rnd(B, S, Hq, N).to(dt).expand(B, S, H, N)
+    k = (rnd(B, S, Hq, N) * (0.05 if N > 100 else 0.3)).to(kdt) \
+        .expand(B, S, H, N)
+    v = rnd(B, S, H, P).to(dt)
+    la = -torch.nn.functional.softplus(rnd(B, S, H))
+    return q, k, v, la, chunk
+
+
+@pytest.mark.parametrize("case", SCAN_GRID, ids=str)
+def test_cuda_ssm_scan_matches_plain(cuda, case):
+    q, k, v, la, chunk = _scan_inputs(case, cuda, case[1] + case[3])
+    launches = ops.ssm_scan_launches
+    y, h = ops.ssm_scan(q, k, v, la, chunk=chunk)
+    wy, wh = ssm_scan_plain(q, k, v, la, chunk)
+    torch.cuda.synchronize()
+    assert ops.ssm_scan_launches == launches + 1
+    assert y.dtype == v.dtype and h.dtype == F32
+    assert y.shape == v.shape and h.shape == wh.shape
+    atol, rtol = _scan_tol(v.dtype)
+    torch.testing.assert_close(y.float(), wy.float(), atol=atol, rtol=rtol)
+    torch.testing.assert_close(h, wh, atol=2e-4, rtol=1e-3)
+
+
+def test_cuda_ssm_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, la, _ = _scan_inputs(SCAN_GRID[0], cuda, 0)
+    with pytest.raises(ValueError):                      # fp16
+        ops.ssm_scan(q.half(), k, v, la, chunk=64)
+    with pytest.raises(ValueError):                      # bf16 log_a
+        ops.ssm_scan(q, k, v, la.bfloat16(), chunk=64)
+    with pytest.raises(ValueError):                      # N = 512
+        z = torch.zeros(1, 8, 1, 512, device=cuda)
+        ops.ssm_scan(z, z, torch.zeros(1, 8, 1, 4, device=cuda),
+                     torch.zeros(1, 8, 1, device=cuda), chunk=8)
+    with pytest.raises(ValueError):                      # CPU/CUDA mix
+        ops.ssm_scan(q, k, v.cpu(), la, chunk=64)
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+# (rows, d): tests/test_kernels.py's grid, an odd d (the scalar path), the
+# hymba prefill and decode shapes
+RMS_GRID = [(100, 64), (1000, 896), (256, 128), (7, 33), (4096, 1600),
+            (4, 1600)]
+
+
+@pytest.mark.parametrize("T,d", RMS_GRID)
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_rmsnorm_matches_plain(cuda, T, d, dtype):
+    """tests/test_kernels.py's tolerances: fp32 atol 2e-5, bf16 2e-2,
+    rtol 1e-2."""
+    g = torch.Generator(device=cuda).manual_seed(T + d)
+    x = torch.randn(T, d, device=cuda, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda, generator=g).to(dtype)
+    launches = ops.rmsnorm_launches
+    got = ops.rmsnorm(x, w)
+    want = rmsnorm_plain(x, w)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    atol = 2e-5 if dtype == F32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+
+
+def test_cuda_rmsnorm_takes_leading_axes_strided_rows_and_mixed_g(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn(2, 5, 96, device=cuda, generator=g)
+    w = torch.randn(96, device=cuda, generator=g)
+    rows = torch.randn(6, 200, device=cuda, generator=g)[:, 8:104]
+    for xx, ww in ((x, w), (x.bfloat16(), w), (x, w.bfloat16()),
+                   (rows, w), (rows.bfloat16(), w.bfloat16())):
+        got = ops.rmsnorm(xx, ww, 1e-6)
+        want = rmsnorm_plain(xx, ww, 1e-6)
+        atol = 2e-5 if xx.dtype == F32 else 2e-2
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=1e-2)
+
+
+def test_cuda_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(4, 32, device=cuda)
+    with pytest.raises(ValueError):                      # fp16
+        ops.rmsnorm(x.half(), torch.ones(32, device=cuda).half())
+    with pytest.raises(ValueError):                      # g size
+        ops.rmsnorm(x, torch.ones(31, device=cuda))
+    with pytest.raises(ValueError):                      # d stride
+        ops.rmsnorm(torch.zeros(4, 64, device=cuda)[:, ::2],
+                    torch.ones(32, device=cuda))
+    with pytest.raises(ValueError):                      # CPU/CUDA mix
+        ops.rmsnorm(x, torch.ones(32))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent serving path
+# ---------------------------------------------------------------------------
+
+def _reset_lm_counts():
+    ops.reset_flash_counts()
+    ops.reset_ssm_scan_counts()
+    ops.reset_rmsnorm_counts()
+
+
+@pytest.mark.parametrize("name", ["hymba-1.5b", "xlstm-125m"])
+def test_cuda_reduced_recurrent_generate_matches_cpu(cuda, name):
+    """Reduced hymba-1.5b and xlstm-125m, fp32, prompt 48 (three chunks):
+    the card and the CPU give the same 8 tokens and logits within 1e-4;
+    the prefill launches the scan once for each Mamba or mLSTM layer and
+    the norm once for each norm, the decode steps only the norm."""
+    cfg = dataclasses.replace(ARCHS[name].reduced(), attention_impl="pallas")
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompt = make_prompt(cfg, 2, 48, seed=0)
+    _reset_lm_counts()
+    toks, logits, t = generate(params, prompt, cfg, 8, cuda)
+    want_toks, want_logits, _ = generate(
+        tree.map(lambda a: a.cpu(), params), prompt, cfg, 8, "cpu")
+    hybrid = cfg.family == "hybrid"
+    n_norms = cfg.n_layers * (2 if hybrid else 1) + 1
+    n_scans = cfg.n_layers if hybrid else cfg.n_layers // 2
+    assert (t["prefill_flash_launches"], t["prefill_ssm_scan_launches"],
+            t["prefill_rmsnorm_launches"]) == \
+        (cfg.n_layers if hybrid else 0, n_scans, n_norms)
+    assert (t["decode_flash_launches"], t["decode_ssm_scan_launches"],
+            t["decode_rmsnorm_launches"]) == (0, 0, 7 * n_norms)
+    assert torch.equal(toks.cpu(), want_toks)
+    torch.testing.assert_close(logits.cpu(), want_logits, atol=1e-4, rtol=0)
+
+
+def test_cuda_hymba_prefill_state_seeds_the_decode(cuda):
+    """hymba-1.5b at full width cut to 2 layers, fp32: the decode logit
+    after a prefill through the kernels (whose h_final and conv tail seed
+    the decode state) equals a full forward over the prompt and that token
+    within 2e-4."""
+    cfg = dataclasses.replace(ARCHS["hymba-1.5b"], n_layers=2,
+                              dtype="float32", attention_impl="pallas")
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    prompt = torch.from_numpy(make_prompt(cfg, 1, 300, seed=1)).to(cuda)
+    with torch.no_grad():
+        logits_p, caches = lm.make_prefill_step(cfg, 1, 300, cache_len=301)(
+            params, prompt)
+        nxt = torch.argmax(logits_p[:, -1], dim=-1)[:, None]
+        logits_d, _ = lm.make_decode_step(cfg)(params, nxt, caches, 300)
+        h, _, _ = lm.forward(params, torch.cat([prompt, nxt], dim=1), cfg)
+        full = lm._head(params, h[:, -1:], cfg)
+    torch.testing.assert_close(logits_d, full, atol=2e-4, rtol=0)

@@ -268,3 +268,201 @@ def test_flash_checks_what_the_kernel_takes():
     for q, k, v in bad:
         with pytest.raises(ValueError):
             ops._check_flash(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# ssm scan
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import ssm_scan as tssm  # noqa: E402
+from repro_torch.kernels.rmsnorm import rmsnorm_plain  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+
+# tests/test_kernels.py's scan tolerance: fp32 sums in another order
+SSM_ATOL, SSM_RTOL = 2e-4, 1e-3
+
+
+def _scan_inputs(B, S, H, N, P, seed):
+    """numpy q, k, v, log_a on the model layout, as tests/test_kernels.py
+    draws them (k scaled by 0.1, log_a = -softplus)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, N)).astype(np.float32)
+    k = (rng.normal(size=(B, S, H, N)) * 0.1).astype(np.float32)
+    v = rng.normal(size=(B, S, H, P)).astype(np.float32)
+    la = -np.logaddexp(0.0, rng.normal(size=(B, S, H))).astype(np.float32)
+    return q, k, v, la
+
+
+def _bh(a):
+    """(B, S, H, ...) -> (B*H, S, ...), the TPU kernel's layout."""
+    a = np.moveaxis(a, 2, 1)
+    return a.reshape((-1,) + a.shape[2:])
+
+
+def _scan_close(got, want):
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=SSM_ATOL,
+                               rtol=SSM_RTOL)
+
+
+@pytest.mark.parametrize("S,chunk", [(256, 64), (256, 128), (512, 256)])
+@pytest.mark.parametrize("N,P", [(16, 32), (8, 64)])
+def test_ssm_scan_plain_matches_jax_pallas_interpret(S, chunk, N, P):
+    """The JAX kernel grid (tests/test_kernels.py): the port's wrapper on
+    CPU tensors (the plain version) against the Pallas kernel in interpret
+    mode and the sequential oracle, y and h_final."""
+    B, H = 1, 3
+    q, k, v, la = _scan_inputs(B, S, H, N, P, S + N)
+    y, h = ops.ssm_scan(*map(torch.from_numpy, (q, k, v, la)), chunk=chunk)
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, H, P) and tuple(h.shape) == (B, H, N, P)
+    jy, jh = jops.ssm_scan(*map(jnp.asarray, map(_bh, (q, k, v, la))),
+                           chunk=chunk)
+    ry, rh = jref.ssm_scan_ref(*map(jnp.asarray, map(_bh, (q, k, v, la))),
+                               jnp.zeros((B * H, N, P)))
+    for want_y, want_h in ((jy, jh), (ry, rh)):
+        _scan_close(torch.from_numpy(_bh(y.numpy())), want_y)
+        _scan_close(h.reshape(B * H, N, P), want_h)
+
+
+@pytest.mark.parametrize("S,chunk", [(1, 64), (200, 64), (40, 256)])
+def test_ssm_scan_plain_ragged_matches_jax_ref(S, chunk):
+    """S not a multiple of the chunk (one chunk of the whole sequence, as
+    in JAX) and S below the chunk, against the sequential oracle."""
+    B, H, N, P = 2, 2, 16, 32
+    q, k, v, la = _scan_inputs(B, S, H, N, P, S)
+    y, h = ops.ssm_scan(*map(torch.from_numpy, (q, k, v, la)), chunk=chunk)
+    ry, rh = jref.ssm_scan_ref(*map(jnp.asarray, map(_bh, (q, k, v, la))),
+                               jnp.zeros((B * H, N, P)))
+    _scan_close(torch.from_numpy(_bh(y.numpy())), ry)
+    _scan_close(h.reshape(B * H, N, P), rh)
+
+
+def test_ssm_scan_ref_matches_jax_ref():
+    """The port's sequential oracle, with a nonzero h0, bf16 v."""
+    q, k, v, la = (_bh(a) for a in _scan_inputs(2, 24, 2, 8, 16, 3))
+    h0 = np.random.default_rng(4).normal(size=(4, 8, 16)).astype(np.float32)
+    vb = np.array(jnp.asarray(v, jnp.bfloat16).astype(jnp.float32))
+    got_y, got_h = tssm.ssm_scan_ref(
+        torch.from_numpy(q), torch.from_numpy(k),
+        torch.from_numpy(vb).to(torch.bfloat16), torch.from_numpy(la),
+        torch.from_numpy(h0))
+    want_y, want_h = jref.ssm_scan_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(vb, jnp.bfloat16),
+        jnp.asarray(la), jnp.asarray(h0))
+    assert got_y.dtype == torch.bfloat16 and got_h.dtype == torch.float32
+    np.testing.assert_allclose(got_y.float().numpy(),
+                               np.asarray(want_y.astype(jnp.float32)),
+                               atol=2e-2, rtol=1e-2)
+    _scan_close(got_h, want_h)
+
+
+def test_cpu_ssm_scan_counts_dispatch_not_launch():
+    ops.reset_ssm_scan_counts()
+    q, k, v, la = map(torch.from_numpy, _scan_inputs(1, 8, 2, 4, 8, 0))
+    ops.ssm_scan(q, k, v, la, chunk=4)
+    ops.ssm_scan(q, k, v, la, chunk=8)
+    assert ops.ssm_scan_dispatches == 2
+    assert ops.ssm_scan_launches == 0
+
+
+def test_ssm_scan_checks_what_the_kernel_takes():
+    """The checks a CUDA tensor meets before launch, run on CPU tensors:
+    a head stride of 0 and an fp32 k beside bf16 q and v pass."""
+    q, k, v, la = map(torch.from_numpy, _scan_inputs(2, 8, 3, 16, 40, 0))
+    ops._check_ssm(q, k, v, la)
+    ops._check_ssm(q[:, :, :1].expand(2, 8, 3, 16), k, v, la)
+    ops._check_ssm(q.bfloat16(), k, v.bfloat16(), la)
+    big = torch.zeros(1, 4, 1, 512)
+    bad = [
+        (q.half(), k, v, la),                                   # fp16
+        (q, k, v, la.bfloat16()),                               # log_a dtype
+        (q, k[:, :, :2], v, la),                                # k shape
+        (q, k, v[:, :4], la),                                   # v's S
+        (q, k, v, la[..., :2]),                                 # log_a's H
+        (q.transpose(1, 3).contiguous().transpose(1, 3), k, v, la),  # N stride
+        (big, big, torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1)),   # N too wide
+        (q[..., :0], k[..., :0], v, la),                        # N = 0
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ops._check_ssm(*args)
+    with pytest.raises(ValueError, match="one device"):
+        ops.ssm_scan(q, k, v, la.to("meta"), chunk=4)
+
+
+def test_ssm_scan_smem_fits_both_serving_widths():
+    """The kernel's shared memory at the model widths, against a block's
+    232,448 bytes: hymba N = 16, the reduced configs' 8 and 32, xlstm 384."""
+    for N in (8, 16, 32, 384):
+        assert tssm.smem_bytes(N) <= tssm.MAX_SMEM_BYTES
+    assert tssm.smem_bytes(384) == 209408
+    assert tssm.smem_bytes(512) > tssm.MAX_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# rmsnorm
+# ---------------------------------------------------------------------------
+
+def _rms_tol(bf16):
+    """tests/test_kernels.py's rmsnorm tolerance: (atol, rtol)."""
+    return (2e-2, 1e-2) if bf16 else (2e-5, 1e-2)
+
+
+@pytest.mark.parametrize("T,d", [(100, 64), (1000, 896), (256, 128)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_rmsnorm_plain_matches_jax_pallas_interpret(T, d, bf16):
+    """The JAX kernel grid, through the wrapper on CPU tensors (the plain
+    version), against the Pallas kernel in interpret mode and the oracle."""
+    (x, g, _) = _qkv((T, d), bf16, T + d)
+    g = g[0]
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else \
+        (jnp.float32, torch.float32)
+    got = ops.rmsnorm(torch.from_numpy(x).to(tdt), torch.from_numpy(g).to(tdt))
+    assert got.dtype == tdt and tuple(got.shape) == (T, d)
+    atol, rtol = _rms_tol(bf16)
+    for want in (jops.rmsnorm(jnp.asarray(x, jdt), jnp.asarray(g, jdt)),
+                 jref.rmsnorm_ref(jnp.asarray(x, jdt), jnp.asarray(g, jdt))):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), atol=atol,
+                                   rtol=rtol)
+
+
+def test_rmsnorm_plain_is_the_model_layer_bit_for_bit():
+    """The model's norm is the wrapper: on CPU tensors the same bits as the
+    plain version, leading axes and an fp32 g beside a bf16 x included."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.normal(size=(2, 7, 64)).astype(np.float32))
+    g = torch.from_numpy(rng.normal(size=(64,)).astype(np.float32))
+    for xx, gg in ((x, g), (x.bfloat16(), g), (x.bfloat16(), g.bfloat16())):
+        assert torch.equal(layers.rmsnorm({"g": gg}, xx, 1e-6),
+                           rmsnorm_plain(xx, gg, 1e-6))
+
+
+def test_cpu_rmsnorm_counts_dispatch_not_launch():
+    ops.reset_rmsnorm_counts()
+    ops.rmsnorm(torch.ones(3, 8), torch.ones(8))
+    layers.rmsnorm({"g": torch.ones(8)}, torch.ones(2, 3, 8))
+    assert ops.rmsnorm_dispatches == 2
+    assert ops.rmsnorm_launches == 0
+
+
+def test_rmsnorm_checks_what_the_kernel_takes():
+    """The checks a CUDA tensor meets before launch, run on CPU tensors:
+    the row view the kernel reads, or a ValueError."""
+    x = torch.zeros(4, 6, 32)
+    assert tuple(ops._check_rmsnorm(x, torch.ones(32)).shape) == (24, 32)
+    wide = torch.zeros(8, 64)[:, :32]                # 2-D, row stride 64
+    assert ops._check_rmsnorm(wide, torch.ones(32)).stride() == (64, 1)
+    bad = [
+        (x.half(), torch.ones(32)),                              # fp16
+        (x, torch.ones(31)),                                     # g size
+        (x, torch.ones(32, 1)),                                  # g rank
+        (x.transpose(0, 1), torch.ones(32)),                     # 3-D view
+        (torch.zeros(8, 64)[:, ::2], torch.ones(32)),            # d stride
+        (torch.zeros(0, 32), torch.ones(32)),                    # empty
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            ops._check_rmsnorm(*args)
+    with pytest.raises(ValueError, match="one device"):
+        ops.rmsnorm(x, torch.ones(32).to("meta"))

@@ -1,6 +1,7 @@
 """The port's LM serving path against the JAX package on every reduced
-dense arch: forward hidden states, prefill and decode logits, greedy tokens,
-the sliding-window ring, and the param trees.
+dense arch and the two recurrent ones (hymba-1.5b, xlstm-125m): forward
+hidden states, prefill and decode logits, greedy tokens, the sliding-window
+ring, and the param trees.
 
 Both packages get the same numpy prompt and the same params (JAX's
 ``init_params``, carried over with ``params_from_jax``).  With
@@ -29,7 +30,15 @@ from repro_torch.models import lm, transformer
 TOL = 2e-4
 DENSE = sorted(n for n, c in ARCHS.items()
                if transformer.unit_pattern(c) == ("dense",) and c.moe is None)
+RECURRENT = ["hymba-1.5b", "xlstm-125m"]
+SERVED = DENSE + RECURRENT
+MOE = sorted(n for n, c in ARCHS.items() if c.moe is not None)
+LAUNCH_KEYS = {f"{part}_{k}_launches" for part in ("prefill", "decode")
+               for k in ("flash", "ssm_scan", "rmsnorm")}
 IMPLS = ["pallas", "chunked", "dense"]
+# (arch, attention impl): xlstm-125m has no attention, so one impl
+SERVED_IMPLS = ([(n, i) for n in DENSE + ["hymba-1.5b"] for i in IMPLS]
+                + [("xlstm-125m", "pallas")])
 B, S = 2, 32
 
 
@@ -74,7 +83,7 @@ def test_dense_archs_are_the_six_dense_family_configs():
                             "phi3-mini-3.8b", "qwen2-0.5b", "qwen2.5-14b"])
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_forward_hidden_matches_jax(name):
     jcfg, tcfg = _cfgs(name)
     jp, tp = _params(jcfg)
@@ -86,8 +95,7 @@ def test_forward_hidden_matches_jax(name):
     _close(got, want)
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name,impl", SERVED_IMPLS)
 def test_prefill_and_decode_logits_match_jax(name, impl):
     jcfg, tcfg = _cfgs(name, attention_impl=impl)
     jp, tp = _params(jcfg)
@@ -106,7 +114,7 @@ def test_prefill_and_decode_logits_match_jax(name, impl):
     _close(got_d, want_d)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_prefill_decode_match_port_forward(name):
     """The serving invariants within the port: prefill's last logit equals
     the full forward at S-1, the decode logit the forward at S."""
@@ -123,8 +131,7 @@ def test_prefill_decode_match_port_forward(name):
     _close(logits_d[:, 0], full[:, S].numpy())
 
 
-@pytest.mark.parametrize("impl", IMPLS)
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name,impl", SERVED_IMPLS)
 def test_greedy_tokens_match_jax(name, impl):
     """``generate`` against the JAX serving loop: 8 greedy tokens identical,
     prefill and every decode step's logits within 2e-4."""
@@ -133,12 +140,10 @@ def test_greedy_tokens_match_jax(name, impl):
     prompt = make_prompt(tcfg, B, S, seed=4)
     want_logits, want_steps, want_toks = _jax_greedy(jcfg, jp, prompt, 8)
     toks, logits, timings = generate(tp, prompt, tcfg, 8, "cpu")
-    assert toks.shape == (B, 8) and set(timings) == {
-        "prefill_s", "decode_s", "prefill_flash_launches",
-        "decode_flash_launches"}
-    # the CPU runs the plain version: no kernel launch in either part
-    assert timings["prefill_flash_launches"] == 0
-    assert timings["decode_flash_launches"] == 0
+    assert toks.shape == (B, 8)
+    assert set(timings) == {"prefill_s", "decode_s"} | LAUNCH_KEYS
+    # the CPU runs the plain versions: no kernel launch in either part
+    assert all(timings[k] == 0 for k in LAUNCH_KEYS)
     np.testing.assert_array_equal(toks.numpy(), want_toks)
     _close(logits, want_logits)
     # replay the port's decode steps to hold their logits too
@@ -193,9 +198,12 @@ def test_params_from_jax_carries_the_lm_tree(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", SERVED)
 def test_init_params_gives_the_jax_tree(name, dtype):
-    """Structure, shapes and dtypes of the JAX package's params."""
+    """Structure, shapes and dtypes of the JAX package's params (the Mamba
+    ``log_neg_a`` and ``d_skip`` fp32 in a bf16 tree).  The leaf total is
+    JAX's; ``n_params()`` equals it for the dense archs only (it leaves out
+    the hybrid's conv and dt leaves and counts the xLSTM's otherwise)."""
     jcfg, tcfg = _cfgs(name, dtype=dtype)
     want = jax.eval_shape(lambda k: jlm.init_params(k, jcfg),
                           jax.random.PRNGKey(0))
@@ -204,14 +212,28 @@ def test_init_params_gives_the_jax_tree(name, dtype):
     for a, b in zip(tree.leaves(want), tree.leaves(got)):
         assert tuple(b.shape) == a.shape
         assert str(b.dtype) == f"torch.{a.dtype}"
-    assert sum(b.numel() for b in tree.leaves(got)) == tcfg.n_params()
+    total = sum(b.numel() for b in tree.leaves(got))
+    assert total == sum(a.size for a in tree.leaves(want))
+    if name in DENSE:
+        assert total == tcfg.n_params()
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_full_width_recurrent_param_count_is_jax_s(name):
+    """The full-width leaf totals, from JAX's ``eval_shape``: the numbers
+    the chip run's full-width configs are held to."""
+    want = jax.eval_shape(lambda k: jlm.init_params(k, JARCHS[name]),
+                          jax.random.PRNGKey(0))
+    total = sum(a.size for a in tree.leaves(want))
+    assert total == {"hymba-1.5b": 1640555968, "xlstm-125m": 172920624}[name]
 
 
 def test_unported_blocks_raise():
-    for name in ("grok-1-314b", "hymba-1.5b", "xlstm-125m"):
-        with pytest.raises(NotImplementedError, match="17c"):
+    for name in MOE:
+        with pytest.raises(NotImplementedError, match="17d"):
             lm.init_params(torch.Generator().manual_seed(0),
                            ARCHS[name].reduced())
+    assert MOE == ["grok-1-314b", "llama4-scout-17b-a16e"]
 
 
 def test_serve_cli_runs_on_the_cpu(capsys):
@@ -220,3 +242,12 @@ def test_serve_cli_runs_on_the_cpu(capsys):
     out = capsys.readouterr().out
     assert "arch=qwen2-0.5b B=2 prompt=16 gen=4 device=cpu" in out
     assert "attention=pallas" in out and "sample tokens" in out
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_serve_cli_serves_the_recurrent_archs_on_the_cpu(name, capsys):
+    main(["--device", "cpu", "--arch", name, "--batch", "2",
+          "--prompt-len", "16", "--gen", "4"])
+    out = capsys.readouterr().out
+    assert f"arch={name} B=2 prompt=16 gen=4 device=cpu" in out
+    assert "sample tokens" in out
