@@ -33,24 +33,29 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    perturbation of the CPU run's own params moves them.
 6. The LM serving path (``repro_torch.launch.serve.generate``): (a) the
    flash-attention kernel held against its plain version on the JAX
-   kernel grid, windows, a non-causal case and the serving shape; (b) timed
-   at the serving shape beside its plain version,
-   ``scaled_dot_product_attention`` and its bound; (c) full-width
+   kernel grid, windows, a non-causal case, KV heads read in place at every
+   head dim and the serving shapes, bf16 on the tensor cores and fp32 on the
+   CUDA cores; (b) timed at the serving shape, KV heads as the model passes
+   them, beside its plain version, ``scaled_dot_product_attention`` (the
+   ratio printed) and its bound; (c) full-width
    qwen2-0.5b (494,032,768 params, bf16, random weights from seed 0): a
    batch of 4 prompts of 1024 tokens, prefill and 32 greedy tokens, with
-   exactly 24 kernel launches in the prefill and none in the decode, and a
-   profile of each; (d) the same model and prompt through the plain
+   exactly 24 kernel launches in the prefill (all on the tensor cores) and
+   none in the decode, and a profile of each; (d) the same model and prompt through the plain
    ``chunked`` attention: bf16 differences reported, an fp32 copy held to
    identical tokens and logits within 1e-4; (e) the config cut to 2
    layers, fp32: the card (kernel) and the CPU (plain) give identical
    tokens and logits within 1e-4.  Every norm runs the RMSNorm kernel:
    exactly 49 launches in the prefill and 49 a decode step.
-7. The recurrent serving path: (a) the SSD-scan kernel held against its
-   plain version on the JAX kernel grid, ragged S, and hymba's and xlstm's
-   serving shapes; (b) the RMSNorm kernel on the JAX grid and hymba's
-   shapes; (c) each timed at its serving shape beside its plain version,
-   the library call where there is one (``F.rms_norm``; none for the scan)
-   and its bound, and flash at hymba's attention shape beside
+7. The recurrent serving path: (a) the chunk-parallel SSD-scan kernels
+   held against their plain version on the JAX kernel grid, ragged S, and
+   hymba's and xlstm's serving shapes, ragged S and P with heads sharing q
+   and k on both routes, and N = 384 on the tensor cores; (b) the RMSNorm
+   kernel on the JAX grid and hymba's shapes; (c) each timed at its serving
+   shape beside its plain version, the library call where there is one
+   (``F.rms_norm``; none for the scan) and its bound, the scan's three
+   kernels split by the profiler, and flash at hymba's attention shape
+   (25 query heads on 5 KV heads) beside
    ``scaled_dot_product_attention``; (d) full-width hymba-1.5b
    (1,640,555,968 params, bf16, seed 0), B=4, prompt 1024, 32 tokens, with
    exactly 32 flash, 32 scan and 65 norm launches in the prefill and
@@ -845,22 +850,31 @@ def phase_full_width_topk(T, ops, plain):
 
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 
-# (B, S, H, hd, causal, window, dtype): the JAX kernel grid of
-# tests/test_kernels.py:20-50 in fp32 and bf16, causal; its windows; one
-# non-causal case; the serving shape in fp32 and bf16
-FLASH_GRID = ([(B, S, H, hd, True, 0, dt)
+# (B, S, H, KV, hd, causal, window, dtype): the JAX kernel grid of
+# tests/test_kernels.py:20-50 in fp32 and bf16, causal, KV = H; its windows;
+# one non-causal case; KV heads read in place (KV < H) at every head dim and
+# a ragged S; the serving shapes with their KV heads in fp32 and bf16
+FLASH_GRID = ([(B, S, H, H, hd, True, 0, dt)
                for B, S, H, hd in ((2, 256, 4, 64), (1, 128, 2, 128),
                                    (2, 256, 3, 96), (1, 512, 1, 192))
                for dt in (torch.float32, torch.bfloat16)]
-              + [(1, 256, 2, 64, True, w, torch.float32)
+              + [(1, 256, 2, 2, 64, True, w, torch.float32)
                  for w in (32, 64, 128)]
-              + [(2, 256, 4, 64, False, 0, torch.float32)]
-              + [(4, 1024, 14, 64, True, 0, dt)
-                 for dt in (torch.float32, torch.bfloat16)])
+              + [(2, 256, 4, 4, 64, False, 0, torch.float32)]
+              + [(2, 256, 4, 2, hd, True, 0, torch.bfloat16)
+                 for hd in (16, 32, 64, 96, 128, 192)]
+              + [(2, 200, 6, 3, 64, True, 48, dt)
+                 for dt in (torch.float32, torch.bfloat16)]
+              + [(4, 1024, 14, 2, 64, True, 0, dt)
+                 for dt in (torch.float32, torch.bfloat16)]
+              + [(4, 1024, 25, 5, 64, True, 1024, torch.bfloat16)])
 # qwen2-0.5b serving: 4 prompts of 1024 tokens, 32 generated; each prefill
-# layer hands the kernel q, k, v of (4, 1024, 14, 64) in bf16
+# layer hands the kernel q of (4, 1024, 14, 64) and k, v of (4, 1024, 2, 64)
+# in bf16
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
-SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 14, 64)
+SERVE_SHAPE = (SERVE_BATCH, SERVE_PROMPT, 14, 2, 64)       # B, S, H, KV, hd
+# hymba-1.5b's attention: 25 query heads on 5 KV heads, window 1024
+HYMBA_FLASH = (SERVE_BATCH, SERVE_PROMPT, 25, 5, 64)
 
 
 def flash_tol(dtype):
@@ -869,12 +883,14 @@ def flash_tol(dtype):
     return (2e-5, 1e-3) if dtype == torch.float32 else (2e-2, 1e-2)
 
 
-def flash_bound_ms(B, S, H, hd, itemsize):
-    """Least time for causal attention: q, k, v read and o written once
-    (4·B·S·H·hd·itemsize bytes) over the memory rate vs 4·hd operations
-    for each of the B·H·S(S+1)/2 unmasked (q, k) pairs (q·k and p·v) over
-    the bf16 tensor-core rate; the larger bounds it."""
-    nbytes = 4 * B * S * H * hd * itemsize
+def flash_bound_ms(B, S, H, KV, hd, itemsize):
+    """Least time for causal attention: q read and o written at the H query
+    heads, k and v read at the KV heads they are stored at (the kernel reads
+    them in place), each once — (2·H + 2·KV)·B·S·hd·itemsize bytes — over the
+    memory rate, vs 4·hd operations for each of the B·H·S(S+1)/2 unmasked
+    (q, k) pairs (q·k and p·v) over the bf16 tensor-core rate; the larger
+    bounds it."""
+    nbytes = (2 * H + 2 * KV) * B * S * hd * itemsize
     flops = 4 * hd * B * H * S * (S + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
@@ -882,76 +898,143 @@ def flash_bound_ms(B, S, H, hd, itemsize):
             "operations", nbytes, flops)
 
 
+def flash_inputs(B, S, H, KV, hd, dt, gen):
+    q = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dt)
+    k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen).to(dt)
+            for _ in range(2))
+    return q, k, v
+
+
 def phase_flash_grid(ops, plain):
     """Kernel against plain on the card over FLASH_GRID; raises past
-    |kernel - plain| <= atol + rtol·|plain|.  Returns the largest
-    |kernel - plain| by dtype."""
+    |kernel - plain| <= atol + rtol·|plain|, or if a bf16 case did not run
+    on the tensor cores (an fp32 one on the CUDA cores).  Returns the
+    largest |kernel - plain| by dtype."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    for B, S, H, hd, causal, window, dt in FLASH_GRID:
-        q, k, v = (torch.randn(B, S, H, hd, device="cuda",
-                               generator=gen).to(dt) for _ in range(3))
+    for B, S, H, KV, hd, causal, window, dt in FLASH_GRID:
+        q, k, v = flash_inputs(B, S, H, KV, hd, dt, gen)
+        routes = dict(ops.flash_route_launches)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         want = plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        routes["tensor_cores" if dt == torch.bfloat16 else "cuda_cores"] += 1
         atol, rtol = flash_tol(dt)
         diff = (got.float() - want.float()).abs()
         bad = diff > atol + rtol * want.float().abs()
-        case = (f"(B,S,H,hd)=({B},{S},{H},{hd}) {dt} causal={causal} "
+        case = (f"(B,S,H,KV,hd)=({B},{S},{H},{KV},{hd}) {dt} causal={causal} "
                 f"window={window}")
         if got.dtype != dt or not bool(torch.isfinite(got).all()) \
-                or bool(bad.any()):
+                or bool(bad.any()) or ops.flash_route_launches != routes:
             raise AssertionError(f"flash_attention {case}: "
                                  f"{int(bad.sum())} elements past tolerance,"
-                                 f" max err {float(diff.max())}")
+                                 f" max err {float(diff.max())}, routes "
+                                 f"{ops.flash_route_launches}")
         key = str(dt).replace("torch.", "")
         max_err[key] = max(max_err[key], float(diff.max()))
         del q, k, v, got, want, diff, bad
     ops.reset_flash_counts()       # comparison launches do not count
     log(f"phase 6: flash_attention matches its plain version on "
         f"{len(FLASH_GRID)} cases (the JAX grid in fp32/bf16, windows 32/64/"
-        f"128, non-causal, the serving shape {SERVE_SHAPE} fp32/bf16); max "
-        f"|err| fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
+        f"128, non-causal, KV heads in place at hd 16-192 and a ragged S, the "
+        f"serving shapes {SERVE_SHAPE} fp32/bf16 and {HYMBA_FLASH} bf16), bf16"
+        f" on the tensor cores and fp32 on the CUDA cores; max |err| fp32 "
+        f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
     return max_err
 
 
-def phase_flash_timing(ops, plain):
-    """The kernel at the serving shape beside its plain version and
-    scaled_dot_product_attention (the yardstick; the port never calls
-    it)."""
+def time_flash(label, ops, plain, timer, shape, window, gen):
+    """The bf16 kernel at a serving shape, KV heads as the model passes
+    them, beside its plain version and scaled_dot_product_attention (the
+    yardstick; the port never calls it): one call on the same inputs
+    (``enable_gqa``), and on KV heads repeated beforehand."""
     import torch.nn.functional as F
-    timer = Timer()
-    B, S, H, hd = SERVE_SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen)
-               .to(torch.bfloat16) for _ in range(3))
-    k_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True))
-    host_ms = timer.host_ms(lambda: ops.flash_attention(q, k, v,
-                                                        causal=True))
-    p_ms = timer.ms(lambda: plain(q, k, v, causal=True), reps=10)
+    B, S, H, KV, hd = shape
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, gen)
+    k_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                window=window))
+    host_ms = timer.host_ms(lambda: ops.flash_attention(q, k, v, causal=True,
+                                                        window=window))
+    p_ms = timer.ms(lambda: plain(q, k, v, causal=True, window=window),
+                    reps=10)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    kr, vr = (t.repeat_interleave(H // KV, dim=1) for t in (kt, vt))
+    lib_rep_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kr, vr, is_causal=True))
+    # the window covers the whole prompt at both shapes, so causal SDPA is
+    # the same function
     lib_diff = float((F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True).transpose(1, 2).float()
-        - ops.flash_attention(q, k, v, causal=True).float()).abs().max())
-    bound, by, nbytes, flops = flash_bound_ms(B, S, H, hd, 2)
-    fp32_core_ms = flops / FP32_FLOP_PER_S * 1e3
+        qt, kr, vr, is_causal=True).transpose(1, 2).float()
+        - ops.flash_attention(q, k, v, causal=True, window=window).float())
+        .abs().max())
+    bound, by, nbytes, flops = flash_bound_ms(B, S, H, KV, hd, 2)
     ops.reset_flash_counts()       # comparison launches do not count
-    row = {"shape": {"B": B, "S": S, "H": H, "hd": hd, "dtype": "bfloat16",
-                     "causal": True},
+    lib_best = min(lib_ms, lib_rep_ms)
+    row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                     "dtype": "bfloat16", "causal": True, "window": window},
            "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "bound_ms": bound, "bound_by": by,
+           "library_ms": lib_ms, "library_repeated_kv_ms": lib_rep_ms,
+           "kernel_over_library": k_ms / lib_best,
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
            "bytes": nbytes, "flops": flops,
-           "fp32_cuda_core_bound_ms": fp32_core_ms,
            "library_max_abs_diff": lib_diff}
-    log(f"phase 6 timing: flash_attention {SERVE_SHAPE} bf16 causal: kernel "
-        f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
+    log(f"{label} timing: flash_attention {shape} bf16 causal window {window}"
+        f": kernel {k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms "
-        f"(|diff| {lib_diff:.3g}), bound {bound:.4f} ms ({by}: {nbytes} B, "
-        f"{flops} FLOP); kernel at {100 * bound / k_ms:.2f}% of the bound, "
-        f"{100 * fp32_core_ms / k_ms:.1f}% of the fp32 CUDA-core rate")
+        f"(enable_gqa) / {lib_rep_ms:.4f} ms (KV repeated first; |diff| "
+        f"{lib_diff:.3g}); kernel_ms / library_ms {k_ms / lib_best:.2f}; "
+        f"bound {bound:.4f} ms ({by}: {nbytes} B, {flops} FLOP), kernel at "
+        f"{100 * bound / k_ms:.1f}% of the bound")
+    del q, k, v, qt, kt, vt, kr, vr
     return row
+
+
+def phase_flash_timing(ops, plain):
+    """(b) the kernel at qwen2's serving shape."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    return time_flash("phase 6", ops, plain, Timer(), SERVE_SHAPE, 0, gen)
+
+
+# the device kernels of each LM kernel wrapper, by symbol name
+PORT_KERNEL_SYMBOLS = {
+    "flash_attention": ("flash_tc_kernel", "flash_fp32_kernel"),
+    "ssm_scan": ("ssm_chunk_state_", "ssm_state_pass_", "ssm_chunk_out_"),
+    "rmsnorm": ("rmsnorm_kernel",)}
+
+
+SPLIT_REPS = 20
+
+
+def kernel_split(fn, symbols):
+    """Mean device time a call (ms) and launches a call of each named
+    kernel, from torch.profiler over SPLIT_REPS calls of ``fn``.  The
+    profile's schedule runs the calls twice: a warm-up step with the
+    profiler on, whose records are dropped (a session's first window can
+    come back without its kernels while CUPTI starts up), then the step
+    that is read.  Raises if that step holds none of the kernels."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    got = []
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) \
+            as prof:
+        for _ in range(2):
+            for _ in range(SPLIT_REPS):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+    events = [e for e in (got[0] if got else [])
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and any(s in e.key for s in symbols)]
+    if not events:
+        raise AssertionError(f"the profile holds none of {symbols}")
+    ms = {e.key.split("(")[0]: e.self_device_time_total / SPLIT_REPS / 1e3
+          for e in events}
+    per_call = {e.key.split("(")[0]: e.count / SPLIT_REPS for e in events}
+    return ms, per_call
 
 
 def profile_generate(generate, params, prompt, cfg, gen):
@@ -973,8 +1056,8 @@ def profile_generate(generate, params, prompt, cfg, gen):
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
     by_kernel = {name: sum(e.self_device_time_total for e in kernels
-                           if f"{name}_kernel" in e.key) / 1e6
-                 for name in ("flash_attention", "ssm_scan", "rmsnorm")}
+                           if any(s in e.key for s in symbols)) / 1e6
+                 for name, symbols in PORT_KERNEL_SYMBOLS.items()}
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": int(sum(e.count for e in kernels)),
@@ -1058,14 +1141,19 @@ BF, F32 = torch.bfloat16, torch.float32
 # the JAX kernel grid of tests/test_kernels.py:98-99 (B*H = 3); ragged S
 # (1, 200); hymba's serving shape in bf16 (q and k broadcast over its 8
 # heads) and fp32; xlstm's at S = 512 with the model's fp32 k beside bf16 q
-# and v, and all in bf16
+# and v, and all in bf16; then ragged S (1, 40, 200) and P with q and k
+# shared by the heads (a head stride of 0) on both routes, and N = 384 on
+# the tensor cores
 SCAN_GRID = ([(1, S, 3, N, P, ch, F32, F32, False)
               for S, ch in ((256, 64), (256, 128), (512, 256))
               for N, P in ((16, 32), (8, 64))]
              + [(1, S, 3, 16, 32, 64, F32, F32, False) for S in (1, 200)]
              + [(4, 1024, 8, 16, 400, 256, dt, dt, True) for dt in (BF, F32)]
              + [(4, 512, 4, 384, 385, 256, BF, kdt, False)
-                for kdt in (F32, BF)])
+                for kdt in (F32, BF)]
+             + [(2, S, 3, 16, 33, 64, dt, dt, True)
+                for S in (1, 40, 200) for dt in (BF, F32)]
+             + [(1, 300, 2, 384, 400, 256, BF, BF, False)])
 HYMBA_SCAN = SCAN_GRID[8]           # the prefill's shape, bf16
 XLSTM_SCAN = SCAN_GRID[10]          # the prefill's shape, fp32 k
 # (rows, d): tests/test_kernels.py:140's grid, an odd d (the kernel's
@@ -1098,24 +1186,33 @@ def scan_inputs(case, gen):
 
 
 def scan_bound_ms(case):
-    """Least time for the scan: q, k, v and log_a read once (q and k once
-    for all heads where the heads share them) and y and h_final written
+    """Least time for the scan function: q, k, v and log_a read once (q and
+    k once for all heads where the heads share them), y and h_final written
     once, over the memory rate, vs the recurrence's operations — a
     multiply-add a state element a step for the update and one for the
     readout, 4·N·P·S·B·H — over the bf16 tensor-core rate when q, k and v
     are all bf16, else over the fp32 rate (an fp32 operand keeps the
-    products in fp32); the larger bounds it."""
+    products in fp32); the larger bounds it.  Beside it, this design's own
+    floor: the same bytes plus its workspace's traffic — an (N, P) fp32
+    state for each chunk of 64 steps, written by the chunk-state pass, read
+    and rewritten by the state-passing pass and read by the output pass, 4
+    times its size, and the chunk totals written and read — against the
+    same operations.  Returns (bound, what sets it, bytes, operations,
+    floor, bytes with the workspace)."""
     B, S, H, N, P, _, dt, kdt, shared = case
     isz, ksz = (2 if dt == BF else 4), (2 if kdt == BF else 4)
     Hq = 1 if shared else H
+    nc = -(-S // 64)
     nbytes = (B * S * Hq * N * (isz + ksz) + 2 * B * S * H * P * isz
               + B * S * H * 4 + B * H * N * P * 4)
+    ws_nbytes = nbytes + 4 * (4 * B * H * nc * N * P) + 2 * 4 * B * H * nc
     flops = 4 * N * P * S * B * H
     rate = BF16_FLOP_PER_S if dt == BF and kdt == BF else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
+    floor = max(ws_nbytes / HBM_BYTES_PER_S * 1e3, t_ops)
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
-            "operations", nbytes, flops)
+            "operations", nbytes, flops, floor, ws_nbytes)
 
 
 def rms_bound_ms(T, d, itemsize):
@@ -1155,7 +1252,8 @@ def phase_scan_grid(ops, plain):
     log(f"phase 7: ssm_scan matches its plain version on {len(SCAN_GRID)} "
         f"cases (the JAX grid, S = 1 and 200, hymba (4, 1024, 8, 16, 400) "
         f"bf16/fp32 with q, k broadcast, xlstm (4, 512, 4, 384, 385) with an "
-        f"fp32 or bf16 k); max |err| y fp32 {max_err['float32']:.3g}, y bf16 "
+        f"fp32 or bf16 k, ragged S and P with shared heads on both routes, N "
+        f"= 384 in bf16); max |err| y fp32 {max_err['float32']:.3g}, y bf16 "
         f"{max_err['bfloat16']:.3g}, h_final {max_err['h_final']:.3g}")
     return max_err
 
@@ -1202,7 +1300,10 @@ def phase_recurrent_timing(ops, scan_plain, rms_plain, flash_plain):
         host_ms = timer.host_ms(lambda: ops.ssm_scan(q, k, v, la,
                                                      chunk=chunk))
         p_ms = timer.ms(lambda: scan_plain(q, k, v, la, chunk), reps=10)
-        bound, by, nbytes, flops = scan_bound_ms(case)
+        split, per_call = kernel_split(
+            lambda: ops.ssm_scan(q, k, v, la, chunk=chunk),
+            PORT_KERNEL_SYMBOLS["ssm_scan"])
+        bound, by, nbytes, flops, floor_ms, ws_nbytes = scan_bound_ms(case)
         B, S, H, N, P = case[:5]
         rows[f"ssm_scan_{name}"] = {
             "shape": {"B": B, "S": S, "H": H, "N": N, "P": P,
@@ -1210,12 +1311,18 @@ def phase_recurrent_timing(ops, scan_plain, rms_plain, flash_plain):
                       "qk_shared_by_heads": case[8]},
             "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
             "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "bytes": nbytes, "flops": flops}
+            "bytes": nbytes, "flops": flops,
+            "bytes_with_workspace": ws_nbytes, "design_floor_ms": floor_ms,
+            "kernel_split_ms": split,
+            "launches_per_call": sum(per_call.values()),
+            "launches_per_call_by_kernel": per_call}
         log(f"phase 7 timing: ssm_scan {name} {(B, S, H, N, P)}: kernel "
-            f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
-            f"{p_ms:.4f} ms, no library call, bound {bound:.4f} ms ({by}: "
-            f"{nbytes} B, {flops} FLOP); kernel at "
-            f"{100 * bound / k_ms:.2f}% of the bound")
+            f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms; by kernel "
+            f"{split}, launches a call {per_call}), plain {p_ms:.4f} ms, no "
+            f"library call, bound {bound:.4f} ms ({by}: {nbytes} B, {flops} "
+            f"FLOP); kernel at {100 * bound / k_ms:.2f}% of the bound; the "
+            f"design's floor with its workspace {floor_ms:.4f} ms "
+            f"({ws_nbytes} B); kernel / plain {k_ms / p_ms:.3f}")
         del q, k, v, la
     T, d = RMS_SERVE
     x = torch.randn(T, d, device="cuda", generator=gen).to(BF)
@@ -1238,27 +1345,8 @@ def phase_recurrent_timing(ops, scan_plain, rms_plain, flash_plain):
         f"F.rms_norm {lib_ms} ms (|diff| {lib_diff}), bound {bound:.4f} ms "
         f"({by}: {nbytes} B); kernel at {100 * bound / k_ms:.2f}% of the "
         f"bound")
-    # flash at hymba's attention shape: the window (1024) covers the whole
-    # prompt, so causal attention without a window is the same function
-    B, S, H, hd = 4, 1024, 25, 64
-    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen)
-               .to(BF) for _ in range(3))
-    f_ms = timer.ms(lambda: ops.flash_attention(q, k, v, causal=True,
-                                                window=1024))
-    fp_ms = timer.ms(lambda: flash_plain(q, k, v, causal=True, window=1024),
-                     reps=10)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    fl_ms = timer.ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    bound, by, nbytes, flops = flash_bound_ms(B, S, H, hd, 2)
-    rows["flash_hymba"] = {"shape": {"B": B, "S": S, "H": H, "hd": hd,
-                                     "dtype": "bfloat16", "window": 1024},
-                           "ms": f_ms, "plain_ms": fp_ms, "library_ms": fl_ms,
-                           "bound_ms": bound, "bound_by": by}
-    log(f"phase 7 timing: flash_attention {(B, S, H, hd)} bf16 window 1024: "
-        f"kernel {f_ms:.4f} ms, plain {fp_ms:.4f} ms, "
-        f"scaled_dot_product_attention {fl_ms:.4f} ms, bound {bound:.4f} ms "
-        f"({by})")
+    rows["flash_hymba"] = time_flash("phase 7", ops, flash_plain, timer,
+                                     HYMBA_FLASH, 1024, gen)
     ops.reset_ssm_scan_counts()    # comparison launches do not count
     ops.reset_rmsnorm_counts()
     ops.reset_flash_counts()
@@ -1306,13 +1394,16 @@ def serve_main_run(label, ops, lm, tree, generate, make_prompt, cfg,
     launches = lm_launches(t)
     counters = {"flash": ops.flash_launches, "ssm_scan": ops.ssm_scan_launches,
                 "rmsnorm": ops.rmsnorm_launches}
+    routes = dict(ops.flash_route_launches)
     log(f"{label}: {cfg.name} launches (flash, ssm_scan, rmsnorm) in the "
         f"main run: prefill {launches['prefill']}, {G - 1} decode steps "
-        f"{launches['decode']}; counters {counters}")
+        f"{launches['decode']}; counters {counters}; flash by route {routes}")
     if launches != expect or tuple(counters.values()) != tuple(
-            a + b for a, b in zip(expect["prefill"], expect["decode"])):
+            a + b for a, b in zip(expect["prefill"], expect["decode"])) \
+            or routes["tensor_cores"] != counters["flash"]:
         raise AssertionError(f"{cfg.name}: expected launches {expect}, got "
-                             f"{launches}, counters {counters}")
+                             f"{launches}, counters {counters}, every bf16 "
+                             f"flash launch on the tensor cores: {routes}")
     if tuple(toks.shape) != (B, G) or tuple(logits.shape) != \
             (B, 1, cfg.vocab_size) or not bool(torch.isfinite(logits).all()) \
             or int(toks.min()) < 0 or int(toks.max()) >= cfg.vocab_size:
@@ -1326,7 +1417,8 @@ def serve_main_run(label, ops, lm, tree, generate, make_prompt, cfg,
              "prefill_tok_per_s": B * P / t["prefill_s"],
              "decode_ms": t["decode_s"] * 1e3,
              "decode_tok_per_s": B * (G - 1) / t["decode_s"],
-             "max_memory_allocated": peak, "launches": launches}
+             "max_memory_allocated": peak, "launches": launches,
+             "flash_routes": routes}
     log(f"{label} serve: {cfg.name} ({got_params} params, {cfg.dtype}) "
         f"B={B} prompt={P} gen={G}: prefill {serve['prefill_ms']:.2f} ms "
         f"({serve['prefill_tok_per_s']:.0f} tok/s; first call "
@@ -1518,6 +1610,7 @@ def main() -> int:
     record = {"kernels": [{
         "name": "agg_weighted_sum",
         "route": "cuda",
+        "compute_units": "CUDA cores",
         "source": "src/repro_torch/kernels/csrc/agg_weighted_sum.cu",
         "replaces": "src/repro/kernels/agg_weighted_sum.py:30",
         "launches": fw_launches,
@@ -1539,6 +1632,7 @@ def main() -> int:
     }, {
         "name": "topk_compress",
         "route": "cuda",
+        "compute_units": "CUDA cores",
         "source": "src/repro_torch/kernels/csrc/topk_compress.cu",
         "replaces": "src/repro/kernels/topk_compress.py:47",
         "launches": c_launches["topk_compress"],
@@ -1560,6 +1654,8 @@ def main() -> int:
     }, {
         "name": "flash_attention",
         "route": "cuda",
+        "compute_units": "tensor cores (wgmma, TMA loads) for bf16, the main "
+                         "path; CUDA cores (exact fp32) for fp32",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "launches": q_launch["prefill"][0] + q_launch["decode"][0],
@@ -1573,7 +1669,9 @@ def main() -> int:
         "bound_by": flash_t["bound_by"],
         "library_ms": flash_t["library_ms"],
         "library_call": "torch.nn.functional.scaled_dot_product_attention("
-                        "is_causal=True) on (B, H, S, hd) views",
+                        "is_causal=True, enable_gqa=True) on (B, H, S, hd) "
+                        "views of the same inputs",
+        "kernel_over_library": flash_t["kernel_over_library"],
         "shape": flash_t["shape"],
         "timing": flash_t,
         "serving": serve,
@@ -1582,6 +1680,10 @@ def main() -> int:
     }, {
         "name": "ssm_scan",
         "route": "cuda",
+        "compute_units": "tensor cores (mma.sync bf16) when q, k, v are all "
+                         "bf16 (hymba, the main path); CUDA cores (fp32) "
+                         "otherwise (xlstm's fp32 k)",
+        "launches_per_call": rec_t["ssm_scan_hymba"]["launches_per_call"],
         "source": "src/repro_torch/kernels/csrc/ssm_scan.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:22",
         "launches": h_launch["prefill"][1] + h_launch["decode"][1],
@@ -1604,6 +1706,7 @@ def main() -> int:
     }, {
         "name": "rmsnorm",
         "route": "cuda",
+        "compute_units": "CUDA cores",
         "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:17",
         "launches": h_launch["prefill"][2] + h_launch["decode"][2],

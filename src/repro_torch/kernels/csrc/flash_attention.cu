@@ -1,92 +1,101 @@
 // Flash attention forward for Hopper: online softmax over KV tiles, with a
-// causal mask and an optional sliding window (kpos > qpos - window).
+// causal mask and an optional sliding window (kpos > qpos - window), and the
+// KV heads read in place (query head h reads KV head h / (H / KV), the order
+// of jnp.repeat, so grouped-query attention needs no repeated copy of K, V).
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:_flash_kernel
 // (launched by flash_attention_bhsd, reached through repro/kernels/ops.py
 // flash_attention from the attention layer when attention_impl="pallas").
-// It computes what that kernel computes: q is scaled by 1/sqrt(hd) in fp32,
-// masked scores are -1e30 (not -inf, so a row whose tile is wholly masked
-// stays finite), the running max m, normaliser l and accumulator acc are
-// fp32, l is clamped at 1e-30, and the output is in q's dtype.
+// It computes what that kernel computes: scores scaled by 1/sqrt(hd) in fp32,
+// masked scores -1e30 (not -inf, so a row whose tile is wholly masked stays
+// finite), the running max m, normaliser l and accumulator fp32, l clamped at
+// 1e-30, the output in q's dtype.
 //
-// What bounds it.  At the qwen2-0.5b serving shape (B=4, S=1024, H=14,
-// hd=64, bf16, causal) one call must read q, k, v and write o: 29.36 MB, or
-// 8.76 us at 3.35 TB/s; its causal products are 7.52 GFLOP, or 7.61 us at the
-// 989 TFLOP/s of the bf16 tensor cores (H100 SXM data sheet).  So the least
-// time is set by bytes.  This first kernel does its products on the CUDA
-// cores in fp32, where the same FLOPs need at least 112 us at 67 TFLOP/s: it
-// is bound by operations, far above the bound.  Tensor cores (mma.sync or
-// wgmma), TMA loads and indexing KV heads in place of the repeated copy are
-// later work.
+// Two instantiations, picked by the input dtype (a dispatch on the input, not
+// a fallback: each raises on what it does not take):
 //
-// Design.  The TPU grid walks the KV blocks of one (bh, q-block) in order,
-// carrying m, l and acc in VMEM scratch.  Here one block of 256 threads owns
-// one (bh, 64-row q-tile) and loops over 64-key KV tiles itself, carrying m,
-// l and acc in registers.  Thread (ty, tx) = (tid / 16, tid % 16) owns the
-// q rows ty + 16 i (i < 4): it computes the 4 x 4 scores of those rows at the
-// keys tx + 16 j, and the output columns tx + 16 c (c < hd / 16) of the same
-// rows, so the per-row rescale factor never leaves the thread.  The 16
-// threads that share a row sit in one half-warp, so row max and row sum are
-// four xor-shuffles.  Q, K and V tiles are staged in shared memory as fp32
-// (rows of Q and K padded to hd + 1 words, so the 16 key rows a half-warp
-// reads fall in distinct banks); P goes through shared memory to the P.V
-// product.  Shared memory is 66 KB at hd = 64 and 161 KB at hd = 192, taken
-// as dynamic shared memory.  KV tiles wholly above the diagonal, or wholly
-// before every row's window, are skipped: in the TPU kernel their
-// contribution is rescaled by exp(-1e30 - m) = 0 once a real score arrives,
-// so the result is the same.  The kernel masks its own ragged edges (rows of
-// q past Sq, keys past Skv read as zero), and the largest q-tiles of each bh
-// are launched first, as they have the most KV tiles to walk.
+// * bf16: flash_tc_kernel, the products on the tensor cores (wgmma).
+// * fp32: flash_fp32_kernel, the products in fp32 on the CUDA cores.  TF32
+//   would keep ~3 decimal digits and break the fp32 tolerances (2e-5 against
+//   the plain version, 1e-4 on model logits), so fp32 stays exact fp32.
 //
-// q, k, v and o are read and written in place through (batch, seq, head)
-// strides with a unit stride along hd, so the (B, S, H, hd) layout of the
-// attention layer needs no transpose copies.
+// What bounds it.  At the qwen2-0.5b serving shape (B=4, S=1024, H=14, KV=2,
+// hd=64, bf16, causal) one call must read q (at H heads), k and v (at KV
+// heads) and write o: 16.8 MB, or 5.0 us at 3.35 TB/s; its causal products
+// are 7.52 GFLOP, or 7.6 us at the 989 TFLOP/s of the bf16 tensor cores (H100
+// SXM data sheet).  So the tensor cores' rate sets the least time, and the
+// products must run on them; the softmax between the two products (an exp
+// per score) is the next limit, as in FlashAttention-3.
 //
-// Plain C interface, loaded with ctypes.  The launch goes to the caller's
+// Tensor-core design (bf16).  A block of 288 threads owns a 128-row q-tile of
+// one (b, q-head): two consumer warpgroups of 64 rows each and one producer
+// warp.  The producer loads the q-tile once and then K and V tiles of 64 keys
+// into a ring of 2-3 stages in shared memory with TMA (cp.async.bulk.tensor,
+// 128-byte swizzle), each stage signalled on an mbarrier ("full") and handed
+// back by the consumers on another ("empty").  The tensor maps are 4-D (hd, S,
+// heads, B) over the caller's strides, so q, k, v are read in place and the
+// KV head is a coordinate.  The head dim is cut into 64-column panels (8 KB of
+// 64 rows, one 128-byte swizzle row each); hd 16 and 32 fill one panel and hd
+// 96 two, the columns past hd filled with zeros by TMA (they add nothing to a
+// score, and the matching output columns are not stored).  A consumer
+// warpgroup computes S = Q K^T with wgmma m64n64k16 (both operands from shared
+// memory, K-major), scales and masks S in its fp32 accumulator registers,
+// runs the online softmax there (a row's max and sum across the 4 threads
+// that hold it), turns P into bf16 register fragments in place (the
+// accumulator layout of S is the A-operand layout of the next product), and
+// computes O += P V with wgmma m64n{64,128,192}k16, A from registers and V as
+// the MN-major B operand through the transpose bit (no transposed copy).  O
+// is written from registers in q's dtype.  At hd <= 64 two blocks share an
+// SM.  KV tiles wholly above the diagonal
+// or wholly before every row's window are not loaded; a warpgroup whose rows
+// have nothing in a loaded tile skips it.  Ragged Sq and Skv: rows past Sq
+// read zeros and are not stored, keys past Skv read zeros and are masked.
+// The q-tiles with the most KV tiles of every (b, h) are launched first.
+//
+// CUDA-core design (fp32).  A block of 256 threads owns one (b, h, 64-row
+// q-tile) and loops over 64-key KV tiles, carrying m, l and acc in
+// registers: thread (ty, tx) = (tid / 16, tid % 16) owns the q rows ty + 16 i
+// (i < 4), the 4 x 4 scores of those rows at the keys tx + 16 j, and the
+// output columns tx + 16 c of the same rows, so the per-row rescale factor
+// never leaves the thread; row max and sum are four xor-shuffles.  Q, K and V
+// tiles are staged in shared memory (66 KB at hd 64, 161 KB at hd 192).
+//
+// Plain C interface, loaded with ctypes.  A launch goes to the caller's
 // stream, does not synchronise and allocates nothing; the return value is
-// cudaGetLastError() after the launch (or the error of setting the shared
-// memory limit).
+// cudaGetLastError() after the launch (or the error of a setup step).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#define FA_NEG_INF (-1e30f)
+#define FA_MAX_DEVICES 64
+
+// ---------------------------------------------------------------------------
+// fp32: the products on the CUDA cores
+// ---------------------------------------------------------------------------
+
 #define FA_BQ 64
 #define FA_BK 64
 #define FA_THREADS 256
-#define FA_NEG_INF (-1e30f)
 
 struct FlashParams {
-    const void* q;
-    const void* k;
-    const void* v;
-    void* o;
+    const float* q;
+    const float* k;
+    const float* v;
+    float* o;
     long long sq[3];   // strides in elements: batch, seq, head
     long long sk[3];
     long long sv[3];
     long long so[3];
     int H;
+    int group;         // query heads a KV head serves
     int Sq;
     int Skv;
     int causal;
     int window;
     float scale;
-};
-
-template <typename T> struct Elem;
-
-template <> struct Elem<float> {
-    __device__ static inline float load(const float* p) { return *p; }
-    __device__ static inline void store(float* p, float x) { *p = x; }
-};
-
-template <> struct Elem<__nv_bfloat16> {
-    __device__ static inline float load(const __nv_bfloat16* p) {
-        return __bfloat162float(*p);
-    }
-    __device__ static inline void store(__nv_bfloat16* p, float x) {
-        *p = __float2bfloat16(x);   // round to nearest even, as astype does
-    }
 };
 
 template <int HD>
@@ -95,9 +104,9 @@ constexpr size_t flash_smem_bytes() {
                             + (size_t)FA_BK * HD + (size_t)FA_BQ * (FA_BK + 1));
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_attention_kernel(const FlashParams p) {
+flash_fp32_kernel(const FlashParams p) {
     constexpr int QS = HD + 1;        // padded row stride of the Q and K tiles
     constexpr int PS = FA_BK + 1;     // padded row stride of the P tile
     constexpr int NC = HD / 16;       // output columns per thread
@@ -110,22 +119,22 @@ flash_attention_kernel(const FlashParams p) {
     const int bh = blockIdx.y;
     const int b = bh / p.H;
     const int h = bh % p.H;
+    const int kvh = h / p.group;
     const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_BQ;   // heavy tiles first
     const int tid = threadIdx.x;
     const int ty = tid / 16;
     const int tx = tid % 16;
 
-    const T* qg = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[2];
-    const T* kg = static_cast<const T*>(p.k) + b * p.sk[0] + h * p.sk[2];
-    const T* vg = static_cast<const T*>(p.v) + b * p.sv[0] + h * p.sv[2];
-    T* og = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[2];
+    const float* qg = p.q + b * p.sq[0] + h * p.sq[2];
+    const float* kg = p.k + b * p.sk[0] + kvh * p.sk[2];
+    const float* vg = p.v + b * p.sv[0] + kvh * p.sv[2];
+    float* og = p.o + b * p.so[0] + h * p.so[2];
 
     for (int i = tid; i < FA_BQ * HD; i += FA_THREADS) {
         const int r = i / HD;
         const int c = i % HD;
         const int s = q0 + r;
-        Qs[r * QS + c] = s < p.Sq
-            ? Elem<T>::load(qg + (long long)s * p.sq[1] + c) * p.scale : 0.f;
+        Qs[r * QS + c] = s < p.Sq ? qg[(long long)s * p.sq[1] + c] * p.scale : 0.f;
     }
 
     float m[4], l[4], acc[4][NC];
@@ -151,8 +160,8 @@ flash_attention_kernel(const FlashParams p) {
             const int c = i % HD;
             const int s = k0 + r;
             const bool in = s < p.Skv;
-            Ks[r * QS + c] = in ? Elem<T>::load(kg + (long long)s * p.sk[1] + c) : 0.f;
-            Vs[r * HD + c] = in ? Elem<T>::load(vg + (long long)s * p.sv[1] + c) : 0.f;
+            Ks[r * QS + c] = in ? kg[(long long)s * p.sk[1] + c] : 0.f;
+            Vs[r * HD + c] = in ? vg[(long long)s * p.sv[1] + c] : 0.f;
         }
         __syncthreads();
 
@@ -232,66 +241,588 @@ flash_attention_kernel(const FlashParams p) {
         const int row = q0 + ty + 16 * i;
         if (row >= p.Sq) continue;
         const float denom = fmaxf(l[i], 1e-30f);
-        T* orow = og + (long long)row * p.so[1];
+        float* orow = og + (long long)row * p.so[1];
 #pragma unroll
-        for (int c = 0; c < NC; ++c)
-            Elem<T>::store(orow + tx + 16 * c, acc[i][c] / denom);
+        for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
     }
 }
 
-#define FA_MAX_DEVICES 64
-
 // The shared-memory limit is raised once for each instantiation on each
 // device, at its first launch there, not at every call.
-template <typename T, int HD>
-static int launch(const FlashParams& p, int BH, cudaStream_t stream) {
-    constexpr size_t smem = flash_smem_bytes<HD>();
-    static bool smem_set[FA_MAX_DEVICES] = {};
+template <typename K>
+static int raise_smem_once(K kernel, size_t smem, bool (&done)[FA_MAX_DEVICES]) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     if (dev < 0 || dev >= FA_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (!smem_set[dev]) {
-        err = cudaFuncSetAttribute(
-            flash_attention_kernel<T, HD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (!done[dev]) {
+        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
         if (err != cudaSuccess) return (int)err;
-        smem_set[dev] = true;
+        done[dev] = true;
     }
+    return 0;
+}
+
+template <int HD>
+static int launch_fp32(const FlashParams& p, int BH, cudaStream_t stream) {
+    constexpr size_t smem = flash_smem_bytes<HD>();
+    static bool smem_set[FA_MAX_DEVICES] = {};
+    const int err = raise_smem_once(flash_fp32_kernel<HD>, smem, smem_set);
+    if (err) return err;
     const dim3 grid((p.Sq + FA_BQ - 1) / FA_BQ, BH);
-    flash_attention_kernel<T, HD><<<grid, FA_THREADS, smem, stream>>>(p);
+    flash_fp32_kernel<HD><<<grid, FA_THREADS, smem, stream>>>(p);
     return (int)cudaGetLastError();
 }
 
-template <typename T>
-static int launch_hd(const FlashParams& p, int BH, int hd, cudaStream_t stream) {
-    switch (hd) {
-        case 16: return launch<T, 16>(p, BH, stream);
-        case 32: return launch<T, 32>(p, BH, stream);
-        case 64: return launch<T, 64>(p, BH, stream);
-        case 96: return launch<T, 96>(p, BH, stream);
-        case 128: return launch<T, 128>(p, BH, stream);
-        case 192: return launch<T, 192>(p, BH, stream);
-        default: return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// bf16: the products on the tensor cores
+// ---------------------------------------------------------------------------
+
+#define TC_BQ 128            // q rows a block: two consumer warpgroups of 64
+#define TC_BK 64             // keys a KV tile
+#define TC_THREADS 288       // 2 consumer warpgroups + 1 producer warp
+#define TC_PANEL 8192        // 64 rows x 64 bf16 columns, 128-byte swizzled
+
+struct TcParams {
+    __nv_bfloat16* o;
+    long long so[3];         // o's strides in elements: batch, seq, head
+    int H;
+    int group;
+    int Sq;
+    int Skv;
+    int hd;
+    int causal;
+    int window;
+    float scale_log2;        // log2(e) / sqrt(hd): scores in the exp2 domain
+};
+
+template <int NP>            // 64-column panels of the head dim
+struct TcShape {
+    static constexpr int STAGES = NP == 3 ? 2 : 3;
+    static constexpr size_t Q_BYTES = 2 * NP * TC_PANEL;
+    static constexpr size_t KV_BYTES = NP * TC_PANEL;     // one K or V tile
+    static constexpr size_t BAR_OFF = Q_BYTES + 2 * STAGES * KV_BYTES;
+    // 1 KB of slack to align the tiles to the 1 KB swizzle period
+    static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 1);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+    const uint32_t addr = smem_u32(bar);
+    uint32_t done = 0;
+    do {
+        asm volatile("{\n.reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n}\n"
+                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
+    } while (!done);
+}
+
+// one 64 x 64 box of a 4-D (hd, S, heads, B) tensor into a swizzled panel
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int col, int row,
+                                         int head, int batch) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(col), "r"(row), "r"(head), "r"(batch), "r"(smem_u32(bar))
+        : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1 KB aligned
+// swizzle period): lbo and sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
+                                               uint32_t sbo) {
+    const uint32_t a = smem_u32(tile);
+    return (uint64_t)((a & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
+         | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
+         | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from touching accumulator registers across an async
+// wgmma (reads after the wait depend on this)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // round to nearest even
+    return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T; both K-major
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// D (64 x 192, fp32) += A (64 x 16, registers) . B (16 x 192, smem, MN-major)
+__device__ __forceinline__ void wgmma_rs_m64n192(float (&d)[96], const uint32_t (&a)[4],
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23,"
+        " %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39,"
+        " %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55,"
+        " %56, %57, %58, %59, %60, %61, %62, %63,"
+        " %64, %65, %66, %67, %68, %69, %70, %71,"
+        " %72, %73, %74, %75, %76, %77, %78, %79,"
+        " %80, %81, %82, %83, %84, %85, %86, %87,"
+        " %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+
+template <int NP>
+__device__ __forceinline__ void wgmma_pv(float (&d)[32 * NP],
+                                         const uint32_t (&a)[4], uint64_t db) {
+    if constexpr (NP == 1) wgmma_rs_m64n64(d, a, db, 1);
+    else if constexpr (NP == 2) wgmma_rs_m64n128(d, a, db, 1);
+    else wgmma_rs_m64n192(d, a, db, 1);
+}
+
+// at one panel (hd <= 64) two blocks share an SM: registers capped at 112
+// a thread (66 KB of shared memory a block), so one block's softmax overlaps
+// the other's products and loads
+template <int NP>
+__global__ void __launch_bounds__(TC_THREADS, NP == 1 ? 2 : 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, const TcParams p) {
+    using Shape = TcShape<NP>;
+    constexpr int ST = Shape::STAGES;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* base = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+    uint8_t* Qs = base;                              // [warpgroup][panel]
+    uint8_t* Ks = Qs + Shape::Q_BYTES;               // [stage][panel]
+    uint8_t* Vs = Ks + ST * Shape::KV_BYTES;         // [stage][panel]
+    uint64_t* full = reinterpret_cast<uint64_t*>(base + Shape::BAR_OFF);
+    uint64_t* empty = full + ST;
+    uint64_t* qbar = empty + ST;
+
+    const int bh = blockIdx.x;
+    const int b = bh / p.H;
+    const int h = bh % p.H;
+    const int q0 = (gridDim.y - 1 - blockIdx.y) * TC_BQ;   // heavy tiles first
+    // KV tiles that hold an unmasked key for some row of this q-tile
+    const int q_last = min(q0 + TC_BQ, p.Sq) - 1;
+    int kt_end = (p.Skv + TC_BK - 1) / TC_BK;
+    if (p.causal) kt_end = min(kt_end, q_last / TC_BK + 1);
+    const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / TC_BK : 0;
+    const int n_tiles = kt_end - kt_begin;
+
+    const int tid = threadIdx.x;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    if (tid == 0) {
+        for (int s = 0; s < ST; ++s) {
+            mbar_init(&full[s], 1);
+            mbar_init(&empty[s], 8);      // lane 0 of each consumer warp
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
+    __syncthreads();
+
+    if (warp == 8) {                      // the producer warp
+        if (lane == 0) {
+            const int kvh = h / p.group;
+            mbar_expect_tx(qbar, (uint32_t)Shape::Q_BYTES);
+            for (int g = 0; g < 2; ++g)
+                for (int pn = 0; pn < NP; ++pn)
+                    tma_load(Qs + (g * NP + pn) * TC_PANEL, &tq, qbar, 64 * pn,
+                             q0 + 64 * g, h, b);
+            for (int i = 0; i < n_tiles; ++i) {
+                const int s = i % ST;
+                mbar_wait(&empty[s], ((i / ST) & 1) ^ 1);
+                mbar_expect_tx(&full[s], (uint32_t)(2 * Shape::KV_BYTES));
+                const int k0 = (kt_begin + i) * TC_BK;
+                for (int pn = 0; pn < NP; ++pn) {
+                    tma_load(Ks + (s * NP + pn) * TC_PANEL, &tk, &full[s],
+                             64 * pn, k0, kvh, b);
+                    tma_load(Vs + (s * NP + pn) * TC_PANEL, &tv, &full[s],
+                             64 * pn, k0, kvh, b);
+                }
+            }
+        }
+        return;
+    }
+
+    // a consumer warpgroup: rows r_min .. r_min + 63 of the q-tile; this
+    // thread holds rows row0 and row0 + 8 of the accumulators
+    const int wg = warp / 4;
+    const int r_min = q0 + 64 * wg;
+    const int r_max = min(r_min + 63, p.Sq - 1);   // < r_min: no valid row
+    const int row0 = r_min + 16 * (warp % 4) + lane / 4;
+    const int row1 = row0 + 8;
+    const int cq = 2 * (lane % 4);                  // first column of a pair
+
+    float oacc[32 * NP];
+#pragma unroll
+    for (int i = 0; i < 32 * NP; ++i) oacc[i] = 0.f;
+    float m0 = FA_NEG_INF, m1 = FA_NEG_INF, l0 = 0.f, l1 = 0.f;
+
+    mbar_wait(qbar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % ST;
+        const int k0 = (kt_begin + i) * TC_BK;
+        mbar_wait(&full[s], (i / ST) & 1);
+        bool active = r_max >= r_min;
+        if (p.causal) active = active && k0 <= r_max;
+        if (p.window > 0) active = active && k0 + TC_BK - 1 > r_min - p.window;
+        if (active) {
+            // S = Q K^T over the head dim, 16 columns a step
+            float sacc[32];
+#pragma unroll
+            for (int j = 0; j < 32; ++j) sacc[j] = 0.f;
+            wgmma_fence();
+#pragma unroll
+            for (int pn = 0; pn < NP; ++pn)
+#pragma unroll
+                for (int kk = 0; kk < 4; ++kk)
+                    wgmma_ss_m64n64(
+                        sacc,
+                        sw128_desc(Qs + (wg * NP + pn) * TC_PANEL + 32 * kk, 16, 1024),
+                        sw128_desc(Ks + (s * NP + pn) * TC_PANEL + 32 * kk, 16, 1024),
+                        (pn | kk) != 0);
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(sacc);
+
+            // scale to the exp2 domain, mask, online softmax on the registers:
+            // sacc[4j + e] is (row0 + 8 (e / 2), k0 + 8 j + cq + e % 2)
+            const bool need_mask =
+                (p.causal && k0 + TC_BK - 1 > r_min) || k0 + TC_BK > p.Skv
+                || (p.window > 0 && k0 <= r_max - p.window);
+            float mx0 = FA_NEG_INF, mx1 = FA_NEG_INF;
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    float x = sacc[4 * j + e] * p.scale_log2;
+                    if (need_mask) {
+                        const int kpos = k0 + 8 * j + cq + (e & 1);
+                        const int qpos = e < 2 ? row0 : row1;
+                        bool keep = kpos < p.Skv;
+                        if (p.causal) keep = keep && kpos <= qpos;
+                        if (p.window > 0) keep = keep && kpos > qpos - p.window;
+                        if (!keep) x = FA_NEG_INF;
+                    }
+                    sacc[4 * j + e] = x;
+                    if (e < 2) mx0 = fmaxf(mx0, x);
+                    else mx1 = fmaxf(mx1, x);
+                }
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+                mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+                mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+            }
+            const float mn0 = fmaxf(m0, mx0);
+            const float mn1 = fmaxf(m1, mx1);
+            const float c0 = exp2f(m0 - mn0);
+            const float c1 = exp2f(m1 - mn1);
+            m0 = mn0;
+            m1 = mn1;
+            // P in bf16 as the A fragments of 4 k-steps of 16 keys: the
+            // accumulator pairs of columns 16 kk + (0..7, 8..15)
+            uint32_t pa[4][4];
+            float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+                for (int half = 0; half < 2; ++half) {
+                    const int j = 2 * kk + half;
+                    const float p00 = exp2f(sacc[4 * j + 0] - mn0);
+                    const float p01 = exp2f(sacc[4 * j + 1] - mn0);
+                    const float p10 = exp2f(sacc[4 * j + 2] - mn1);
+                    const float p11 = exp2f(sacc[4 * j + 3] - mn1);
+                    s0 += p00 + p01;
+                    s1 += p10 + p11;
+                    pa[kk][2 * half + 0] = pack_bf16(p00, p01);
+                    pa[kk][2 * half + 1] = pack_bf16(p10, p11);
+                }
+            l0 = l0 * c0 + s0;                 // this thread's columns only
+            l1 = l1 * c1 + s1;
+#pragma unroll
+            for (int j = 0; j < 8 * NP; ++j) {
+                oacc[4 * j + 0] *= c0;
+                oacc[4 * j + 1] *= c0;
+                oacc[4 * j + 2] *= c1;
+                oacc[4 * j + 3] *= c1;
+            }
+
+            // O += P V, 16 keys a step; V is MN-major: 8-key groups 1 KB
+            // apart (sbo), 64-column panels TC_PANEL apart (lbo)
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+                wgmma_pv<NP>(oacc, pa[kk],
+                             sw128_desc(Vs + s * NP * TC_PANEL + 2048 * kk,
+                                        TC_PANEL, 1024));
+            wgmma_commit();
+            wgmma_wait_all();
+            fence_regs(oacc);
+        }
+        if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // the row sums across the 4 threads that share a row, then O / l
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+    const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    __nv_bfloat16* og = p.o + b * p.so[0] + h * p.so[2];
+#pragma unroll
+    for (int j = 0; j < 8 * NP; ++j) {
+        const int col = 8 * j + cq;
+        if (col >= p.hd) continue;
+        if (row0 < p.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(og + (long long)row0 * p.so[1] + col) =
+                __floats2bfloat162_rn(oacc[4 * j] * inv0, oacc[4 * j + 1] * inv0);
+        if (row1 < p.Sq)
+            *reinterpret_cast<__nv_bfloat162*>(og + (long long)row1 * p.so[1] + col) =
+                __floats2bfloat162_rn(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    }
+}
+
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
+// library links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+static EncodeTiledFn encode_tiled() {
+    static EncodeTiledFn fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        cudaError_t err = cudaGetDriverEntryPointByVersion(
+            "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+            return nullptr;
+        fn = reinterpret_cast<EncodeTiledFn>(ptr);
+    }
+    return fn;
+}
+
+// the tensor map of a (B, S, heads, hd) bf16 tensor with element strides
+// st = (batch, seq, head) and a unit stride along hd: 64 x 64 boxes, 128-byte
+// swizzle, zeros outside the tensor.  A dimension of size 1 is never stepped;
+// it gets the stride it would have in a contiguous tensor.  TMA takes a
+// 16-byte aligned address and byte strides that are multiples of 16: a layout
+// that breaks that returns cudaErrorMisalignedAddress (the wrapper's cue to
+// say so).
+static int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+                    int hd, const long long* st) {
+    EncodeTiledFn enc = encode_tiled();
+    if (enc == nullptr) return (int)cudaErrorNotSupported;
+    const long long sh = heads == 1 ? hd : st[2];
+    const long long ss = S == 1 ? (long long)heads * hd : st[1];
+    const long long sb = B == 1 ? (long long)S * heads * hd : st[0];
+    if (((uintptr_t)ptr & 15) || ((ss | sh | sb) & 7))
+        return (int)cudaErrorMisalignedAddress;
+    cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads,
+                          (cuuint64_t)B};
+    cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                             (cuuint64_t)sb * 2};
+    cuuint32_t box[4] = {64, 64, 1, 1};
+    cuuint32_t elem[4] = {1, 1, 1, 1};
+    const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                           const_cast<void*>(ptr), dims, strides, box, elem,
+                           CU_TENSOR_MAP_INTERLEAVE_NONE,
+                           CU_TENSOR_MAP_SWIZZLE_128B,
+                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int NP>
+static int launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
+                     const CUtensorMap& tv, const TcParams& p, int BH,
+                     cudaStream_t stream) {
+    constexpr size_t smem = TcShape<NP>::SMEM;
+    static bool smem_set[FA_MAX_DEVICES] = {};
+    const int err = raise_smem_once(flash_tc_kernel<NP>, smem, smem_set);
+    if (err) return err;
+    const dim3 grid(BH, (p.Sq + TC_BQ - 1) / TC_BQ);
+    flash_tc_kernel<NP><<<grid, TC_THREADS, smem, stream>>>(tq, tk, tv, p);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// q, k, v, o: device pointers; strides: 12 element strides, (batch, seq,
-// head) for q, k, v and o in that order, with a unit stride along hd.
-// dtype 0 = fp32, 1 = bf16.  Returns 0 or a cudaError_t.
-int flash_attention_launch(const void* q, const void* k, const void* v,
-                           void* o, const long long* strides, int B, int H,
-                           int Sq, int Skv, int hd, int dtype, int causal,
-                           int window, float scale, void* stream) {
-    if (B <= 0 || H <= 0 || Sq <= 0 || Skv <= 0 || (long long)B * H > 65535)
+// q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0; device
+// pointers.  strides: 12 element strides, (batch, seq, head) for q, k, v and
+// o in that order, with a unit stride along hd.  Returns 0 or a cudaError_t.
+
+// fp32, on the CUDA cores
+int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
+                                void* o, const long long* strides, int B,
+                                int H, int KV, int Sq, int Skv, int hd,
+                                int causal, int window, float scale,
+                                void* stream) {
+    if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0
+            || (long long)B * H > 65535)
         return (int)cudaErrorInvalidValue;
     FlashParams p;
-    p.q = q;
-    p.k = k;
-    p.v = v;
-    p.o = o;
+    p.q = static_cast<const float*>(q);
+    p.k = static_cast<const float*>(k);
+    p.v = static_cast<const float*>(v);
+    p.o = static_cast<float*>(o);
     for (int a = 0; a < 3; ++a) {
         p.sq[a] = strides[a];
         p.sk[a] = strides[3 + a];
@@ -299,15 +830,55 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
         p.so[a] = strides[9 + a];
     }
     p.H = H;
+    p.group = H / KV;
     p.Sq = Sq;
     p.Skv = Skv;
     p.causal = causal;
     p.window = window;
     p.scale = scale;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0) return launch_hd<float>(p, B * H, hd, s);
-    if (dtype == 1) return launch_hd<__nv_bfloat16>(p, B * H, hd, s);
-    return (int)cudaErrorInvalidValue;
+    switch (hd) {
+        case 16: return launch_fp32<16>(p, B * H, s);
+        case 32: return launch_fp32<32>(p, B * H, s);
+        case 64: return launch_fp32<64>(p, B * H, s);
+        case 96: return launch_fp32<96>(p, B * H, s);
+        case 128: return launch_fp32<128>(p, B * H, s);
+        case 192: return launch_fp32<192>(p, B * H, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
+}
+
+// bf16, on the tensor cores; q, k, v need 16-byte aligned addresses and
+// (batch, seq, head) strides that are multiples of 8 elements (TMA)
+int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
+                                void* o, const long long* strides, int B,
+                                int H, int KV, int Sq, int Skv, int hd,
+                                int causal, int window, float scale,
+                                void* stream) {
+    if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0
+            || hd <= 0 || hd > 192 || hd % 8 != 0
+            || (Sq + TC_BQ - 1) / TC_BQ > 65535)
+        return (int)cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    int err = make_map(&tq, q, B, Sq, H, hd, strides);
+    if (!err) err = make_map(&tk, k, B, Skv, KV, hd, strides + 3);
+    if (!err) err = make_map(&tv, v, B, Skv, KV, hd, strides + 6);
+    if (err) return err;
+    TcParams p;
+    p.o = static_cast<__nv_bfloat16*>(o);
+    for (int a = 0; a < 3; ++a) p.so[a] = strides[9 + a];
+    p.H = H;
+    p.group = H / KV;
+    p.Sq = Sq;
+    p.Skv = Skv;
+    p.hd = hd;
+    p.causal = causal;
+    p.window = window;
+    p.scale_log2 = scale * 1.4426950408889634f;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (hd <= 64) return launch_tc<1>(tq, tk, tv, p, B * H, s);
+    if (hd <= 128) return launch_tc<2>(tq, tk, tv, p, B * H, s);
+    return launch_tc<3>(tq, tk, tv, p, B * H, s);
 }
 
 }  // extern "C"

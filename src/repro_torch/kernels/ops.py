@@ -18,7 +18,11 @@ counterparts):
   :data:`ssm_scan_launches` / :data:`rmsnorm_launches` — CUDA launches
   only, incremented exactly where the kernel is launched (``chip_smoke.py``
   reads them to show that the main path went through the kernels).  A
-  top-k launch is one launch sequence, for one span.
+  top-k launch is one launch sequence, for one span, and a scan launch the
+  three kernels of one call.
+
+:data:`flash_route_launches` splits the flash launches by the kernel the
+dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
 """
 from __future__ import annotations
 
@@ -38,6 +42,8 @@ topk_dispatches = 0
 topk_launches = 0
 flash_dispatches = 0
 flash_launches = 0
+# flash launches by route: bf16 on the tensor cores, fp32 on the CUDA cores
+flash_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 ssm_scan_dispatches = 0
 ssm_scan_launches = 0
 rmsnorm_dispatches = 0
@@ -185,11 +191,14 @@ def reset_flash_counts() -> None:
     global flash_dispatches, flash_launches
     flash_dispatches = 0
     flash_launches = 0
+    for route in flash_route_launches:
+        flash_route_launches[route] = 0
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash attention takes (B, S, H, hd) q, k and v")
+        raise ValueError("flash attention takes (B, S, H, hd) q and (B, S, "
+                         "KV, hd) k and v")
     if q.dtype not in _fa.DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention takes float32 or bfloat16 q, k and "
                          f"v of one dtype, got {q.dtype}, {k.dtype}, "
@@ -198,9 +207,11 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if hd not in _fa.HEAD_DIMS:
         raise ValueError(f"flash attention takes hd in {_fa.HEAD_DIMS}, "
                          f"got {hd}")
-    if k.shape != v.shape or (k.shape[0], k.shape[2], k.shape[3]) != (B, H, hd):
-        raise ValueError(f"k and v must be (B, Skv, H, hd) like q "
-                         f"{tuple(q.shape)}, got {tuple(k.shape)}, "
+    KV = k.shape[2]
+    if k.shape != v.shape or (k.shape[0], k.shape[3]) != (B, hd) \
+            or KV < 1 or H % KV:
+        raise ValueError(f"k and v must be (B, Skv, KV, hd) with H % KV == 0"
+                         f" for q {tuple(q.shape)}, got {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     if min(q.shape[1], k.shape[1]) < 1 or B * H > _fa.MAX_BH:
         raise ValueError(f"flash attention takes S >= 1 and B*H <= "
@@ -211,13 +222,17 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, H, hd) — the MHA layout (GQA
-    callers pre-repeat the KV heads) -> (B, Sq, H, hd) in q's dtype.
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd) with H % KV == 0 — query
+    head h reads KV head ``h // (H // KV)``, ``jnp.repeat``'s order, so
+    grouped-query callers pass their KV heads as they are (``KV == H`` is
+    the MHA form) -> (B, Sq, H, hd) in q's dtype.
 
     Online-softmax attention with scale ``1/sqrt(hd)``, causal when asked
     and with the optional sliding window ``kpos > qpos - window``.  A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel, or
-    raises on what it does not take (hd, dtype, rank, a device mix)."""
+    tensor takes the plain version; a CUDA tensor launches the kernel of its
+    dtype (bf16 on the tensor cores, fp32 on the CUDA cores), or raises on
+    what it does not take (hd, dtype, rank, head counts, a device mix, a
+    bf16 layout TMA cannot load)."""
     global flash_dispatches, flash_launches
     flash_dispatches += 1
     if k.device != q.device or v.device != q.device:
@@ -230,8 +245,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"no flash attention kernel for device {q.device}")
     _check_flash(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _fa.flash_attention_cuda(q, k, v, out, causal=causal, window=int(window))
+    route = _fa.flash_attention_cuda(q, k, v, out, causal=causal,
+                                     window=int(window))
     flash_launches += 1
+    flash_route_launches[route] += 1
     return out
 
 
@@ -261,13 +278,10 @@ def _check_ssm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"axis")
     if log_a.dtype != torch.float32:
         raise ValueError(f"log_a must be float32, got {log_a.dtype}")
-    if min(q.shape) < 1 or v.shape[3] < 1 or B * H > _ssm.MAX_BH:
-        raise ValueError(f"the scan takes non-empty shapes and B*H <= "
-                         f"{_ssm.MAX_BH}")
-    if _ssm.smem_bytes(N) > _ssm.MAX_SMEM_BYTES:
-        raise ValueError(f"state width N={N} needs {_ssm.smem_bytes(N)} B "
-                         f"of shared memory, more than a block's "
-                         f"{_ssm.MAX_SMEM_BYTES}")
+    if min(q.shape) < 1 or v.shape[3] < 1 or B * H > _ssm.MAX_BH \
+            or S > _ssm.MAX_S:
+        raise ValueError(f"the scan takes non-empty shapes, B*H <= "
+                         f"{_ssm.MAX_BH} and S <= {_ssm.MAX_S}")
 
 
 def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -277,10 +291,11 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     h0 = 0 (the prefill; a carried state takes ``ssm_scan_plain``).
 
     ``chunk`` is the model's chunk, which sets the plain version's
-    summation order; the kernel chunks by its own length.  A CPU tensor
-    takes the plain version; a CUDA tensor launches the kernel, reading q,
-    k, v and log_a through their strides (a stride of 0 along H included),
-    or raises on what it does not take."""
+    summation order; the kernels chunk by their own length (``CHUNK``).  A
+    CPU tensor takes the plain version; a CUDA tensor launches the three
+    kernels of the chunk-parallel scan (one launch on the counter), reading
+    q, k, v and log_a through their strides (a stride of 0 along H
+    included), or raises on what it does not take."""
     global ssm_scan_dispatches, ssm_scan_launches
     ssm_scan_dispatches += 1
     if any(t.device != q.device for t in (k, v, log_a)):
@@ -294,9 +309,11 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_ssm(q, k, v, log_a)
     B, S, H, N = q.shape
     y = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    h = torch.empty((B, H, N, v.shape[3]), dtype=torch.float32,
-                    device=q.device)
-    _ssm.ssm_scan_cuda(q, k, v, log_a, y, h)
+    P = v.shape[3]
+    h = torch.empty((B, H, N, P), dtype=torch.float32, device=q.device)
+    ws = torch.empty(_ssm.workspace_numel(B, H, S, N, P),
+                     dtype=torch.float32, device=q.device)
+    _ssm.ssm_scan_cuda(q, k, v, log_a, y, h, ws)
     ssm_scan_launches += 1
     return y, h
 

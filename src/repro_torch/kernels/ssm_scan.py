@@ -2,10 +2,12 @@
 mixers: ``h_t = exp(log_a_t)·h_{t−1} + k_t v_tᵀ``, ``y_t = q_t·h_t``.
 
 Port of ``repro/kernels/ssm_scan.py``.  The Pallas TPU kernel
-(``_ssm_kernel``) becomes ``csrc/ssm_scan.cu``, a CUDA C++ kernel for
-Hopper written by hand; its source note gives the bound and the design.
-This module holds, on the model's layout q, k (B, S, H, N), v (B, S, H, P),
-log_a (B, S, H):
+(``_ssm_kernel``) becomes ``csrc/ssm_scan.cu``, CUDA C++ for Hopper written
+by hand: Mamba-2's chunk-parallel SSD decomposition in three launches (chunk
+states, a short state-passing pass, outputs), on the tensor cores when q, k
+and v are all bf16 and in fp32 on the CUDA cores otherwise; its source note
+gives the bound and the design.  This module holds, on the model's layout
+q, k (B, S, H, N), v (B, S, H, P), log_a (B, S, H):
 
 * :func:`ssm_scan_plain` — the plain PyTorch version, the chunked form of
   ``repro/models/ssm.py:chunked_linear_scan`` step for step (fp32 inside,
@@ -15,8 +17,8 @@ log_a (B, S, H):
   card.
 * :func:`ssm_scan_ref` — the sequential oracle of ``repro/kernels/ref.py:
   ssm_scan_ref``, on its (BH, S, ·) layout, for the tests.
-* :func:`ssm_scan_cuda` — the launch of the CUDA kernel (h0 = 0, as the TPU
-  kernel), which reads q, k, v and log_a in place through their strides.
+* :func:`ssm_scan_cuda` — the launch of the CUDA kernels (h0 = 0, as the TPU
+  kernel), which read q, k, v and log_a in place through their strides.
 
 The public wrapper (and the launch counter) is ``ops.ssm_scan``.
 """
@@ -30,16 +32,17 @@ import torch
 from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_SMEM_BYTES = 232448         # dynamic shared memory a Hopper block may take
-MAX_BH = 65535                  # B*H rides on the grid's y dimension
-_L, _PT = 32, 64                # the kernel's chunk and P-tile (csrc)
+MAX_BH = 65535                  # B*H rides on the grid's z dimension
+CHUNK = 64                      # the kernels' chunk length (csrc SC_L)
+MAX_S = 65535 * CHUNK           # the chunks ride on the grid's y dimension
 
 
-def smem_bytes(N: int) -> int:
-    """Shared memory a kernel block takes at state width N
-    (``scan_smem_bytes`` in the source)."""
-    npad = N + 1 if N % 2 == 0 else N
-    return 4 * (2 * _L * npad + _L * _PT + N * _PT + _L * (_L + 1) + _L)
+def workspace_numel(B: int, H: int, S: int, N: int, P: int) -> int:
+    """fp32 elements of the kernels' workspace: an (N, P) state for each
+    (b, h, chunk of CHUNK steps), its rows padded to a multiple of 4
+    elements (16 bytes), then the B·H·chunks chunk totals.  The launcher
+    refuses a smaller buffer."""
+    return B * H * (-(-S // CHUNK)) * (N * (-(-P // 4) * 4) + 1)
 
 
 def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -110,7 +113,7 @@ def _launcher():
     global _lib
     if _lib is None:
         fn = _build.load("ssm_scan").ssm_scan_launch
-        fn.argtypes = ([ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 8 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -123,12 +126,13 @@ def _code(dtype: torch.dtype) -> int:
 
 
 def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  log_a: torch.Tensor, y: torch.Tensor,
-                  h: torch.Tensor) -> None:
-    """Launch the kernel on the current stream, writing ``y`` (B, S, H, P)
-    and ``h`` (B, H, N, P) fp32, both contiguous.  The caller has checked
+                  log_a: torch.Tensor, y: torch.Tensor, h: torch.Tensor,
+                  ws: torch.Tensor) -> None:
+    """Launch the three kernels on the current stream, writing ``y`` (B, S,
+    H, P) and ``h`` (B, H, N, P) fp32, both contiguous, through the fp32
+    workspace ``ws`` (``workspace_numel`` elements).  The caller has checked
     devices, dtypes, shapes and unit inner strides (``ops._check_ssm``);
-    raises if the launch fails."""
+    raises if a launch fails."""
     B, S, H, N = q.shape
     P = v.shape[-1]
     strides = [t.stride(a) for t in (q, k, v, log_a, y) for a in (0, 1, 2)]
@@ -136,9 +140,10 @@ def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                         log_a.data_ptr(), y.data_ptr(), h.data_ptr(), arr,
-                         B, S, H, N, P, _code(q.dtype), _code(k.dtype),
-                         _code(v.dtype), stream)
+                         log_a.data_ptr(), y.data_ptr(), h.data_ptr(),
+                         ws.data_ptr(), ws.numel(), arr, B, S, H, N, P,
+                         _code(q.dtype), _code(k.dtype), _code(v.dtype),
+                         stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: error {rc} (q "
                            f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} "

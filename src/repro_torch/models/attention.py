@@ -4,7 +4,8 @@ Port of ``repro/models/attention.py``.  ``chunked`` is the plain PyTorch
 expression of the online-softmax algorithm of the flash kernel; ``pallas``
 (the config's name for the kernel route) calls ``kernels/ops.flash_attention``,
 which launches the hand-written Hopper kernel for a CUDA tensor and its
-plain version for a CPU tensor.
+plain version for a CPU tensor; it takes the KV heads as they are, where the
+``dense`` and ``chunked`` impls repeat them to H first, as in JAX.
 
 KV caches are ring buffers: ``{"k": (B,Smax,KV,hd), "v": ..., "pos": (Smax,)}``
 where ``pos[s]`` is the absolute position stored in slot ``s`` (-1 = empty).
@@ -192,19 +193,21 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
         cache["pos"][slot] = positions.reshape(1)[0].to(torch.int32)
         out = _cache_attend(q, cache, cfg, positions.reshape(1))
     else:
-        kk = _repeat_kv(k, groups)
-        vv = _repeat_kv(v, groups)
         use = impl or cfg.attention_impl
-        if use == "dense":
-            out = dense_attention(q, kk, vv, causal=True,
-                                  window=cfg.sliding_window)
-        elif use == "pallas":
-            out = kops.flash_attention(q, kk, vv, causal=True,
+        if use == "pallas":
+            # the kernel reads each KV head in place for its query heads
+            out = kops.flash_attention(q, k, v, causal=True,
                                        window=cfg.sliding_window)
-        else:  # chunked reference
-            out = chunked_attention(q, kk, vv, causal=True,
-                                    window=cfg.sliding_window,
-                                    chunk=min(cfg.attn_chunk, S))
+        else:
+            kk = _repeat_kv(k, groups)
+            vv = _repeat_kv(v, groups)
+            if use == "dense":
+                out = dense_attention(q, kk, vv, causal=True,
+                                      window=cfg.sliding_window)
+            else:  # chunked reference
+                out = chunked_attention(q, kk, vv, causal=True,
+                                        window=cfg.sliding_window,
+                                        chunk=min(cfg.attn_chunk, S))
         if cache is not None:  # prefill: write the (possibly windowed) tail
             smax = cache["k"].shape[1]
             ktail = k[:, -smax:].to(cache["k"].dtype)

@@ -248,15 +248,112 @@ def test_cuda_flash_matches_plain(cuda, case, dtype):
                                rtol=rtol)
 
 
+# (B, Sq, Skv, H, KV, hd, causal, window): every head dim with KV < H,
+# ragged Sq and Skv (apart and together), windows, the two serving shapes
+FLASH_GQA_GRID = ([(2, 256, 256, 4, 2, hd, True, 0)
+                   for hd in (16, 32, 64, 96, 128, 192)]
+                  + [(2, 200, 200, 6, 3, 64, True, 0),
+                     (1, 100, 130, 4, 1, 128, True, 0),
+                     (1, 130, 100, 4, 2, 64, False, 0),
+                     (1, 77, 77, 2, 1, 96, True, 20),
+                     (2, 256, 256, 4, 1, 64, True, 32),
+                     (1, 300, 300, 8, 2, 192, True, 100),
+                     (4, 1024, 1024, 14, 2, 64, True, 0),
+                     (4, 1024, 1024, 25, 5, 64, True, 1024)])
+
+
+@pytest.mark.parametrize("case", FLASH_GQA_GRID, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_kv_heads_in_place_match_plain(cuda, case, dtype):
+    """k and v at their KV heads: bf16 through the tensor-core kernel,
+    fp32 through the CUDA-core kernel, each against the plain version (which
+    repeats the heads) at tests/test_kernels.py's tolerances."""
+    B, Sq, Skv, H, KV, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + 7 * hd + KV)
+    q = torch.randn(B, Sq, H, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, Skv, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    routes = dict(ops.flash_route_launches)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    route = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    routes[route] += 1
+    assert ops.flash_route_launches == routes
+    assert got.dtype == dtype and got.shape == q.shape
+    atol, rtol = (2e-5, 1e-3) if dtype == torch.float32 else (2e-2, 1e-2)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_cuda_flash_bf16_goes_through_the_tensor_core_kernel(cuda):
+    """A bf16 call launches the wgmma kernel and an fp32 call the CUDA-core
+    kernel: the per-route counters and the symbol each route binds."""
+    from repro_torch.kernels import flash_attention as fa
+    ops.reset_flash_counts()
+    q = torch.zeros(1, 64, 2, 64, device=cuda)
+    ops.flash_attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    assert ops.flash_route_launches == {"tensor_cores": 1, "cuda_cores": 0}
+    ops.flash_attention(q, q, q)
+    assert ops.flash_route_launches == {"tensor_cores": 1, "cuda_cores": 1}
+    assert ops.flash_launches == 2
+    assert fa._launcher("tensor_cores").__name__ == \
+        "flash_attention_bf16_launch"
+    assert fa._launcher("cuda_cores").__name__ == \
+        "flash_attention_fp32_launch"
+    ops.reset_flash_counts()
+    assert ops.flash_route_launches == {"tensor_cores": 0, "cuda_cores": 0}
+
+
 def test_cuda_flash_reads_strided_inputs(cuda):
     """q, k, v as views with a unit stride along hd only (a (B, H, S, hd)
-    buffer seen as (B, S, H, hd)): the kernel reads them in place."""
+    buffer seen as (B, S, H, hd)): both kernels read them in place, the
+    bf16 one with KV heads at another stride than q's."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn(2, 4, 128, 64, device=cuda, generator=g)
                .transpose(1, 2) for _ in range(3))
     got = ops.flash_attention(q, k, v, causal=True)
     want = flash_attention_plain(q, k, v, causal=True)
     torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-3)
+    qb = q.bfloat16()                                   # contiguous copy
+    kb, vb = (torch.randn(2, 2, 160, 128, device=cuda, generator=g)
+              .bfloat16()[:, :, 16:144, 32:96].transpose(1, 2)
+              for _ in range(2))                        # (2, 128, 2, 64)
+    got = ops.flash_attention(qb, kb, vb, causal=True, window=40)
+    want = flash_attention_plain(qb, kb, vb, causal=True, window=40)
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=1e-2)
+
+
+def test_flash_bf16_layouts_tma_cannot_load_are_refused(cuda):
+    """The tensor-core launcher loads bf16 tiles with TMA: a (batch, seq,
+    head) stride that is not a multiple of 8 elements, or an address off 16
+    bytes, is refused with a ValueError and counts no launch; the same
+    layout in fp32 (the CUDA-core kernel), a (B, H, S, hd) buffer seen as
+    (B, S, H, hd), and an odd stride along a size-1 axis run."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(1, 16, 3, 64 + 4, device=cuda, generator=g)
+    odd = base.bfloat16()[..., :64]                 # head stride 68
+    shifted = torch.randn(1 + 16 * 2 * 64, device=cuda,
+                          generator=g).bfloat16()[1:].view(1, 16, 2, 64)
+    ops.reset_flash_counts()
+    for bad in (odd, shifted):
+        with pytest.raises(ValueError, match="TMA"):
+            ops.flash_attention(bad, bad, bad)
+    assert ops.flash_launches == 0
+    o32 = base[..., :64]
+    torch.testing.assert_close(ops.flash_attention(o32, o32, o32),
+                               flash_attention_plain(o32, o32, o32),
+                               atol=2e-5, rtol=1e-3)
+    bhsd = torch.randn(2, 4, 32, 64, device=cuda,
+                       generator=g).bfloat16().transpose(1, 2)
+    one = torch.randn(1, 32, 4, 68, device=cuda,
+                      generator=g).bfloat16()[:, :, :1, :64]  # head axis 1
+    for t in (bhsd, one):
+        torch.testing.assert_close(ops.flash_attention(t, t, t).float(),
+                                   flash_attention_plain(t, t, t).float(),
+                                   atol=2e-2, rtol=1e-2)
+    assert ops.flash_route_launches["tensor_cores"] == 2
 
 
 def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -273,6 +370,13 @@ def test_cuda_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.flash_attention(q.cpu(), q, q.cpu())
     with pytest.raises(ValueError):                      # fp16
         ops.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                      # H % KV != 0
+        z = torch.zeros(1, 64, 3, 64, device=cuda)
+        ops.flash_attention(q.repeat(1, 1, 2, 1), z, z)
+    with pytest.raises(ValueError):                      # no TMA layout
+        z = torch.zeros(1, 64, 2, 68, device=cuda,
+                        dtype=torch.bfloat16)[..., :64]
+        ops.flash_attention(z, z, z)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "chunked"])
@@ -306,7 +410,9 @@ F32 = torch.float32
 # (B, S, H, N, P, chunk, q/v dtype, k dtype, q and k shared by the heads):
 # a JAX grid point, ragged S (1, 200), the reduced configs' N = 8 and 32,
 # hymba's serving shape (q, k broadcast over 8 heads) and xlstm's (N = 384,
-# P = 385, an fp32 k beside bf16 q and v)
+# P = 385, an fp32 k beside bf16 q and v); on the tensor cores (all bf16):
+# ragged S and P with shared heads, S = 1, N = 384 and 400 wide, and an N
+# past the old kernel's limit in fp32
 SCAN_GRID = [(2, 256, 3, 16, 32, 64, F32, F32, False),
              (2, 512, 3, 8, 64, 256, F32, F32, False),
              (2, 1, 3, 16, 32, 64, F32, F32, False),
@@ -314,7 +420,11 @@ SCAN_GRID = [(2, 256, 3, 16, 32, 64, F32, F32, False),
              (2, 48, 4, 32, 33, 16, F32, F32, False),
              (4, 1024, 8, 16, 400, 256, BF, BF, True),
              (1, 1024, 8, 16, 400, 256, F32, F32, True),
-             (4, 512, 4, 384, 385, 256, BF, F32, False)]
+             (4, 512, 4, 384, 385, 256, BF, F32, False),
+             (2, 200, 3, 16, 33, 64, BF, BF, True),
+             (2, 1, 3, 8, 70, 64, BF, BF, False),
+             (1, 300, 2, 384, 400, 256, BF, BF, False),
+             (1, 130, 2, 512, 65, 64, F32, F32, True)]
 
 
 def _scan_tol(dtype):
@@ -361,10 +471,10 @@ def test_cuda_ssm_scan_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ops.ssm_scan(q.half(), k, v, la, chunk=64)
     with pytest.raises(ValueError):                      # bf16 log_a
         ops.ssm_scan(q, k, v, la.bfloat16(), chunk=64)
-    with pytest.raises(ValueError):                      # N = 512
-        z = torch.zeros(1, 8, 1, 512, device=cuda)
-        ops.ssm_scan(z, z, torch.zeros(1, 8, 1, 4, device=cuda),
-                     torch.zeros(1, 8, 1, device=cuda), chunk=8)
+    with pytest.raises(ValueError):                      # B*H > 65535
+        z = torch.zeros(1, 8, 1, 16, device=cuda).expand(1, 8, 70000, 16)
+        ops.ssm_scan(z, z, z, torch.zeros(1, 8, 1, device=cuda)
+                     .expand(1, 8, 70000), chunk=8)
     with pytest.raises(ValueError):                      # CPU/CUDA mix
         ops.ssm_scan(q, k, v.cpu(), la, chunk=64)
 

@@ -236,6 +236,29 @@ def test_flash_plain_matches_port_chunked_attention(window):
     np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5, rtol=1e-3)
 
 
+@pytest.mark.parametrize("H,KV", [(4, 1), (4, 2), (14, 2)])
+@pytest.mark.parametrize("window", [0, 48])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_flash_kv_heads_in_place_match_jax_pallas_repeated(H, KV, window,
+                                                           bf16):
+    """k and v at their KV heads (query head h reads KV head h // (H // KV))
+    against the Pallas kernel in interpret mode on jnp.repeat'ed heads."""
+    rng = np.random.default_rng(100 * H + KV + window)
+    arrays = []
+    for heads in (H, KV, KV):
+        a = rng.normal(size=(1, 128, heads, 64)).astype(np.float32)
+        if bf16:
+            a = np.array(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))
+        arrays.append(a)
+    (jq, jk, jv), (tq, tk, tv) = _pair(arrays, bf16)
+    got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+    want = jops.flash_attention(jq, jnp.repeat(jk, H // KV, axis=2),
+                                jnp.repeat(jv, H // KV, axis=2), causal=True,
+                                window=window, blk_q=64, blk_k=64)
+    assert got.dtype == tq.dtype and tuple(got.shape) == (1, 128, H, 64)
+    _assert_flash_close(got, want, bf16)
+
+
 def test_cpu_flash_counts_dispatch_not_launch():
     ops.reset_flash_counts()
     q = torch.zeros(1, 8, 2, 16)
@@ -262,12 +285,26 @@ def test_flash_checks_what_the_kernel_takes():
         (torch.zeros(8, 64, 64),) * 3,                         # rank 3
         (ok.half(),) * 3,                                      # fp16
         (ok, ok.bfloat16(), ok),                               # dtype mix
-        (ok, torch.zeros(2, 64, 2, 64), torch.zeros(2, 64, 2, 64)),  # H
+        (ok, torch.zeros(2, 64, 3, 64), torch.zeros(2, 64, 3, 64)),  # H % KV
+        (ok, torch.zeros(2, 64, 2, 64), torch.zeros(2, 64, 4, 64)),  # k != v
         (ok.transpose(1, 3).contiguous().transpose(1, 3), ok, ok),   # hd stride
     ]
     for q, k, v in bad:
         with pytest.raises(ValueError):
             ops._check_flash(q, k, v)
+    # KV heads that divide H pass
+    kv = torch.zeros(2, 64, 2, 64)
+    ops._check_flash(ok, kv, kv)
+    ops._check_flash(ok.bfloat16(), kv.bfloat16(), kv.bfloat16())
+
+
+def test_flash_refuses_kv_heads_that_do_not_divide_h():
+    """H % KV != 0 has no jnp.repeat order: the wrapper refuses it on the
+    card route's checks."""
+    q = torch.zeros(1, 16, 6, 32)
+    kv = torch.zeros(1, 16, 4, 32)
+    with pytest.raises(ValueError, match="H % KV"):
+        ops._check_flash(q, kv, kv)
 
 
 # ---------------------------------------------------------------------------
@@ -367,12 +404,15 @@ def test_cpu_ssm_scan_counts_dispatch_not_launch():
 
 def test_ssm_scan_checks_what_the_kernel_takes():
     """The checks a CUDA tensor meets before launch, run on CPU tensors:
-    a head stride of 0 and an fp32 k beside bf16 q and v pass."""
+    a head stride of 0, an fp32 k beside bf16 q and v, and a state width
+    past the old kernel's 428 (N is tiled now) pass."""
     q, k, v, la = map(torch.from_numpy, _scan_inputs(2, 8, 3, 16, 40, 0))
     ops._check_ssm(q, k, v, la)
     ops._check_ssm(q[:, :, :1].expand(2, 8, 3, 16), k, v, la)
     ops._check_ssm(q.bfloat16(), k, v.bfloat16(), la)
-    big = torch.zeros(1, 4, 1, 512)
+    wide = torch.zeros(1, 4, 1, 512)
+    ops._check_ssm(wide, wide, torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1))
+    many = torch.zeros(1, 1, 1, 8).expand(1, 1, 70000, 8)      # B*H > 65535
     bad = [
         (q.half(), k, v, la),                                   # fp16
         (q, k, v, la.bfloat16()),                               # log_a dtype
@@ -380,7 +420,7 @@ def test_ssm_scan_checks_what_the_kernel_takes():
         (q, k, v[:, :4], la),                                   # v's S
         (q, k, v, la[..., :2]),                                 # log_a's H
         (q.transpose(1, 3).contiguous().transpose(1, 3), k, v, la),  # N stride
-        (big, big, torch.zeros(1, 4, 1, 8), torch.zeros(1, 4, 1)),   # N too wide
+        (many, many, many, torch.zeros(1, 1, 1).expand(1, 1, 70000)),
         (q[..., :0], k[..., :0], v, la),                        # N = 0
     ]
     for args in bad:
@@ -391,12 +431,96 @@ def test_ssm_scan_checks_what_the_kernel_takes():
 
 
 def test_ssm_scan_smem_fits_both_serving_widths():
-    """The kernel's shared memory at the model widths, against a block's
-    232,448 bytes: hymba N = 16, the reduced configs' 8 and 32, xlstm 384."""
-    for N in (8, 16, 32, 384):
-        assert tssm.smem_bytes(N) <= tssm.MAX_SMEM_BYTES
-    assert tssm.smem_bytes(384) == 209408
-    assert tssm.smem_bytes(512) > tssm.MAX_SMEM_BYTES
+    """The kernels' shared memory does not grow with N (the state is tiled
+    64 rows at a time; the launcher sets and checks it); the workspace the
+    wrapper allocates, which does grow, at the serving shapes: hymba (4,
+    1024, 8, 16, 400) and xlstm (4, 512, 4, 384, 385) — the chunk states,
+    then a total per (b, h, chunk)."""
+    assert tssm.workspace_numel(4, 8, 1024, 16, 400) * 4 == 13107200 + 2048
+    # xlstm's P = 385 rows padded to 388
+    assert tssm.workspace_numel(4, 4, 512, 384, 385) * 4 == 76283904 + 512
+    assert tssm.workspace_numel(1, 1, 1, 8, 8) == 64 + 1    # one ragged chunk
+    assert tssm.workspace_numel(1, 1, 65, 8, 8) == 2 * (64 + 1)
+
+
+def _chunk_parallel_scan(q, k, v, log_a, L):
+    """The three-step SSD decomposition the scan kernels follow, in plain
+    PyTorch (fp32): (1) every chunk's state S_c = sum_s exp(T_c - cum_s)
+    k_s v_s^T at once; (2) the states passed along the chunks, h_in(c) =
+    exp(T_{c-1}) h_in(c-1) + S_{c-1}; (3) every chunk's outputs at once,
+    y_t = sum_{s<=t} (q_t.k_s) exp(cum_t - cum_s) v_s + exp(cum_t) q_t.h_in.
+    log_a is 0 past the ragged end, as the kernels read it."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    nc = -(-S // L)
+    pad = nc * L - S
+
+    def chunks(a):
+        a = torch.nn.functional.pad(a.to(torch.float32),
+                                    (0, 0) * (a.dim() - 2) + (0, pad))
+        return a.reshape((B, nc, L) + a.shape[2:])
+
+    qc, kc, vc = chunks(q), chunks(k), chunks(v)
+    cum = torch.cumsum(chunks(log_a[..., None])[..., 0], dim=2)  # (B,nc,L,H)
+    total = cum[:, :, -1]                                         # (B,nc,H)
+    kdec = kc * torch.exp(total[:, :, None] - cum)[..., None]
+    states = torch.einsum("bclhn,bclhp->bchnp", kdec, vc)         # step 1
+    h_in = torch.zeros((B, nc, H, N, P))
+    h = torch.zeros((B, H, N, P))
+    for c in range(nc):                                            # step 2
+        h_in[:, c] = h
+        h = torch.exp(total[:, c])[..., None, None] * h + states[:, c]
+    scores = torch.einsum("bcthn,bcshn->bchts", qc, kc)            # step 3
+    gate = torch.exp(cum[:, :, :, None] - cum[:, :, None, :])      # b c t s h
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool))
+    gate = torch.where(mask[None, None, :, :, None], gate,
+                       torch.zeros(()))
+    y = torch.einsum("bchts,bcshp->bcthp",
+                     scores * gate.permute(0, 1, 4, 2, 3), vc)
+    y = y + torch.exp(cum)[..., None] * torch.einsum(
+        "bcthn,bchnp->bcthp", qc, h_in)
+    return y.reshape(B, nc * L, H, P)[:, :S].to(v.dtype), h
+
+
+@pytest.mark.parametrize("S,L", [(256, 64), (256, 32), (512, 128), (1, 64),
+                                 (200, 64), (40, 16), (40, 64)])
+@pytest.mark.parametrize("shared", [False, True])
+def test_chunk_parallel_scan_matches_jax_ref_and_pallas(S, L, shared):
+    """The kernels' algorithm at several chunk lengths, ragged S and with q
+    and k shared by the heads (a head stride of 0), against the sequential
+    oracle and, where S is a multiple of the JAX kernel's chunk, the Pallas
+    kernel in interpret mode (its chunk 64)."""
+    B, H, N, P = 2, 3, 16, 32
+    q, k, v, la = _scan_inputs(B, S, H, N, P, S + L + shared)
+    if shared:
+        q = np.broadcast_to(q[:, :, :1], q.shape)
+        k = np.broadcast_to(k[:, :, :1], k.shape)
+    tq, tk = (torch.from_numpy(np.ascontiguousarray(a[:, :, :1])).expand(
+        B, S, H, N) if shared else torch.from_numpy(a) for a in (q, k))
+    if shared:
+        assert tq.stride(2) == 0 and tk.stride(2) == 0
+    y, h = _chunk_parallel_scan(tq, tk, torch.from_numpy(v),
+                                torch.from_numpy(la), L)
+    args = [jnp.asarray(_bh(np.ascontiguousarray(a))) for a in (q, k, v, la)]
+    ry, rh = jref.ssm_scan_ref(*args, jnp.zeros((B * H, N, P)))
+    _scan_close(torch.from_numpy(_bh(y.numpy())), ry)
+    _scan_close(h.reshape(B * H, N, P), rh)
+    if S % 64 == 0:
+        jy, jh = jops.ssm_scan(*args, chunk=64)
+        _scan_close(torch.from_numpy(_bh(y.numpy())), jy)
+        _scan_close(h.reshape(B * H, N, P), jh)
+
+
+def test_chunk_parallel_scan_wide_state_matches_jax_ref():
+    """xlstm's state width, N = 384 (with an odd P), through the
+    decomposition and the sequential oracle."""
+    B, S, H, N, P = 1, 160, 2, 384, 37
+    q, k, v, la = _scan_inputs(B, S, H, N, P, 384)
+    y, h = _chunk_parallel_scan(*map(torch.from_numpy, (q, k, v, la)), 64)
+    args = [jnp.asarray(_bh(a)) for a in (q, k, v, la)]
+    ry, rh = jref.ssm_scan_ref(*args, jnp.zeros((B * H, N, P)))
+    _scan_close(torch.from_numpy(_bh(y.numpy())), ry)
+    _scan_close(h.reshape(B * H, N, P), rh)
 
 
 # ---------------------------------------------------------------------------
