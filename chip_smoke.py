@@ -12,9 +12,12 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    fused top-k ``topk_compress`` are each held against their plain
    PyTorch version on the card, over a grid of shapes and inputs, in
    every call form (the top-k bit for bit, with planted ties, ±0, NaN
-   payloads and spans at an odd offset); then timed with CUDA events at
+   payloads, spans whose keys all share the first radix digit or are all
+   equal, and spans at an odd offset); then timed with CUDA events at
    the main path's shapes beside the plain version, the one PyTorch call
-   that computes the same function, and the memory bound.
+   that computes the same function, and the memory bound.  The profiler
+   counts the device operations of one top-k call: at most two kernels
+   (the design launches one) and no memset.
 3. The quickstart configuration (100 clients, 4 executors, 20 per round)
    under a ``TickTimer``, on the card and on the CPU: 10 FedAvg rounds,
    then 3 SCAFFOLD rounds with a spilling ``ClientStateManager`` and an
@@ -27,7 +30,8 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
 5. The compressed full-width round: phase 4's model with
    ``compressor="topk"`` (fraction 0.01): 3 rounds on the card, timed, the
    fused top-k held bit for bit to its plain version on one executor's
-   real partial and carried residual, then a card and a CPU run under a
+   real partial and carried residual, its device time and kernels in one
+   more round from the profiler, then a card and a CPU run under a
    ``TickTimer``: params after round 0 allclose, later rounds' selection
    differences and partial differences reported beside how far a 1e-7
    perturbation of the CPU run's own params moves them.
@@ -51,9 +55,12 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    held against their plain version on the JAX kernel grid, ragged S, and
    hymba's and xlstm's serving shapes, ragged S and P with heads sharing q
    and k on both routes, and N = 384 on the tensor cores; (b) the RMSNorm
-   kernel on the JAX grid and hymba's shapes; (c) each timed at its serving
-   shape beside its plain version, the library call where there is one
-   (``F.rms_norm``; none for the scan) and its bound, the scan's three
+   kernel on the JAX grid, hymba's and qwen2's prefill and decode rows,
+   T = 1-8, rows of 3072 to 40,000 and an odd d, every one of its four
+   routes run; (c) each timed at its serving shape beside its plain
+   version, the library call where there is one (``F.rms_norm``; none for
+   the scan) and its bound -- the norm at (4096, 1600), (4096, 896),
+   (4, 1600) and (4, 896) bf16, cold and with x in L2 -- the scan's three
    kernels split by the profiler, and flash at hymba's attention shape
    (25 query heads on 5 KV heads) beside
    ``scaled_dot_product_attention``; (d) full-width hymba-1.5b
@@ -110,12 +117,15 @@ class Timer:
         self.flush_buf = torch.empty(4 * L2_BYTES // 4, dtype=torch.float32,
                                      device="cuda")
 
-    def ms(self, fn, reps=30, warmup=3):
+    def ms(self, fn, reps=30, warmup=3, flush=True):
+        """``flush=False`` leaves the inputs in L2 from the call before, as
+        a caller that has just written them finds them."""
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
-            self.flush_buf.zero_()
+            if flush:
+                self.flush_buf.zero_()
             torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -276,10 +286,23 @@ def topk_bound_ms(n, k):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+TOPK_KINDS = ("normal", "ties", "one_bin", "equal")
+
+
 def topk_inputs(n, kind, gen):
     """(buffer, residual buffer) of n + 7 values; the span is [3, 3 + n),
     at an odd offset.  ``ties``: values quantised to halves with planted
-    -0.0, NaNs of several payloads and infs, the residual quantised too."""
+    -0.0, NaNs of several payloads and infs, the residual quantised too.
+    ``one_bin``: |f| in [1.5, 1.5625) with either sign, so every key shares
+    the first radix digit (exponent and 3 mantissa bits) and every element
+    is a candidate; ``equal``: every |f| is 1.5.  Both with a zero
+    residual."""
+    if kind in ("one_bin", "equal"):
+        mag = torch.full((n + 7,), 1.5, device="cuda")
+        if kind == "one_bin":
+            mag += torch.rand(n + 7, device="cuda", generator=gen) / 16
+        sign = torch.rand(n + 7, device="cuda", generator=gen) < 0.5
+        return torch.where(sign, -mag, mag), torch.zeros_like(mag)
     buf = torch.randn(n + 7, device="cuda", generator=gen)
     rbuf = torch.randn(n + 7, device="cuda", generator=gen) \
         * (torch.rand(n + 7, device="cuda", generator=gen) < 0.5)
@@ -316,7 +339,7 @@ def phase_topk_grid(ops, plain):
         for k in sorted({1, 7, n // 100, n}):
             if not 1 <= k <= n:
                 continue
-            for kind in ("normal", "ties"):
+            for kind in TOPK_KINDS:
                 buf, rbuf = topk_inputs(n, kind, gen)
                 x, res = buf[3:3 + n], rbuf[3:3 + n]
                 want = plain(x, res, k)
@@ -343,15 +366,34 @@ def phase_topk_grid(ops, plain):
                 del buf, rbuf, want, got, got_in, inplace
     log(f"phase 2: topk_compress matches its plain version bit for bit on "
         f"{n_cases} cases (n in {TOPK_GRID_N}, k in {{1, 7, n//100, n}}, "
-        f"normal / ties+±0+NaN+inf, odd offset, fresh / in place); "
+        f"normal / ties+±0+NaN+inf / one first-digit bin / all equal, odd "
+        f"offset, fresh / in place); "
         f"max |kernel - plain| {max_err}")
     return max_err
 
 
-def phase_topk_timing(ops, plain):
+TOPK_MAX_KERNELS = 2             # CUDA kernels a top-k call, at most
+
+
+def topk_device_ops(ops, x, res, k):
+    """Kernels and memsets one fused top-k call puts on the card, counted
+    by the profiler; raises past TOPK_MAX_KERNELS kernels or on any
+    memset."""
+    per_call = device_ops(lambda: ops.fused_topk(x, res, k))
+    memsets = sum(c for key, (c, _) in per_call.items()
+                  if key.startswith("Memset"))
+    kernels = sum(c for key, (c, _) in per_call.items()
+                  if not key.startswith(("Memset", "Memcpy")))
+    if kernels > TOPK_MAX_KERNELS or memsets:
+        raise AssertionError(f"a top-k call ran {kernels} kernels and "
+                             f"{memsets} memsets: {per_call}")
+    return kernels, memsets, per_call
+
+
+def phase_topk_timing(ops, plain, blocks):
     """The fused top-k at the main path's n, k beside its plain version and
     torch.topk (selection only, tie rule unpinned; the port never calls
-    it)."""
+    it), and the device operations of one call by the profiler."""
     timer = Timer()
     n, k = TOPK_MAIN
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -359,17 +401,26 @@ def phase_topk_timing(ops, plain):
     res = torch.randn(n, device="cuda", generator=gen) * 1e-4
     f_abs = (x + res).abs()
     k_ms = timer.ms(lambda: ops.fused_topk(x, res, k))
+    warm_ms = timer.ms(lambda: ops.fused_topk(x, res, k), flush=False)
     host_ms = timer.host_ms(lambda: ops.fused_topk(x, res, k))
     p_ms = timer.ms(lambda: plain(x, res, k))
     lib_ms = timer.ms(lambda: torch.topk(f_abs, k))
+    kernels, memsets, per_call = topk_device_ops(ops, x, res, k)
     bound, by = topk_bound_ms(n, k)
-    row = {"n": n, "k": k, "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
-           "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+    row = {"n": n, "k": k, "ms": k_ms, "warm_ms": warm_ms,
+           "host_ms": host_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": bound, "bound_by": by, "kernels_per_call": kernels,
+           "memsets_per_call": memsets, "grid_blocks": blocks(n),
+           "device_ops_per_call": {key: {"count": c, "device_ms": t}
+                                   for key, (c, t) in per_call.items()}}
     log(f"phase 2 timing: topk_compress n={n} k={k}: kernel {k_ms:.4f} ms "
-        f"(wrapper host time {host_ms:.4f} ms), plain {p_ms:.4f} ms, "
-        f"torch.topk (selection only, tie rule unpinned) {lib_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({by}, {12 * n + 8 * k} B); kernel at "
-        f"{100 * bound / k_ms:.1f}% of the bound")
+        f"cold, {warm_ms:.4f} ms with x and res in L2 (wrapper host time "
+        f"{host_ms:.4f} ms), plain {p_ms:.4f} ms, torch.topk (selection "
+        f"only, tie rule unpinned) {lib_ms:.4f} ms, bound {bound:.4f} ms "
+        f"({by}, {12 * n + 8 * k} B); kernel at {100 * bound / k_ms:.1f}% "
+        f"of the bound; a call is {kernels} CUDA kernel(s) and {memsets} "
+        f"memsets on the profiler ({row['grid_blocks']} blocks): "
+        f"{row['device_ops_per_call']}")
     ops.reset_topk_counts()        # comparison launches do not count
     return row
 
@@ -583,13 +634,14 @@ def profile_round(srv):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     fold_us = sum(e.self_device_time_total for e in kernels
                   if "agg_weighted_sum" in e.key)
-    topk_us = sum(e.self_device_time_total for e in kernels
-                  if "topk_" in e.key)
+    topk = [e for e in kernels if "topk_" in e.key]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": int(sum(e.count for e in kernels)),
             "fold_device_s": fold_us / 1e6,
-            "topk_device_s": topk_us / 1e6,
+            "topk_device_s": sum(e.self_device_time_total
+                                 for e in topk) / 1e6,
+            "topk_kernels": int(sum(e.count for e in topk)),
             "top_kernels": [{"name": e.key[:80], "count": int(e.count),
                              "device_s": e.self_device_time_total / 1e6}
                             for e in top]}
@@ -760,8 +812,9 @@ def phase_full_width_topk(T, ops, plain):
         log(f"phase 5 profile (one more round): wall {prof['wall_s']:.3f} s,"
             f" device busy {prof['device_busy_s']:.4f} s, idle share "
             f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
-            f"kernel launches, top-k {prof['topk_device_s'] * 1e3:.4f} ms, "
-            f"fold {prof['fold_device_s'] * 1e3:.4f} ms")
+            f"kernel launches, top-k {prof['topk_device_s'] * 1e3:.4f} ms "
+            f"in {prof['topk_kernels']} kernels, fold "
+            f"{prof['fold_device_s'] * 1e3:.4f} ms")
 
     # card against CPU under a TickTimer: identical schedules, so in round 0
     # the codec gets the same partials up to fp32 sum order and the params
@@ -1001,19 +1054,19 @@ def phase_flash_timing(ops, plain):
 PORT_KERNEL_SYMBOLS = {
     "flash_attention": ("flash_tc_kernel", "flash_fp32_kernel"),
     "ssm_scan": ("ssm_chunk_state_", "ssm_state_pass_", "ssm_chunk_out_"),
-    "rmsnorm": ("rmsnorm_kernel",)}
+    "rmsnorm": ("rms_reg_kernel", "rms_loop_kernel", "rms_scalar_kernel")}
 
 
 SPLIT_REPS = 20
 
 
-def kernel_split(fn, symbols):
-    """Mean device time a call (ms) and launches a call of each named
-    kernel, from torch.profiler over SPLIT_REPS calls of ``fn``.  The
-    profile's schedule runs the calls twice: a warm-up step with the
-    profiler on, whose records are dropped (a session's first window can
-    come back without its kernels while CUPTI starts up), then the step
-    that is read.  Raises if that step holds none of the kernels."""
+def device_ops(fn):
+    """Every device operation (kernels, memsets, copies) of a call of
+    ``fn``, by name: (launches a call, mean device ms a call), from
+    torch.profiler over SPLIT_REPS calls.  The profile's schedule runs the
+    calls twice: a warm-up step with the profiler on, whose records are
+    dropped (a session's first window can come back without its kernels
+    while CUPTI starts up), then the step that is read."""
     from torch.profiler import ProfilerActivity, profile, schedule
     got = []
     torch.cuda.synchronize()
@@ -1026,15 +1079,21 @@ def kernel_split(fn, symbols):
                 fn()
             torch.cuda.synchronize()
             prof.step()
-    events = [e for e in (got[0] if got else [])
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and any(s in e.key for s in symbols)]
-    if not events:
+    return {e.key.split("(")[0].strip() or e.key:
+            (e.count / SPLIT_REPS, e.self_device_time_total / SPLIT_REPS / 1e3)
+            for e in (got[0] if got else [])
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_split(fn, symbols):
+    """Mean device time a call (ms) and launches a call of each named
+    kernel (``device_ops``).  Raises if the profile holds none of them."""
+    hits = {key: v for key, v in device_ops(fn).items()
+            if any(s in key for s in symbols)}
+    if not hits:
         raise AssertionError(f"the profile holds none of {symbols}")
-    ms = {e.key.split("(")[0]: e.self_device_time_total / SPLIT_REPS / 1e3
-          for e in events}
-    per_call = {e.key.split("(")[0]: e.count / SPLIT_REPS for e in events}
-    return ms, per_call
+    return ({key: t for key, (_, t) in hits.items()},
+            {key: c for key, (c, _) in hits.items()})
 
 
 def profile_generate(generate, params, prompt, cfg, gen):
@@ -1156,11 +1215,19 @@ SCAN_GRID = ([(1, S, 3, N, P, ch, F32, F32, False)
              + [(1, 300, 2, 384, 400, 256, BF, BF, False)])
 HYMBA_SCAN = SCAN_GRID[8]           # the prefill's shape, bf16
 XLSTM_SCAN = SCAN_GRID[10]          # the prefill's shape, fp32 k
-# (rows, d): tests/test_kernels.py:140's grid, an odd d (the kernel's
-# scalar path), and hymba's prefill and decode rows
-RMS_GRID = [(100, 64), (1000, 896), (256, 128), (7, 33), (4096, 1600),
-            (4, 1600)]
+# (rows, d): tests/test_kernels.py:140's grid, an odd d (the scalar route),
+# hymba's prefill and decode rows; then the decode's few rows at qwen2's and
+# hymba's widths, qwen2's prefill rows, the registry's 3072 and 5120 on both
+# register routes, rows too long for registers (the looped route) at many
+# and at few rows, and a d that is not a multiple of 8
+RMS_GRID = ([(100, 64), (1000, 896), (256, 128), (7, 33), (4096, 1600),
+             (4, 1600)]
+            + [(T, d) for d in (896, 1600) for T in (1, 2, 8)]
+            + [(4, 896), (4096, 896), (300, 3072), (4, 3072), (300, 5120),
+               (4, 5120), (300, 16400), (4, 40000), (5, 1001)])
 RMS_SERVE = (4096, 1600)
+# the shapes phase 7c times: hymba's and qwen2's prefill and decode rows
+RMS_TIMED = [(4096, 1600), (4096, 896), (4, 1600), (4, 896)]
 HYMBA_PARAMS = 1640555968           # jax.eval_shape leaf total (the tests)
 XLSTM_PARAMS = 172920624
 XLSTM_BATCH, XLSTM_PROMPT, XLSTM_GEN = 4, 512, 16
@@ -1258,17 +1325,20 @@ def phase_scan_grid(ops, plain):
     return max_err
 
 
-def phase_rms_grid(ops, plain):
+def phase_rms_grid(ops, plain, route, all_routes):
     """(b) the norm kernel against its plain version over RMS_GRID at
     tests/test_kernels.py's tolerances (fp32 atol 2e-5, bf16 2e-2, rtol
-    1e-2)."""
+    1e-2).  Raises unless every route of the kernel ran."""
     gen = torch.Generator(device="cuda").manual_seed(71)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    routes = {}
     for T, d in RMS_GRID:
         for dt in (F32, BF):
             x = torch.randn(T, d, device="cuda", generator=gen).to(dt)
             g = torch.randn(d, device="cuda", generator=gen).to(dt)
             got = ops.rmsnorm(x, g)
+            routes.setdefault(route(x, g, got), []).append(
+                (T, d, str(dt)[6:]))
             want = plain(x, g)
             torch.cuda.synchronize()
             atol = 2e-5 if dt == F32 else 2e-2
@@ -1280,17 +1350,20 @@ def phase_rms_grid(ops, plain):
             key = str(dt)[6:]
             max_err[key] = max(max_err[key], float(diff.max()))
     ops.reset_rmsnorm_counts()     # comparison launches do not count
+    if sorted(routes) != sorted(all_routes):
+        raise AssertionError(f"rmsnorm routes run: {sorted(routes)}")
     log(f"phase 7: rmsnorm matches its plain version on "
         f"{2 * len(RMS_GRID)} cases {RMS_GRID} x (fp32, bf16); max |err| "
-        f"fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
+        f"fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}; "
+        f"routes {routes}")
     return max_err
 
 
-def phase_recurrent_timing(ops, scan_plain, rms_plain, flash_plain):
+def phase_recurrent_timing(ops, scan_plain, rms_plain, rms_route,
+                           flash_plain):
     """(c) each kernel at its serving shape beside its plain version, the
     one PyTorch call that computes the same function where there is one,
     and its bound."""
-    import torch.nn.functional as F
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(72)
     rows = {}
@@ -1324,33 +1397,48 @@ def phase_recurrent_timing(ops, scan_plain, rms_plain, flash_plain):
             f"design's floor with its workspace {floor_ms:.4f} ms "
             f"({ws_nbytes} B); kernel / plain {k_ms / p_ms:.3f}")
         del q, k, v, la
-    T, d = RMS_SERVE
-    x = torch.randn(T, d, device="cuda", generator=gen).to(BF)
-    g = torch.randn(d, device="cuda", generator=gen).to(BF)
-    k_ms = timer.ms(lambda: ops.rmsnorm(x, g))
-    host_ms = timer.host_ms(lambda: ops.rmsnorm(x, g))
-    p_ms = timer.ms(lambda: rms_plain(x, g))
-    lib_ms = lib_diff = None
-    if hasattr(F, "rms_norm"):
-        lib_ms = timer.ms(lambda: F.rms_norm(x, (d,), g, 1e-5))
-        lib_diff = float((F.rms_norm(x, (d,), g, 1e-5).float()
-                          - ops.rmsnorm(x, g).float()).abs().max())
-    bound, by, nbytes = rms_bound_ms(T, d, 2)
-    rows["rmsnorm"] = {"shape": {"T": T, "d": d, "dtype": "bfloat16"},
-                       "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
-                       "library_ms": lib_ms, "library_max_abs_diff": lib_diff,
-                       "bound_ms": bound, "bound_by": by, "bytes": nbytes}
-    log(f"phase 7 timing: rmsnorm ({T}, {d}) bf16: kernel {k_ms:.4f} ms "
-        f"(wrapper host time {host_ms:.4f} ms), plain {p_ms:.4f} ms, "
-        f"F.rms_norm {lib_ms} ms (|diff| {lib_diff}), bound {bound:.4f} ms "
-        f"({by}: {nbytes} B); kernel at {100 * bound / k_ms:.2f}% of the "
-        f"bound")
+    rows["rmsnorm"] = [time_rms(ops, rms_plain, rms_route, timer, T, d,
+                                gen) for T, d in RMS_TIMED]
     rows["flash_hymba"] = time_flash("phase 7", ops, flash_plain, timer,
                                      HYMBA_FLASH, 1024, gen)
     ops.reset_ssm_scan_counts()    # comparison launches do not count
     ops.reset_rmsnorm_counts()
     ops.reset_flash_counts()
     return rows
+
+
+def time_rms(ops, plain, route, timer, T, d, gen):
+    """The norm at (T, d) bf16: cold (L2 flushed) and warm (x in L2, as the
+    decode finds it), beside its plain version, ``F.rms_norm`` and its
+    bound."""
+    import torch.nn.functional as F
+    x = torch.randn(T, d, device="cuda", generator=gen).to(BF)
+    g = torch.randn(d, device="cuda", generator=gen).to(BF)
+    k_ms = timer.ms(lambda: ops.rmsnorm(x, g))
+    warm_ms = timer.ms(lambda: ops.rmsnorm(x, g), flush=False)
+    host_ms = timer.host_ms(lambda: ops.rmsnorm(x, g))
+    p_ms = timer.ms(lambda: plain(x, g))
+    lib_ms = lib_warm_ms = lib_diff = None
+    if hasattr(F, "rms_norm"):
+        lib_ms = timer.ms(lambda: F.rms_norm(x, (d,), g, 1e-5))
+        lib_warm_ms = timer.ms(lambda: F.rms_norm(x, (d,), g, 1e-5),
+                               flush=False)
+        lib_diff = float((F.rms_norm(x, (d,), g, 1e-5).float()
+                          - ops.rmsnorm(x, g).float()).abs().max())
+    bound, by, nbytes = rms_bound_ms(T, d, 2)
+    row = {"shape": {"T": T, "d": d, "dtype": "bfloat16"},
+           "route": route(x, g, torch.empty_like(x)), "ms": k_ms,
+           "warm_ms": warm_ms, "host_ms": host_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "library_warm_ms": lib_warm_ms,
+           "library_max_abs_diff": lib_diff, "bound_ms": bound,
+           "bound_by": by, "bytes": nbytes}
+    log(f"phase 7 timing: rmsnorm ({T}, {d}) bf16, {row['route']} route: "
+        f"kernel {k_ms:.4f} ms cold, {warm_ms:.4f} ms warm (wrapper host "
+        f"time {host_ms:.4f} ms), plain {p_ms:.4f} ms, F.rms_norm {lib_ms} "
+        f"ms cold, {lib_warm_ms} ms warm (|diff| {lib_diff}), bound "
+        f"{bound:.4f} ms ({by}: {nbytes} B); kernel at "
+        f"{100 * bound / k_ms:.2f}% of the bound")
+    return row
 
 
 def reset_counts(ops):
@@ -1565,8 +1653,11 @@ def main() -> int:
     from repro_torch.core import tree
     from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
     from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import ROUTES as RMS_ROUTES
     from repro_torch.kernels.rmsnorm import rmsnorm_plain
+    from repro_torch.kernels.rmsnorm import route as rms_route
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
+    from repro_torch.kernels.topk_compress import blocks as topk_blocks
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
     from repro_torch.launch.serve import generate, make_prompt
     from repro_torch.models import lm
@@ -1583,7 +1674,7 @@ def main() -> int:
     max_err = phase_kernel_grid(ops, agg_weighted_sum_plain)
     timings = phase_kernel_timing(ops, agg_weighted_sum_plain)
     topk_err = phase_topk_grid(ops, topk_with_residual_plain)
-    topk_t = phase_topk_timing(ops, topk_with_residual_plain)
+    topk_t = phase_topk_timing(ops, topk_with_residual_plain, topk_blocks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         qs_launches = phase_quickstart(T, make_classification_clients, ops,
                                        work)
@@ -1598,15 +1689,17 @@ def main() -> int:
                         get_arch("qwen2-0.5b"))
     q_launch = serve["launches"]
     scan_err = phase_scan_grid(ops, ssm_scan_plain)
-    rms_err = phase_rms_grid(ops, rmsnorm_plain)
+    rms_err = phase_rms_grid(ops, rmsnorm_plain, rms_route, RMS_ROUTES)
     rec_t = phase_recurrent_timing(ops, ssm_scan_plain, rmsnorm_plain,
-                                   flash_attention_plain)
+                                   rms_route, flash_attention_plain)
     h_serve, x_serve = phase_recurrent_serve(
         ops, lm, tree, generate, make_prompt, get_arch("hymba-1.5b"),
         get_arch("xlstm-125m"))
     h_launch, x_launch = h_serve["launches"], x_serve["launches"]
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
+    rms_main = next(t for t in rec_t["rmsnorm"]
+                    if (t["shape"]["T"], t["shape"]["d"]) == RMS_SERVE)
     record = {"kernels": [{
         "name": "agg_weighted_sum",
         "route": "cuda",
@@ -1647,6 +1740,11 @@ def main() -> int:
         "library_call": "torch.topk(|f|, k): selection only, tie rule "
                         "unpinned",
         "shape": {"n": topk_t["n"], "k": topk_t["k"]},
+        "timing": topk_t,
+        "kernels_per_call": topk_t["kernels_per_call"],
+        "memsets_per_call": topk_t["memsets_per_call"],
+        "round_device_ms": (None if c_prof is None
+                            else c_prof["topk_device_s"] * 1e3),
         "quickstart_launches": qs_topk_launches["topk_compress"],
         "compressed_full_width_rounds": c_rows,
         "compressed_full_width_profile": c_prof,
@@ -1712,16 +1810,17 @@ def main() -> int:
         "launches": h_launch["prefill"][2] + h_launch["decode"][2],
         "max_abs_err": max(rms_err.values()),
         "max_abs_err_by_dtype": rms_err,
-        "ms": rec_t["rmsnorm"]["ms"],
-        "time_ms": rec_t["rmsnorm"]["ms"],
-        "host_ms": rec_t["rmsnorm"]["host_ms"],
-        "plain_ms": rec_t["rmsnorm"]["plain_ms"],
-        "bound_ms": rec_t["rmsnorm"]["bound_ms"],
-        "bound_by": rec_t["rmsnorm"]["bound_by"],
-        "library_ms": rec_t["rmsnorm"]["library_ms"],
+        "ms": rms_main["ms"],
+        "time_ms": rms_main["ms"],
+        "host_ms": rms_main["host_ms"],
+        "plain_ms": rms_main["plain_ms"],
+        "bound_ms": rms_main["bound_ms"],
+        "bound_by": rms_main["bound_by"],
+        "library_ms": rms_main["library_ms"],
         "library_call": "torch.nn.functional.rms_norm(x, (d,), g, 1e-5)",
-        "shape": rec_t["rmsnorm"]["shape"],
-        "timing": rec_t["rmsnorm"],
+        "shape": rms_main["shape"],
+        "route_taken": rms_main["route"],
+        "timings": rec_t["rmsnorm"],
         "qwen_launches": q_launch["prefill"][2] + q_launch["decode"][2],
         "xlstm_launches": x_launch["prefill"][2] + x_launch["decode"][2],
     }]}

@@ -85,6 +85,8 @@ class ParrotServer:
                  engine_opts: Optional[Dict[str, Any]] = None,
                  fold_fan_in: int = 16,
                  compressor: Optional[Any] = None,
+                 mode: str = "parrot",
+                 gang_dispatch: bool = True,
                  seed: int = 0,
                  device: Optional[Any] = None,
                  **later_knobs: Any):
@@ -118,6 +120,11 @@ class ParrotServer:
             # compressor="topk"/"int8"/"powersgd" builds the compiled default
             compressor = make_compressor(compressor)
         self.compressor = compressor
+        self.mode = mode
+        # SPMD gang dispatch of gangable BSP rounds: a no-op until the
+        # multi-device placement is ported (ROADMAP.md, modules queue item
+        # 15), as it is in the JAX package without a placement
+        self.gang_dispatch = bool(gang_dispatch)
         # cumulative simulated time across rounds
         self.virtual_now = 0.0
         self.overlap_scheduling = overlap_scheduling

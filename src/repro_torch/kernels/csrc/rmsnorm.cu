@@ -4,35 +4,61 @@
 // Replaces the Pallas TPU kernel repro/kernels/rmsnorm.py:_rmsnorm_kernel
 // (launched by rmsnorm, reached through repro/kernels/ops.py rmsnorm).  The
 // TPU kernel walks blocks of 256 rows and pads the tail rows with 1.0 only to
-// fill its last block; this kernel has no row blocks (a warp owns a row and
-// masks nothing but the ragged end of that row), so it needs no padding.
+// fill its last block; here a group of threads owns a row and masks nothing
+// but the ragged end of that row, so nothing is padded.
 //
 // What bounds it.  One call must read x and g and write y: at the hymba-1.5b
 // prefill shape (T = 4096 rows, d = 1600, bf16) that is 26.2 MB, or 7.8 us at
 // 3.35 TB/s; its 4 operations an element are 0.03 GFLOP, far below any
-// arithmetic limit.  So it is bound by bytes, and the design is to read each
-// element from device memory once and move it in 16-byte vectors.
+// arithmetic limit.  So it is bound by bytes, and at the decode shape (T = 4,
+// 12.8 KB) by one round trip to device memory and the launch.  The design is
+// to read each element of x once, in 16-byte packs, and to have every load
+// of a row in flight before any of them is used.
 //
-// Design.  One warp per row, eight rows a block of 256 threads.  Each lane
-// loads 16-byte packs (8 bf16 or 4 fp32 values) at a 512-byte stride along
-// the row, sums their squares in fp32, and the warp adds its 32 partial sums
-// with xor-shuffles.  The scale is 1 / sqrtf(mean + eps) (IEEE square root
-// and division, as the CPU's rsqrt rounds), then a second pass over the same
-// row (from L1/L2, where the first pass left it) multiplies by the scale and
-// by g in fp32 and rounds once to x's dtype.  Rows whose length or base is
-// not a multiple of 16 bytes take the same loop one element at a time.  g may
-// be fp32 or bf16 whatever x is.
+// Routes, picked by the launcher from T, d, the dtypes and the alignment:
+//
+//   rows      (T > RN_FEW_ROWS, d up to RN_MAX_PACKS packs a lane of a warp
+//              group).  A row belongs to a group of 1, 2, 4 or 8 warps, the
+//              fewest that hold it in at most RN_MAX_PACKS 16-byte packs a
+//              lane; a block of 256 threads holds 8, 4, 2 or 1 rows.  Each
+//              lane issues all its packs of x and of g before it uses any,
+//              sums squares in fp32, the group adds its partial sums (xor
+//              shuffles, then shared memory across its warps), and the lane
+//              writes y from the packs it still holds: x is read once.
+//   few rows  (T <= RN_FEW_ROWS: the decode's 4 rows).  The same kernel with
+//              one row a block of up to 512 threads, the fewest packs a
+//              thread, so that a call of 4 rows spreads over 4 SMs and every
+//              load of the call is in flight at once: one round trip.
+//   looped    (rows longer than either route holds in registers).  A block
+//              per row walks it twice, four packs a thread in flight per
+//              step; the second walk finds the row in L2.
+//   scalar    (d, the row stride or a base not a multiple of 16 bytes, or g
+//              not aligned to its pack).  A warp per row, one element at a
+//              time, two walks, as the first port of this kernel did.
+//
+// g is read in packs at the same positions as x (16 bytes of x's dtype are
+// 8 or 4 elements: 16, 32 or 8 bytes of g's), held in registers beside x.
+// The scale is 1 / sqrtf(mean + eps) (IEEE square root and division, as the
+// CPU's rsqrt rounds), then y = (x * scale) * g in fp32, rounded once to x's
+// dtype.  g may be fp32 or bf16 whatever x is.
 //
 // Plain C interface, loaded with ctypes.  The launch goes to the caller's
 // stream, does not synchronise and allocates nothing; the return value is
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch.  rmsnorm_route says which route a
+// call takes, for the tests.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#define RN_THREADS 256
-#define RN_ROWS (RN_THREADS / 32)
+#define RN_THREADS 256          // rows route: threads a block
+#define RN_FEW_THREADS 512      // few-rows route: most threads a row
+#define RN_LOOP_THREADS 512     // looped route: threads a row
+#define RN_MAX_PACKS 8          // most 16-byte packs of x a lane holds
+#define RN_FEW_ROWS 128         // T at or below this takes the few-rows route
+#define RN_LOOP_UNROLL 4        // packs in flight a thread, looped route
+
+enum { ROUTE_SCALAR = 0, ROUTE_ROWS = 1, ROUTE_FEW_ROWS = 2, ROUTE_LOOPED = 3 };
 
 __device__ inline float to_f(float x) { return x; }
 __device__ inline float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -41,73 +67,281 @@ __device__ inline void from_f(__nv_bfloat16* p, float x) {
     *p = __float2bfloat16(x);   // round to nearest even, as astype does
 }
 
-// VEC: elements of a 16-byte pack, or 1 for the scalar path
-template <typename TX, typename TG, int VEC>
-__global__ void __launch_bounds__(RN_THREADS)
-rmsnorm_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
-               TX* __restrict__ y, long long T, int d, long long sx,
-               float eps) {
-    const int lane = threadIdx.x % 32;
-    const long long row = (long long)blockIdx.x * RN_ROWS + threadIdx.x / 32;
-    if (row >= T) return;
-    const TX* xr = x + row * sx;
-    TX* yr = y + row * (long long)d;
+// One pack of x (16 bytes, VEC elements) and the VEC elements of g beside it
+// (16, 32 or 8 bytes), loaded whole.
+template <typename TX>
+struct XPack {
+    static constexpr int VEC = 16 / sizeof(TX);
+    alignas(16) TX v[VEC];
+    __device__ inline void load(const TX* p) {
+        *reinterpret_cast<int4*>(v) = *reinterpret_cast<const int4*>(p);
+    }
+    __device__ inline void store(TX* p) const {
+        *reinterpret_cast<int4*>(p) = *reinterpret_cast<const int4*>(v);
+    }
+};
 
-    float ss = 0.f;
-    for (int i = lane * VEC; i < d; i += 32 * VEC) {
-        alignas(16) TX buf[VEC];
-        if constexpr (VEC > 1) {
-            *reinterpret_cast<int4*>(buf) = *reinterpret_cast<const int4*>(xr + i);
+template <typename TG, int VEC>
+struct GPack {
+    static constexpr int BYTES = VEC * (int)sizeof(TG);
+    alignas(16) TG v[VEC];
+    __device__ inline void load(const TG* p) {
+        if constexpr (BYTES == 32) {
+            reinterpret_cast<int4*>(v)[0] = __ldg(reinterpret_cast<const int4*>(p));
+            reinterpret_cast<int4*>(v)[1] = __ldg(reinterpret_cast<const int4*>(p) + 1);
+        } else if constexpr (BYTES == 16) {
+            *reinterpret_cast<int4*>(v) = __ldg(reinterpret_cast<const int4*>(p));
         } else {
-            buf[0] = xr[i];
+            static_assert(BYTES == 8, "g pack of 8, 16 or 32 bytes");
+            *reinterpret_cast<int2*>(v) = __ldg(reinterpret_cast<const int2*>(p));
         }
+    }
+};
+
+// Rows and few-rows routes.  A row belongs to tpr = 32 * wpr threads (wpr
+// warps); a block holds blockDim.x / tpr rows.  Lane t of a row holds packs
+// t, t + tpr, ..., t + (P - 1) * tpr.
+template <typename TX, typename TG, int P>
+__global__ void __launch_bounds__(RN_FEW_THREADS)
+rms_reg_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+               TX* __restrict__ y, long long T, int d, long long sx,
+               float eps, int wpr) {
+    constexpr int VEC = XPack<TX>::VEC;
+    __shared__ float part[RN_FEW_THREADS / 32];
+    const int tpr = 32 * wpr;
+    const int t = threadIdx.x % tpr;
+    const int rib = threadIdx.x / tpr;
+    const long long row = (long long)blockIdx.x * (blockDim.x / tpr) + rib;
+    // no early return: a row of several warps meets at __syncthreads
+    const bool live = row < T;
+    const int packs = d / VEC;
+    const TX* xr = x + (live ? row : 0LL) * sx;
+    TX* yr = y + (live ? row : 0LL) * (long long)d;
+
+    XPack<TX> xp[P];
+    GPack<TG, VEC> gp[P];
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-            const float v = to_f(buf[j]);
-            ss = fmaf(v, v, ss);
+    for (int i = 0; i < P; ++i) {
+        const int j = t + i * tpr;
+        if (live && j < packs) xp[i].load(xr + (long long)j * VEC);
+    }
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+        const int j = t + i * tpr;
+        if (live && j < packs) gp[i].load(g + j * VEC);
+    }
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+        if (live && t + i * tpr < packs) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+                const float v = to_f(xp[i].v[e]);
+                ss = fmaf(v, v, ss);
+            }
         }
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
         ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (wpr > 1) {
+        if (threadIdx.x % 32 == 0) part[threadIdx.x / 32] = ss;
+        __syncthreads();
+        ss = 0.f;
+        for (int w = 0; w < wpr; ++w) ss += part[rib * wpr + w];
+    }
     const float r = 1.0f / sqrtf(ss / (float)d + eps);
-
-    for (int i = lane * VEC; i < d; i += 32 * VEC) {
-        alignas(16) TX buf[VEC];
-        if constexpr (VEC > 1) {
-            *reinterpret_cast<int4*>(buf) = *reinterpret_cast<const int4*>(xr + i);
-        } else {
-            buf[0] = xr[i];
-        }
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-            from_f(&buf[j], to_f(buf[j]) * r * to_f(g[i + j]));
-        if constexpr (VEC > 1) {
-            *reinterpret_cast<int4*>(yr + i) = *reinterpret_cast<const int4*>(buf);
-        } else {
-            yr[i] = buf[0];
+    for (int i = 0; i < P; ++i) {
+        const int j = t + i * tpr;
+        if (live && j < packs) {
+            XPack<TX> out;
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+                from_f(&out.v[e], to_f(xp[i].v[e]) * r * to_f(gp[i].v[e]));
+            out.store(yr + (long long)j * VEC);
         }
     }
 }
 
+// Looped route: a block of RN_LOOP_THREADS per row, RN_LOOP_UNROLL packs a
+// thread in flight per step, two walks.
 template <typename TX, typename TG>
-static int launch(const void* x, const void* g, void* y, long long T, int d,
-                  long long sx, float eps, cudaStream_t stream) {
+__global__ void __launch_bounds__(RN_LOOP_THREADS)
+rms_loop_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+                TX* __restrict__ y, int d, long long sx, float eps) {
+    constexpr int VEC = XPack<TX>::VEC;
+    constexpr int U = RN_LOOP_UNROLL;
+    __shared__ float part[RN_LOOP_THREADS / 32];
+    const int t = threadIdx.x;
+    const int nt = blockDim.x;
+    const long long row = blockIdx.x;
+    const TX* xr = x + row * sx;
+    TX* yr = y + row * (long long)d;
+    const int packs = d / VEC;
+
+    float ss = 0.f;
+    for (int base = t; base < packs; base += U * nt) {
+        XPack<TX> xp[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u)
+            if (base + u * nt < packs) xp[u].load(xr + (long long)(base + u * nt) * VEC);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            if (base + u * nt < packs) {
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                    const float v = to_f(xp[u].v[e]);
+                    ss = fmaf(v, v, ss);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    if (t % 32 == 0) part[t / 32] = ss;
+    __syncthreads();
+    ss = 0.f;
+    for (int w = 0; w < nt / 32; ++w) ss += part[w];
+    const float r = 1.0f / sqrtf(ss / (float)d + eps);
+
+    for (int base = t; base < packs; base += U * nt) {
+        XPack<TX> xp[U];
+        GPack<TG, VEC> gp[U];
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int j = base + u * nt;
+            if (j < packs) {
+                xp[u].load(xr + (long long)j * VEC);
+                gp[u].load(g + j * VEC);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+            const int j = base + u * nt;
+            if (j < packs) {
+                XPack<TX> out;
+#pragma unroll
+                for (int e = 0; e < VEC; ++e)
+                    from_f(&out.v[e], to_f(xp[u].v[e]) * r * to_f(gp[u].v[e]));
+                out.store(yr + (long long)j * VEC);
+            }
+        }
+    }
+}
+
+// Scalar route: a warp per row, one element at a time, two walks.
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_scalar_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
+                  TX* __restrict__ y, long long T, int d, long long sx,
+                  float eps) {
+    const int lane = threadIdx.x % 32;
+    const long long row = (long long)blockIdx.x * (RN_THREADS / 32)
+        + threadIdx.x / 32;
+    if (row >= T) return;
+    const TX* xr = x + row * sx;
+    TX* yr = y + row * (long long)d;
+    float ss = 0.f;
+    for (int i = lane; i < d; i += 32) {
+        const float v = to_f(xr[i]);
+        ss = fmaf(v, v, ss);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+        ss += __shfl_xor_sync(0xffffffffu, ss, off);
+    const float r = 1.0f / sqrtf(ss / (float)d + eps);
+    for (int i = lane; i < d; i += 32)
+        from_f(&yr[i], to_f(xr[i]) * r * to_f(g[i]));
+}
+
+// How a call is laid out: route, warps a row and packs a lane (register
+// routes), blocks and threads a block.
+struct Plan {
+    int route, wpr, P;
+    long long blocks;
+    int threads;
+};
+
+static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+template <typename TX, typename TG>
+static Plan plan(const void* x, const void* g, const void* y, long long T,
+                 int d, long long sx) {
     constexpr int VEC = 16 / sizeof(TX);
+    constexpr int GBYTES = VEC * (int)sizeof(TG);
+    const int galign = GBYTES < 16 ? GBYTES : 16;
     const bool vec = d % VEC == 0 && sx % VEC == 0
         && reinterpret_cast<uintptr_t>(x) % 16 == 0
-        && reinterpret_cast<uintptr_t>(y) % 16 == 0;
-    const dim3 grid((unsigned)((T + RN_ROWS - 1) / RN_ROWS));
-    const TX* xp = static_cast<const TX*>(x);
-    const TG* gp = static_cast<const TG*>(g);
-    TX* yp = static_cast<TX*>(y);
-    if (vec)
-        rmsnorm_kernel<TX, TG, VEC><<<grid, RN_THREADS, 0, stream>>>(
-            xp, gp, yp, T, d, sx, eps);
-    else
-        rmsnorm_kernel<TX, TG, 1><<<grid, RN_THREADS, 0, stream>>>(
-            xp, gp, yp, T, d, sx, eps);
+        && reinterpret_cast<uintptr_t>(y) % 16 == 0
+        && reinterpret_cast<uintptr_t>(g) % galign == 0;
+    Plan p{ROUTE_SCALAR, 1, 1, (T + RN_THREADS / 32 - 1) / (RN_THREADS / 32),
+           RN_THREADS};
+    if (!vec) return p;
+    const int packs = d / VEC;
+    if (T <= RN_FEW_ROWS && packs <= RN_FEW_THREADS * RN_MAX_PACKS) {
+        int tpr = (packs + 31) / 32 * 32;
+        if (tpr > RN_FEW_THREADS) tpr = RN_FEW_THREADS;
+        return Plan{ROUTE_FEW_ROWS, tpr / 32, cdiv(packs, tpr), T, tpr};
+    }
+    if (packs <= RN_THREADS * RN_MAX_PACKS) {
+        int wpr = 1;
+        while (cdiv(packs, 32 * wpr) > RN_MAX_PACKS) wpr *= 2;
+        const int rpb = RN_THREADS / (32 * wpr);
+        return Plan{ROUTE_ROWS, wpr, cdiv(packs, 32 * wpr),
+                    (T + rpb - 1) / rpb, RN_THREADS};
+    }
+    return Plan{ROUTE_LOOPED, RN_LOOP_THREADS / 32, RN_LOOP_UNROLL, T,
+                RN_LOOP_THREADS};
+}
+
+template <typename TX, typename TG, int P>
+static void launch_reg(const Plan& p, const TX* x, const TG* g, TX* y,
+                       long long T, int d, long long sx, float eps,
+                       cudaStream_t s) {
+    rms_reg_kernel<TX, TG, P><<<(unsigned)p.blocks, p.threads, 0, s>>>(
+        x, g, y, T, d, sx, eps, p.wpr);
+}
+
+template <typename TX, typename TG>
+static int launch(const void* xv, const void* gv, void* yv, long long T,
+                  int d, long long sx, float eps, cudaStream_t s) {
+    const Plan p = plan<TX, TG>(xv, gv, yv, T, d, sx);
+    if (p.blocks < 1 || p.blocks > 2147483647LL)
+        return (int)cudaErrorInvalidValue;
+    const TX* x = static_cast<const TX*>(xv);
+    const TG* g = static_cast<const TG*>(gv);
+    TX* y = static_cast<TX*>(yv);
+    switch (p.route) {
+    case ROUTE_SCALAR:
+        rms_scalar_kernel<TX, TG><<<(unsigned)p.blocks, p.threads, 0, s>>>(
+            x, g, y, T, d, sx, eps);
+        break;
+    case ROUTE_LOOPED:
+        rms_loop_kernel<TX, TG><<<(unsigned)p.blocks, p.threads, 0, s>>>(
+            x, g, y, d, sx, eps);
+        break;
+    default:
+        switch (p.P) {
+        case 1: launch_reg<TX, TG, 1>(p, x, g, y, T, d, sx, eps, s); break;
+        case 2: launch_reg<TX, TG, 2>(p, x, g, y, T, d, sx, eps, s); break;
+        case 3: launch_reg<TX, TG, 3>(p, x, g, y, T, d, sx, eps, s); break;
+        case 4: launch_reg<TX, TG, 4>(p, x, g, y, T, d, sx, eps, s); break;
+        case 5: launch_reg<TX, TG, 5>(p, x, g, y, T, d, sx, eps, s); break;
+        case 6: launch_reg<TX, TG, 6>(p, x, g, y, T, d, sx, eps, s); break;
+        case 7: launch_reg<TX, TG, 7>(p, x, g, y, T, d, sx, eps, s); break;
+        case 8: launch_reg<TX, TG, 8>(p, x, g, y, T, d, sx, eps, s); break;
+        default: return (int)cudaErrorInvalidValue;
+        }
+    }
     return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TG>
+static int route_of(const void* x, const void* g, const void* y, long long T,
+                    int d, long long sx) {
+    return plan<TX, TG>(x, g, y, T, d, sx).route;
 }
 
 extern "C" {
@@ -118,8 +352,7 @@ extern "C" {
 int rmsnorm_launch(const void* x, const void* g, void* y, long long T, int d,
                    long long sx, int x_dtype, int g_dtype, float eps,
                    void* stream) {
-    if (T <= 0 || d <= 0 || T > 2147483647LL * RN_ROWS)
-        return (int)cudaErrorInvalidValue;
+    if (T <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_dtype == 0 && g_dtype == 0)
         return launch<float, float>(x, g, y, T, d, sx, eps, s);
@@ -130,6 +363,21 @@ int rmsnorm_launch(const void* x, const void* g, void* y, long long T, int d,
     if (x_dtype == 1 && g_dtype == 1)
         return launch<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx, eps, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// The route rmsnorm_launch takes for these arguments: 0 scalar, 1 rows,
+// 2 few rows, 3 looped; -1 for dtypes it does not take.
+int rmsnorm_route(const void* x, const void* g, const void* y, long long T,
+                  int d, long long sx, int x_dtype, int g_dtype) {
+    if (x_dtype == 0 && g_dtype == 0)
+        return route_of<float, float>(x, g, y, T, d, sx);
+    if (x_dtype == 0 && g_dtype == 1)
+        return route_of<float, __nv_bfloat16>(x, g, y, T, d, sx);
+    if (x_dtype == 1 && g_dtype == 0)
+        return route_of<__nv_bfloat16, float>(x, g, y, T, d, sx);
+    if (x_dtype == 1 && g_dtype == 1)
+        return route_of<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx);
+    return -1;
 }
 
 }  // extern "C"

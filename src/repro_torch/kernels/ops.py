@@ -18,8 +18,8 @@ counterparts):
   :data:`ssm_scan_launches` / :data:`rmsnorm_launches` — CUDA launches
   only, incremented exactly where the kernel is launched (``chip_smoke.py``
   reads them to show that the main path went through the kernels).  A
-  top-k launch is one launch sequence, for one span, and a scan launch the
-  three kernels of one call.
+  top-k launch is one cooperative kernel, for one span, and a scan launch
+  the three kernels of one call.
 
 :data:`flash_route_launches` splits the flash launches by the kernel the
 dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
@@ -180,8 +180,9 @@ def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
     idx = torch.empty(k, dtype=torch.int32, device=x.device)
     vals = torch.empty(k, dtype=torch.float32, device=x.device)
     new_res = res if inplace else torch.empty_like(x)
-    scratch = torch.empty(_tkc.scratch_words(), dtype=torch.int32,
-                          device=x.device)
+    with torch.cuda.device(x.device):
+        words = _tkc.scratch_words(x.numel())
+    scratch = torch.empty(words, dtype=torch.int32, device=x.device)
     _tkc.topk_with_residual_cuda(x, res, k, idx, vals, new_res, scratch)
     topk_launches += 1
     return idx, vals, new_res

@@ -4,8 +4,10 @@ ties to the LOWER index; ``idx`` ascending int32, ``vals = f[idx]``,
 
 Port of ``repro/kernels/topk_compress.py``.  The Pallas TPU kernel
 (``_topk_kernel``) becomes ``csrc/topk_compress.cu``, a CUDA C++ kernel for
-Hopper written by hand (radix select plus a stable compaction; its source
-note gives the bound and the design).  This module holds its two forms:
+Hopper written by hand: one cooperative launch a span, a three-pass radix
+select whose later passes read only the candidates, and a stable
+compaction (its source note gives the bound and the design).  This module
+holds its two forms:
 
 * :func:`topk_with_residual_plain` — the plain PyTorch version.  The CPU
   tests hold it to the JAX package, and ``chip_smoke.py`` holds the kernel
@@ -60,27 +62,47 @@ def _launcher():
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        words = lib.topk_compress_scratch_words
-        words.argtypes = []
-        words.restype = ctypes.c_int
-        _lib = (fn, int(words()))
+        sizes = []
+        for name in ("topk_compress_scratch_words", "topk_compress_blocks"):
+            f = getattr(lib, name)
+            f.argtypes = [ctypes.c_longlong]
+            f.restype = ctypes.c_longlong
+            sizes.append(f)
+        _lib = (fn, *sizes)
     return _lib
 
 
-def scratch_words() -> int:
-    """Device scratch the launch needs, in 32-bit words."""
-    return _launcher()[1]
+def _size(which: int, n: int) -> int:
+    got = int(_launcher()[which](n))
+    if got < 0:
+        raise RuntimeError(f"topk_compress cannot plan a span of n={n} on "
+                           f"this device")
+    return got
+
+
+def scratch_words(n: int) -> int:
+    """Device scratch one launch on a span of n needs, in 32-bit words:
+    histograms, per-block counts and a candidate buffer of at least n
+    words (every key may share the first digit's bin).  Needs no zeroing."""
+    return _size(1, n)
+
+
+def blocks(n: int) -> int:
+    """Blocks of the cooperative grid for a span of n (one an SM at most,
+    fewer for a short span)."""
+    return _size(2, n)
 
 
 def topk_with_residual_cuda(x: torch.Tensor, res: torch.Tensor, k: int,
                             idx: torch.Tensor, vals: torch.Tensor,
                             new_res: torch.Tensor,
                             scratch: torch.Tensor) -> None:
-    """Launch the kernel sequence on the current stream.  ``new_res`` may be
-    ``res`` (the residual updated in place).  The caller has checked
-    devices, dtypes, shapes and contiguity (``ops._check_topk``); raises if
-    a launch fails."""
-    fn, _ = _launcher()
+    """Launch the kernel (one cooperative launch) on the current stream.
+    ``new_res`` may be ``res`` (the residual updated in place); ``scratch``
+    holds :func:`scratch_words` words.  The caller has checked devices,
+    dtypes, shapes and contiguity (``ops._check_topk``); raises if the
+    launch fails, a grid that cannot be resident at once included."""
+    fn = _launcher()[0]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), res.data_ptr(), x.numel(), k, idx.data_ptr(),

@@ -21,6 +21,7 @@ from repro_torch.configs.registry import ARCHS
 from repro_torch.core import tree
 from repro_torch.data import make_classification_clients
 from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
@@ -76,6 +77,24 @@ def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def _topk_fresh_and_in_place(buf, rbuf, n, k):
+    """The span [3, 3 + n) of buf and rbuf (an odd offset) through the
+    kernel, fresh and in place, against the plain version bit for bit;
+    nothing outside the span is written."""
+    x, res = buf[3:3 + n], rbuf[3:3 + n]
+    want = topk_with_residual_plain(x, res, k)
+    got = ops.fused_topk(x, res, k)
+    inplace = rbuf.clone()
+    got_inplace = ops.fused_topk(x, inplace[3:3 + n], k, inplace=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(want, got, got_inplace):
+        assert torch.equal(_bits(a), _bits(b))
+        assert torch.equal(_bits(a), _bits(c))
+    assert torch.equal(_bits(inplace[3:3 + n]), _bits(want[2]))
+    assert torch.equal(inplace[:3], rbuf[:3])
+    assert torch.equal(inplace[3 + n:], rbuf[3 + n:])
+
+
 @pytest.mark.parametrize("n", [1, 300, 1000, 100001, 1207440])
 @pytest.mark.parametrize("frac", [0.0, 0.01, 1.0])
 @pytest.mark.parametrize("ties", [False, True])
@@ -92,20 +111,73 @@ def test_cuda_topk_matches_plain_bitwise(cuda, n, frac, ties):
         buf[::37] = -0.0
         buf[1::53] = float("nan")
         buf[2::101] = float("inf")
-    x, res = buf[3:3 + n], rbuf[3:3 + n]
-    want = topk_with_residual_plain(x, res, k)
     launches = ops.topk_launches
-    got = ops.fused_topk(x, res, k)
-    inplace = rbuf.clone()
-    got_inplace = ops.fused_topk(x, inplace[3:3 + n], k, inplace=True)
-    torch.cuda.synchronize()
+    _topk_fresh_and_in_place(buf, rbuf, n, k)
     assert ops.topk_launches == launches + 2
-    for a, b, c in zip(want, got, got_inplace):
-        assert torch.equal(_bits(a), _bits(b))
-        assert torch.equal(_bits(a), _bits(c))
-    assert torch.equal(_bits(inplace[3:3 + n]), _bits(want[2]))
-    assert torch.equal(inplace[:3], rbuf[:3])
-    assert torch.equal(inplace[3 + n:], rbuf[3 + n:])
+
+
+@pytest.mark.parametrize("n", [1000, 100001, 1207440])
+@pytest.mark.parametrize("frac", [0.0, 0.01, 0.5, 1.0])
+def test_cuda_topk_one_first_digit_bin(cuda, n, frac):
+    """|f| in [1.5, 1.5625) with either sign: every key shares the first
+    radix digit (exponent and 3 mantissa bits), so every element is a
+    candidate and the candidate buffer holds all n."""
+    k = max(1, int(n * frac))
+    g = torch.Generator(device=cuda).manual_seed(n + k)
+    mag = 1.5 + torch.rand(n + 9, device=cuda, generator=g) / 16
+    sign = torch.rand(n + 9, device=cuda, generator=g) < 0.5
+    buf = torch.where(sign, -mag, mag)
+    rbuf = torch.where(torch.rand(n + 9, device=cuda, generator=g) < 0.5,
+                       torch.zeros_like(buf), 2.0 ** -20)
+    _topk_fresh_and_in_place(buf, rbuf, n, k)
+
+
+@pytest.mark.parametrize("n", [1, 301, 100001])
+@pytest.mark.parametrize("which", ["one", "half", "all"])
+def test_cuda_topk_all_equal_keys(cuda, n, which):
+    """Every |f| equal (±1.5, ±0 or one NaN payload): the ties go to the
+    lowest indices, for k in {1, n/2, n}."""
+    k = {"one": 1, "half": max(1, n // 2), "all": n}[which]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    sign = torch.rand(n + 9, device=cuda, generator=g) < 0.5
+    for v in (1.5, 0.0, float("nan")):
+        buf = torch.where(sign, -v, v) if v == v else torch.full(
+            (n + 9,), v, device=cuda)
+        _topk_fresh_and_in_place(buf, torch.zeros_like(buf), n, k)
+
+
+@pytest.mark.parametrize("frac", [1e-4, 0.01])
+def test_cuda_topk_span_of_2_to_the_25(cuda, frac):
+    n = 1 << 25
+    k = int(n * frac)
+    g = torch.Generator(device=cuda).manual_seed(25)
+    buf = torch.randn(n + 9, device=cuda, generator=g)
+    rbuf = torch.randn(n + 9, device=cuda, generator=g) * 0.1
+    _topk_fresh_and_in_place(buf, rbuf, n, k)
+
+
+def test_cuda_topk_call_is_one_kernel_and_no_memset(cuda):
+    """One fused_topk call puts at most two CUDA kernels and no memset on
+    the card (torch.profiler over ten calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    n, k = 1207440, 12074
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(n, device=cuda, generator=g)
+    res = torch.randn(n, device=cuda, generator=g)
+    ops.fused_topk(x, res, k)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.fused_topk(x, res, k)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    memsets = sum(e.count for e in dev if e.key.startswith("Memset"))
+    kernels = sum(e.count for e in dev
+                  if not e.key.startswith(("Memset", "Memcpy")))
+    assert memsets == 0
+    assert 1 <= kernels / 10 <= 2, [(e.key, e.count) for e in dev]
 
 
 def test_cuda_topk_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -520,6 +592,73 @@ def test_cuda_rmsnorm_takes_leading_axes_strided_rows_and_mixed_g(cuda):
         atol = 2e-5 if xx.dtype == F32 else 2e-2
         torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                    rtol=1e-2)
+
+
+def _rms_check(x, w, eps=1e-5):
+    """The kernel against plain at tests/test_kernels.py's tolerances;
+    returns the route the launch took."""
+    launches = ops.rmsnorm_launches
+    got = ops.rmsnorm(x, w, eps)
+    want = rmsnorm_plain(x, w, eps)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_launches == launches + 1
+    assert got.dtype == x.dtype and got.shape == x.shape
+    atol = 2e-5 if x.dtype == F32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=1e-2)
+    x2 = x.reshape(-1, x.shape[-1]) if x.is_contiguous() else x
+    return rms_kernel.route(x2, w, got.view(-1, x.shape[-1]))
+
+
+@pytest.mark.parametrize("T", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [896, 1600])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_rmsnorm_decode_rows_take_the_few_rows_route(cuda, T, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T * d)
+    x = torch.randn(T, d, device=cuda, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda, generator=g).to(dtype)
+    assert _rms_check(x, w) == "few_rows"
+
+
+@pytest.mark.parametrize("T,d,route", [
+    (4, 3072, "few_rows"), (300, 3072, "rows"), (4, 5120, "few_rows"),
+    (300, 5120, "rows"), (300, 16400, "looped"), (4, 40000, "looped")])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_rmsnorm_long_rows(cuda, T, d, route, dtype):
+    """The registry's 3072 and 5120 held in registers by a group of warps,
+    and rows past what registers hold (16,400 and 40,000) on the looped
+    route."""
+    g = torch.Generator(device=cuda).manual_seed(T + d)
+    x = torch.randn(T, d, device=cuda, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda, generator=g).to(dtype)
+    assert _rms_check(x, w) == route
+
+
+@pytest.mark.parametrize("T", [4, 300])
+@pytest.mark.parametrize("d", [33, 899, 1001])
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_rmsnorm_d_not_a_multiple_of_8(cuda, T, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(T + d)
+    x = torch.randn(T, d, device=cuda, generator=g).to(dtype)
+    w = torch.randn(d, device=cuda, generator=g).to(dtype)
+    assert _rms_check(x, w) == "scalar"
+
+
+@pytest.mark.parametrize("T,d,route", [(4, 896, "few_rows"),
+                                       (300, 896, "rows"),
+                                       (300, 16400, "looped")])
+def test_cuda_rmsnorm_strided_rows_and_mixed_g_on_every_route(cuda, T, d,
+                                                             route):
+    """Rows read through their stride (a column window of a wider buffer,
+    16-byte aligned) and g in either dtype whatever x is."""
+    g = torch.Generator(device=cuda).manual_seed(T + d)
+    wide = torch.randn(T, d + 24, device=cuda, generator=g)
+    w = torch.randn(d, device=cuda, generator=g)
+    for xdt in (F32, BF):
+        rows = wide.to(xdt)[:, 8:8 + d]
+        assert rows.stride(0) == d + 24 and not rows.is_contiguous()
+        for wdt in (F32, BF):
+            assert _rms_check(rows, w.to(wdt), 1e-6) == route
 
 
 def test_cuda_rmsnorm_wrapper_refuses_what_the_kernel_does_not_take(cuda):

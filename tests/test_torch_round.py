@@ -232,6 +232,22 @@ def test_later_slice_knobs_raise(knob):
                        device="cpu", **{knob: object()})
 
 
+@pytest.mark.parametrize("kw", [
+    {"mode": "parrot"},
+    {"mode": "parrot", "gang_dispatch": True},
+    {"mode": "parrot", "gang_dispatch": False}])
+def test_mode_and_gang_dispatch_stored_like_jax(kw):
+    (jsrv, _), (tsrv, _) = _servers("fedavg", n_clients=20, per_round=8,
+                                    K=2, server_kw=kw)
+    assert (tsrv.mode, tsrv.gang_dispatch) == (jsrv.mode, jsrv.gang_dispatch)
+    assert tsrv.gang_dispatch is kw.get("gang_dispatch", True)
+    # a no-op on one device: the round matches the JAX package's
+    jsrv.run(1)
+    tsrv.run(1)
+    _assert_params_close(tsrv.params, jsrv.params)
+    assert _history(tsrv) == _history(jsrv)
+
+
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
 def test_des_engines_raise(engine):
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
