@@ -13,11 +13,16 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    PyTorch version on the card, over a grid of shapes and inputs, in
    every call form (the top-k bit for bit, with planted ties, ±0, NaN
    payloads, spans whose keys all share the first radix digit or are all
-   equal, and spans at an odd offset); then timed with CUDA events at
-   the main path's shapes beside the plain version, the one PyTorch call
-   that computes the same function, and the memory bound.  The profiler
-   counts the device operations of one top-k call: at most two kernels
-   (the design launches one) and no memset.
+   equal, and spans at an odd offset); the fold's leaves form also bit
+   for bit against its rows form on the rows of the concatenated block,
+   over ragged, misaligned, mixed fp32/bf16 and 2,000-leaf segment tables
+   and the full-width block.  Then each is timed with CUDA events at the
+   main path's shapes (the fold in the form the main path launches, its
+   rows form beside it) beside the plain version, the one PyTorch call
+   that computes the same function, the memory bound and, for the fold, a
+   ``copy_`` of the same bytes.  The profiler counts the device
+   operations of one top-k call: at most two kernels (the design launches
+   one) and no memset.
 3. The quickstart configuration (100 clients, 4 executors, 20 per round)
    under a ``TickTimer``, on the card and on the CPU: 10 FedAvg rounds,
    then 3 SCAFFOLD rounds with a spilling ``ClientStateManager`` and an
@@ -26,7 +31,10 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    allclose.
 4. The full-width client model of ``benchmarks/bench_client_training.py``
    (a 142-leaf MLP, 1,207,440 params) under FedProx: 3 BSP rounds on the
-   card, timed, and the same rounds on the CPU for the params check.
+   card, timed, every block folded by the leaves form, and the same
+   rounds on the CPU for the params check; then one full-width
+   ``fold_block`` under the profiler: exactly one kernel and no other
+   device operation, with its device time, host time and bytes.
 5. The compressed full-width round: phase 4's model with
    ``compressor="topk"`` (fraction 0.01): 3 rounds on the card, timed, the
    fused top-k held bit for bit to its plain version on one executor's
@@ -136,15 +144,20 @@ class Timer:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
-    def host_ms(self, fn, reps=30):
-        """Median host time to issue ``fn`` (the device kept busy, so the
-        call never waits on it)."""
+    def host_ms(self, fn, reps=30, inner=8):
+        """Host time to issue ``fn``: the median over ``reps`` rounds of the
+        mean of ``inner`` calls issued back to back, the device kept busy
+        by a spin long enough that no call waits on it.  Back-to-back calls
+        keep the host thread running, as a caller's loop does; a single
+        call after each synchronise measured the host's wake-up as well
+        (spreads of 2x within one run)."""
         times = []
         for _ in range(reps):
-            torch.cuda._sleep(self.SPIN_CYCLES)
+            torch.cuda._sleep(4 * self.SPIN_CYCLES)
             t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
+            for _ in range(inner):
+                fn()
+            times.append((time.perf_counter() - t0) * 1e3 / inner)
             torch.cuda.synchronize()
         return float(np.median(times))
 
@@ -232,7 +245,169 @@ def phase_kernel_grid(ops, plain):
     return max_err
 
 
-def phase_kernel_timing(ops, plain):
+# leaf shapes a client for the leaves form's grid (tests/test_torch_cuda.py's
+# cases): odd sizes and 0-d leaves (segment edges in every 16-byte phase,
+# the scalar edge beside vectors); bf16 leaves among fp32 ones; a first leaf
+# of 3 elements that puts every later offset off the 16-byte phase; 2,000
+# leaves (past one launch's parameter space); and, apart, the full-width
+# MLP's 142 leaves in their layout order
+LEAF_CASES = {
+    "odd": ([(3, 3), (), (13,), (1,), (2, 5, 3), (), (1000,), (77, 3)], ()),
+    "mixed": ([(7, 5), (9,), (), (33,), (256, 16), (100,)], (1, 2, 4)),
+    "misaligned": ([(3,), (4096,), (1,), (517, 9), (64,)], (3,)),
+    "many": ([(5,)] * 1000 + [(64,)] * 1000, (7,)),
+}
+LEAF_C = (1, 4, 5, 16, 64)
+
+
+def mlp_block(T, C, gen, dtype=torch.float32):
+    """A full-width client block on the card: the 142 leaves of the MLP's
+    delta with a leading (C, ...) axis (random, from ``gen``), and the
+    weighted group's segments in layout order, as ``fold_block`` hands them
+    to the leaves form."""
+    stacked = {"delta": {}}
+    for i, (a, b) in enumerate(zip(DIMS[:-1], DIMS[1:])):
+        stacked["delta"][f"w{i}"] = torch.randn(
+            C, a, b, device="cuda", generator=gen).to(dtype)
+        stacked["delta"][f"b{i}"] = torch.randn(
+            C, b, device="cuda", generator=gen).to(dtype)
+    layout = T.FlatLayout.build(
+        {"delta": T.Op.WEIGHTED_AVG},
+        {"delta": {k: v[0] for k, v in stacked["delta"].items()}})
+    segs = layout.batch_segments(
+        stacked, readable=(torch.float32, torch.bfloat16))["weighted"] \
+        if hasattr(layout, "batch_segments") else None   # a tree before it
+    return stacked, layout, segs
+
+
+def case_leaves(shapes, C, bf16, gen):
+    """Leaves of the given shapes a client on the card, their segments and
+    the (C, n) block they concatenate to (bf16 leaves widened to fp32)."""
+    segs, cols, off = [], [], 0
+    for i, shape in enumerate(shapes):
+        t = torch.randn((C,) + shape, device="cuda", generator=gen)
+        if i in bf16:
+            t = t.to(torch.bfloat16)
+        segs.append((t, off))
+        cols.append(t.reshape(C, -1).float())
+        off += cols[-1].shape[1]
+    return segs, torch.cat(cols, 1)
+
+
+def phase_leaves_grid(T, ops, plain):
+    """The leaves form -- over the leaves, fresh and in place, and over the
+    concatenated (C, n) block as one segment -- against the rows form on
+    that block's rows, bit for bit, and against the plain version within
+    the grid's tolerance (``phase_kernel_grid``), over ``LEAF_CASES`` and
+    the full-width block in fp32 and bf16.  Returns the largest
+    |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    max_err, n_cases, launches = 0.0, 0, ops.agg_leaves_launches
+    cases = [(name, C) for name in LEAF_CASES for C in LEAF_C]
+    cases += [("full_width " + str(dt).replace("torch.", ""), C)
+              for dt in (torch.float32, torch.bfloat16) for C in (1, 4, 16)]
+    for name, C in cases:
+        if name.startswith("full_width"):
+            dt = torch.bfloat16 if name.endswith("bfloat16") else \
+                torch.float32
+            stacked, layout, segs = mlp_block(T, C, gen, dt)
+            block = layout.flatten_batch(stacked)["weighted"]
+        else:
+            shapes, bf16 = LEAF_CASES[name]
+            segs, block = case_leaves(shapes, C, bf16, gen)
+        acc = torch.randn(block.shape[1], device="cuda", generator=gen)
+        w = np.linspace(0.5, 2.0, C).tolist()
+        rows = ops.agg_fold_batch(acc, list(block), w)
+        outs = [ops.agg_fold_leaves(acc, segs, w),
+                ops.agg_fold_leaves(acc.clone(), segs, w, inplace=True),
+                ops.agg_weighted_sum(acc, block, w)]     # one segment
+        ref = plain(acc, block, w)
+        scale = acc.abs()
+        for c in range(C):
+            scale = scale + abs(w[c]) * block[c].float().abs()
+        torch.cuda.synchronize()
+        for out in outs:
+            if not torch.equal(out.view(torch.int32), rows.view(torch.int32)):
+                raise AssertionError(
+                    f"agg_fold_leaves {name} C={C}: differs from the rows "
+                    f"form on the rows of the concatenated block in "
+                    f"{int((out != rows).sum())} elements")
+            diff = (out - ref).abs()
+            if bool((diff > 1e-5 * scale).any()):
+                raise AssertionError(
+                    f"agg_fold_leaves {name} C={C}: max err "
+                    f"{float(diff.max())} past tolerance")
+            max_err = max(max_err, float(diff.max()))
+            n_cases += 1
+    log(f"phase 2: agg_fold_leaves equals the rows form bit for bit and "
+        f"matches the plain version on {n_cases} cases ({sorted(LEAF_CASES)}"
+        f" x C in {LEAF_C}, the full-width block fp32/bf16 at C = 1, 4, 16; "
+        f"fresh/in place/one segment) in "
+        f"{ops.agg_leaves_launches - launches} launches;"
+        f" max |err| {max_err:.3g}")
+    return max_err
+
+
+def copy_bytes_ms(timer, nbytes, flush=True):
+    """A ``copy_`` that moves ``nbytes`` (half read, half written), timed
+    as the kernels are: the yardstick of a memory-bound kernel."""
+    src = torch.empty(nbytes // 8, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
+    return timer.ms(lambda: dst.copy_(src), flush=flush)
+
+
+def fold_timing(T, ops, plain, timer, n, C, dt, gen):
+    """The fold at (n, C, dt) in the form the main path launches -- the
+    leaves form over the full-width block's 142 leaves at n = 1,207,440,
+    over one (C, n) leaf otherwise; in a tree without the leaves form, the
+    rows form on the (C, n) block, as its ``fold_block`` ran it -- cold,
+    warm, its wrapper's host time and its share of the bound; the rows
+    form on C separate (n,) rows (the micro-batch flush's pointer array)
+    the same way; the plain version; ``torch.addmv`` (fp32); a ``copy_``
+    of the same bytes; the bound."""
+    acc = torch.randn(n, device="cuda", generator=gen)
+    if n == MAIN_SHAPE[0]:
+        stacked, layout, segs = mlp_block(T, C, gen, dt)
+        D = layout.flatten_batch(stacked)["weighted"]
+    else:
+        D = torch.randn(C, n, device="cuda", generator=gen).to(dt)
+        segs = [(D, 0)]
+    staged = [D[c] for c in range(C)]      # contiguous rows: a pointer array
+    w = np.linspace(0.5, 2.0, C).tolist()
+    work = acc.clone()
+    leaves = hasattr(ops, "agg_fold_leaves")
+
+    def fold():
+        if leaves:
+            return ops.agg_fold_leaves(work, segs, w, inplace=True)
+        return ops.agg_weighted_sum(work, D, w, inplace=True)
+
+    def flush():
+        return ops.agg_fold_batch(work, staged, w, inplace=True)
+
+    bound, by = fold_bound_ms(n, C, D.element_size())
+    nbytes = (C * D.element_size() + 8) * n
+    ms = timer.ms(fold)
+    row = {"n": n, "C": C, "dtype": str(dt).replace("torch.", ""),
+           "form": "leaves" if leaves else "block",
+           "segments": len(segs) if leaves else 1,
+           "ms": ms, "warm_ms": timer.ms(fold, flush=False),
+           "host_ms": timer.host_ms(fold), "bound_share": bound / ms,
+           "rows_ms": timer.ms(flush),
+           "rows_warm_ms": timer.ms(flush, flush=False),
+           "rows_host_ms": timer.host_ms(flush),
+           "plain_ms": timer.ms(lambda: plain(acc, D, w)),
+           "library_ms": None,
+           "copy_ms": copy_bytes_ms(timer, nbytes),
+           "copy_warm_ms": copy_bytes_ms(timer, nbytes, flush=False),
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+    if dt == torch.float32:     # yardstick only: the port never calls it
+        wt = torch.tensor(w, dtype=torch.float32, device="cuda")
+        row["library_ms"] = timer.ms(lambda: torch.addmv(acc, D.t(), wt))
+    return row
+
+
+def phase_kernel_timing(T, ops, plain):
     timer = Timer()
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
@@ -240,32 +415,20 @@ def phase_kernel_timing(ops, plain):
     shapes += [(1207440, 8, torch.bfloat16), (1 << 25, 16, torch.float32),
                (1 << 25, 16, torch.bfloat16)]
     for n, C, dt in shapes:
-        acc = torch.randn(n, device="cuda", generator=gen)
-        D = torch.randn(C, n, device="cuda", generator=gen).to(dt)
-        w = np.linspace(0.5, 2.0, C).tolist()
-        wt = torch.tensor(w, dtype=torch.float32, device="cuda")
-        work = acc.clone()
-        k_ms = timer.ms(lambda: ops.agg_weighted_sum(work, D, w,
-                                                     inplace=True))
-        host_ms = timer.host_ms(lambda: ops.agg_weighted_sum(work, D, w,
-                                                             inplace=True))
-        p_ms = timer.ms(lambda: plain(acc, D, w))
-        lib_ms = None
-        if dt == torch.float32:     # yardstick only: the port never calls it
-            lib_ms = timer.ms(lambda: torch.addmv(acc, D.t(), wt))
-        bound, by = fold_bound_ms(n, C, D.element_size())
-        row = {"n": n, "C": C, "dtype": str(dt).replace("torch.", ""),
-               "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
-               "library_ms": lib_ms,
-               "bound_ms": bound, "bound_by": by}
+        row = fold_timing(T, ops, plain, timer, n, C, dt, gen)
         rows.append(row)
-        log(f"phase 2 timing: n={n} C={C} {row['dtype']}: kernel "
-            f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
-            f"{p_ms:.4f} ms, torch.addmv "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{bound:.4f} ms ({by}); kernel at "
-            f"{100 * bound / k_ms:.1f}% of the bound")
-        del acc, D, work
+        lib = row["library_ms"]
+        log(f"phase 2 timing: n={n} C={C} {row['dtype']}: leaves form over "
+            f"{row['segments']} segments {row['ms']:.4f} ms cold, "
+            f"{row['warm_ms']:.4f} warm (wrapper host time "
+            f"{row['host_ms']:.4f} ms), at {100 * row['bound_share']:.1f}% "
+            f"of the bound and {row['ms'] / row['copy_ms']:.3f}x the copy_; "
+            f"rows form {row['rows_ms']:.4f} cold, {row['rows_warm_ms']:.4f} "
+            f"warm (host {row['rows_host_ms']:.4f} ms); copy_ of the same "
+            f"{row['bytes']} B {row['copy_ms']:.4f} ms cold, "
+            f"{row['copy_warm_ms']:.4f} warm; plain {row['plain_ms']:.4f} "
+            f"ms, torch.addmv {'n/a' if lib is None else f'{lib:.4f} ms'}, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     ops.reset_agg_counts()         # comparison launches do not count
     return rows
 
@@ -614,6 +777,10 @@ def full_width(T, device, rounds, on_round=None, compressor=None,
     return srv
 
 
+# the fold's device kernels by symbol name: the leaves form, the rows form
+FOLD_KERNELS = ("agg_leaves_kernel", "agg_rows_kernel")
+
+
 def profile_round(srv):
     """Device busy share and kernel time by name over one more full-width
     round, from torch.profiler (CUPTI).  None where the trace holds no
@@ -633,7 +800,7 @@ def profile_round(srv):
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     fold_us = sum(e.self_device_time_total for e in kernels
-                  if "agg_weighted_sum" in e.key)
+                  if any(k in e.key for k in FOLD_KERNELS))
     topk = [e for e in kernels if "topk_" in e.key]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
@@ -645,6 +812,40 @@ def profile_round(srv):
             "top_kernels": [{"name": e.key[:80], "count": int(e.count),
                              "device_s": e.self_device_time_total / 1e6}
                             for e in top]}
+
+
+def fold_block_profile(T, ops, timer):
+    """One full-width ``fold_block`` (the 142-leaf block at B = 4, fp32, in
+    place) as the main path calls it: its device operations by name
+    (``device_ops``), their device time, its host time (``Timer.host_ms``)
+    and the bytes the fold path must move, from the shapes: the leaves
+    form reads the block once beside acc; the parent's flatten path also
+    wrote and read the (B, n) buffer of its ``torch.cat``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B = MAIN_SHAPE[1]
+    stacked, layout, _ = mlp_block(T, B, gen)
+    agg = T.LocalAggregator({"delta": T.Op.WEIGHTED_AVG}, layout=layout)
+    ws = [32.0, 32.0, 16.0, 8.0]
+    agg.fold_block(stacked, ws)
+    for _ in range(3):
+        per_call = {k: v for k, v in
+                    device_ops(lambda: agg.fold_block(stacked, ws)).items()
+                    if not k.startswith("ProfilerStep")}   # the step's span
+        # a profile that lost kernel records (fewer than one a call; seen
+        # once after the round profile) is taken again
+        if sum(c for c, _ in per_call.values()) >= 1.0:
+            break
+    n = layout.group_sizes["weighted"]
+    fold_bytes = (B * 4 + 8) * n
+    leaves = hasattr(ops, "agg_fold_leaves")
+    return {"path": "leaves" if leaves else "flatten_batch + rows",
+            "device_ops_per_call": {k: {"count": c, "device_ms": t}
+                                    for k, (c, t) in per_call.items()},
+            "device_ms": sum(t for _, t in per_call.values()),
+            "host_ms": timer.host_ms(lambda: agg.fold_block(stacked, ws)),
+            "bytes": fold_bytes if leaves else fold_bytes + 2 * B * 4 * n,
+            "bytes_leaves": fold_bytes,
+            "bytes_flatten": fold_bytes + 2 * B * 4 * n}
 
 
 def phase_full_width(T, ops):
@@ -667,8 +868,13 @@ def phase_full_width(T, ops):
     srv = full_width(T, "cuda", 3, on_round)
     torch.cuda.synchronize()
     launches = ops.agg_launches
-    if launches <= 0:
-        raise AssertionError("full-width rounds launched no fold kernel")
+    leaves_launches = ops.agg_leaves_launches
+    if launches <= 0 or leaves_launches <= 0 or ops.agg_leaf_copies:
+        raise AssertionError(
+            f"full-width rounds: {launches} fold launches, "
+            f"{leaves_launches} of the leaves form, {ops.agg_leaf_copies} "
+            f"leaves copied (expected launches of the leaves form and no "
+            f"copy)")
     batch = {k: torch.as_tensor(v, device="cuda")
              for k, v in mlp_clients(T)[0].batches[0].items()}
     with torch.no_grad():
@@ -690,6 +896,18 @@ def phase_full_width(T, ops):
         for k in prof["top_kernels"]:
             log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
                 f"{k['name']}")
+    block = fold_block_profile(T, ops, Timer())
+    dev_ops = block["device_ops_per_call"]
+    if len(dev_ops) != 1 or "agg_leaves_kernel" not in next(iter(dev_ops)) \
+            or next(iter(dev_ops.values()))["count"] != 1.0:
+        raise AssertionError(f"one full-width fold_block should be one "
+                             f"leaves-form kernel and no other device "
+                             f"operation, got {dev_ops}")
+    log(f"phase 4 fold_block (B = 4, one group): one kernel, "
+        f"{block['device_ms']:.4f} ms of device time, host time "
+        f"{block['host_ms']:.4f} ms, {block['bytes']} B moved (the flatten "
+        f"path moved {block['bytes_flatten']} B)")
+    ops.reset_agg_counts()         # the profile's launches do not count
     # the same rounds on the CPU: identical cohorts; schedules may differ
     # (they follow measured times), which reorders fp32 sums only
     ref = full_width(T, "cpu", 3)
@@ -701,8 +919,9 @@ def phase_full_width(T, ops):
                                    msg=f"full-width param {k}")
     log(f"phase 4: {n_params} params in {len(shapes)} leaves; loss after 3 "
         f"rounds {loss:.6f}; max |card - CPU| param difference {err:.3g}; "
-        f"fold launches {launches}")
-    return launches, rows, prof
+        f"fold launches {launches}, {leaves_launches} of them the leaves "
+        f"form")
+    return launches, leaves_launches, rows, prof, block
 
 
 # ---------------------------------------------------------------------------
@@ -1672,7 +1891,8 @@ def main() -> int:
         log(f"--- nvcc -Xptxas -v for {name} ---")
         log(open(str(path) + ".log").read().strip())
     max_err = phase_kernel_grid(ops, agg_weighted_sum_plain)
-    timings = phase_kernel_timing(ops, agg_weighted_sum_plain)
+    leaves_err = phase_leaves_grid(T, ops, agg_weighted_sum_plain)
+    timings = phase_kernel_timing(T, ops, agg_weighted_sum_plain)
     topk_err = phase_topk_grid(ops, topk_with_residual_plain)
     topk_t = phase_topk_timing(ops, topk_with_residual_plain, topk_blocks)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
@@ -1680,7 +1900,8 @@ def main() -> int:
                                        work)
     qs_topk_launches = phase_quickstart_topk(T, make_classification_clients,
                                              ops)
-    fw_launches, fw_rows, fw_prof = phase_full_width(T, ops)
+    fw_launches, fw_leaves, fw_rows, fw_prof, fw_block = \
+        phase_full_width(T, ops)
     c_launches, c_rows, c_prof, c_check = phase_full_width_topk(
         T, ops, topk_with_residual_plain)
     flash_err = phase_flash_grid(ops, flash_attention_plain)
@@ -1707,13 +1928,23 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/agg_weighted_sum.cu",
         "replaces": "src/repro/kernels/agg_weighted_sum.py:30",
         "launches": fw_launches,
-        "max_abs_err": max_err,
+        "leaves_launches": fw_leaves,
+        "max_abs_err": max(max_err, leaves_err),
+        "max_abs_err_by_form": {"rows": max_err, "leaves": leaves_err},
         "ms": main_t["ms"],
         "time_ms": main_t["ms"],
+        "warm_ms": main_t["warm_ms"],
+        "host_ms": main_t["host_ms"],
+        "bound_share": main_t["bound_share"],
+        "rows_ms": main_t["rows_ms"],
+        "rows_warm_ms": main_t["rows_warm_ms"],
+        "rows_host_ms": main_t["rows_host_ms"],
         "plain_ms": main_t["plain_ms"],
         "bound_ms": main_t["bound_ms"],
         "bound_by": main_t["bound_by"],
         "library_ms": main_t["library_ms"],
+        "copy_ms": main_t["copy_ms"],
+        "segments": main_t["segments"],
         "shape": {"n": main_t["n"], "C": main_t["C"],
                   "dtype": main_t["dtype"]},
         "quickstart_launches": qs_launches,
@@ -1722,6 +1953,7 @@ def main() -> int:
         "timings": timings,
         "full_width_rounds": fw_rows,
         "full_width_profile": fw_prof,
+        "fold_block": fw_block,
     }, {
         "name": "topk_compress",
         "route": "cuda",

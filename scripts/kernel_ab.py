@@ -1,4 +1,4 @@
-"""Device times of the port's RMSNorm and fused top-k kernels in one
+"""Device times of the port's fold, RMSNorm and fused top-k kernels in one
 checkout of this repo, on a CUDA card, printed as one JSON line that starts
 with ``AB``.
 
@@ -16,6 +16,17 @@ times, in bf16 with inputs from seed 0:
 
 * the timer's floor: an empty kernel (``torch.cuda._sleep(0)``) timed the
   same way;
+* the fold (``chip_smoke.fold_timing``, fp32 unless named) at
+  n = 1,207,440 with C = 1, 4 and 8 and C = 8 in bf16, and at n = 2^25 with
+  C = 16 in fp32 and bf16: the form the tree's main path launches (the
+  leaves form over the full-width block's 142 leaves at n = 1,207,440 and
+  over one (C, n) leaf at 2^25; in a tree without it, the rows form on the
+  (C, n) block) cold and warm with its wrapper's host time, the rows form
+  on C separate rows the same way, a ``copy_`` of the same bytes cold and
+  warm, ``torch.addmv``, the plain version and the bound;
+  then one full-width ``LocalAggregator.fold_block`` as the main path calls
+  it (``chip_smoke.fold_block_profile``: device operations and device time
+  by ``torch.profiler``, host time, bytes);
 * ``ops.rmsnorm`` at (4096, 1600), (4096, 896), (4, 1600) and (4, 896):
   cold (L2 flushed before each call) and warm (x left in L2 by the call
   before), beside ``F.rms_norm``, a ``copy_`` of x (the same bytes read
@@ -40,6 +51,9 @@ import torch
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BF = torch.bfloat16
 NORM_SHAPES = [(4096, 1600), (4096, 896), (4, 1600), (4, 896)]
+FOLD_SHAPES = [(1207440, 1, torch.float32), (1207440, 4, torch.float32),
+               (1207440, 8, torch.float32), (1207440, 8, BF),
+               (1 << 25, 16, torch.float32), (1 << 25, 16, BF)]
 TOPK = (1207440, 12074)
 
 
@@ -55,7 +69,9 @@ def main() -> int:
     import chip_smoke as cs
     sys.path.insert(0, os.path.join(os.path.abspath(args.tree), "src"))
     import torch.nn.functional as F
+    import repro_torch.core as T
     from repro_torch.kernels import ops
+    from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -65,7 +81,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"label": args.label, "card": card,
            "timer_floor_ms": timer.ms(lambda: torch.cuda._sleep(0)),
-           "rmsnorm": [], "topk": {}}
+           "fold": [], "rmsnorm": [], "topk": {}}
+    for n, C, dt in FOLD_SHAPES:
+        out["fold"].append(cs.fold_timing(T, ops, agg_weighted_sum_plain,
+                                          timer, n, C, dt, gen))
+    out["fold_block"] = cs.fold_block_profile(T, ops, timer)
     for T, d in NORM_SHAPES:
         x = torch.randn(T, d, device="cuda", generator=gen).to(BF)
         g = torch.randn(d, device="cuda", generator=gen).to(BF)

@@ -138,10 +138,11 @@ class LocalAggregator:
 
         ``stacked`` maps entry name -> tree with a leading (B, ...) client
         axis — what ``ClientStepEngine.run_block`` emits — and ``weights``
-        holds the B per-client aggregation weights.  Reducible entries
-        flatten to one (B, n) buffer per group (``FlatLayout.flatten_batch``)
-        and fold with ONE C=B kernel launch straight into the accumulator;
-        COLLECT entries are sliced out per client."""
+        holds the B per-client aggregation weights.  Each group's reducible
+        leaves fold straight into the accumulator with ONE leaves-form
+        launch (``ops.agg_fold_leaves``, ``FlatLayout.batch_segments``): no
+        (B, n) buffer is built.  COLLECT entries are sliced out per
+        client."""
         B = len(weights)
         self.n_clients += B
         for name in stacked:
@@ -158,16 +159,28 @@ class LocalAggregator:
         if self.layout is None or self._acc is None:
             self._ensure_acc({name: tree.map(lambda x: x[0], val)
                               for name, val in stacked.items()})
-        bufs = self.layout.flatten_batch(stacked, self.device)
-        for g, D in bufs.items():
+        cap = kops.MAX_FOLD_ROWS
+        for g, segs in self.layout.batch_segments(
+                stacked, self.device, readable=kops.FOLD_DTYPES).items():
             w = weights if g == "weighted" else [1.0] * B
-            self._acc[g] = kops.agg_weighted_sum(
-                self._acc[g], D, w, inplace=not self._exposed)
+            # a block of more clients than one fold takes folds in parts:
+            # the same sums in the same order
+            for i in range(0, B, cap):
+                part = segs if B <= cap else [(leaf[i:i + cap], off)
+                                              for leaf, off in segs]
+                self._acc[g] = kops.agg_fold_leaves(
+                    self._acc[g], part, w[i:i + cap],
+                    inplace=i > 0 or not self._exposed)
         self._exposed = False
 
     def _flush(self) -> None:
         """Fold the staged micro-batch: ONE launch per group, the staged
-        buffers read through the kernel's pointer array (no stack)."""
+        buffers read through the kernel's pointer array (no stack).  Unlike
+        ``fold_block``, this path keeps flattening each payload into a
+        staged buffer of its own: a staged payload is folded later, and
+        nothing guarantees that its leaves are not written before the
+        flush, so the copy is what makes the fold see the values of the
+        moment ``fold`` was called."""
         for g, staged in self._staged.items():
             if not staged:
                 continue

@@ -70,6 +70,19 @@ def _as_tensor(leaf: Any, device: Optional[torch.device] = None
     return as_tensor(leaf, device)
 
 
+def _device_index(device: Optional[torch.device]) -> Optional[int]:
+    """What ``Tensor.get_device()`` gives for a tensor on ``device`` (-1 on
+    the CPU; a CUDA device without an index is the current one), or None
+    for no device."""
+    if device is None:
+        return None
+    device = torch.device(device)
+    if device.type == "cpu":
+        return -1
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
 class FlatLayout:
     """Leaf names -> offsets/shapes/dtypes, computed once from the
     algorithm's ops plus one template payload."""
@@ -153,6 +166,44 @@ class FlatLayout:
                     parts.append(t.reshape(t.shape[0], -1).to(dtype))
             out[g] = parts[0].contiguous() if len(parts) == 1 \
                 else torch.cat(parts, dim=1)
+        return out
+
+    def batch_segments(self, payload: Dict[str, Any],
+                       device: Optional[torch.device] = None, *,
+                       readable: Tuple[torch.dtype, ...]
+                       ) -> Dict[str, List[Tuple[torch.Tensor, int]]]:
+        """The leaves of a payload with a leading client axis, in layout
+        order with their offsets in the group buffer: what
+        ``ops.agg_fold_leaves`` folds in place of :meth:`flatten_batch`'s
+        (B, n) buffer, with the same values.
+
+        A leaf stays where it is when it is a tensor on ``device`` (any
+        device when None) of its layout dtype, and the consumer reads that
+        dtype (``readable``: the fold widens a bf16 leaf in an fp32 group
+        exactly, as the buffer's cast would).  Any other leaf is converted
+        as ``flatten_batch`` converts it -- to a tensor on ``device`` in the
+        group dtype -- then to fp32 if the consumer does not read that
+        dtype either."""
+        out: Dict[str, List[Tuple[torch.Tensor, int]]] = {}
+        where = _device_index(device)
+        for g, entries in self.entry_order.items():
+            dtype = self.group_dtypes[g]
+            specs = self.specs[g]
+            leaves = [leaf for name in entries
+                      for leaf in tree.leaves(payload[name])]
+            if len(leaves) != len(specs):
+                raise ValueError(f"group {g!r}: {len(leaves)} leaves for a "
+                                 f"layout of {len(specs)}")
+            segs = []
+            for leaf, sp in zip(leaves, specs):
+                if not (isinstance(leaf, torch.Tensor)
+                        and leaf.dtype is sp.dtype and sp.dtype in readable
+                        and where in (None, leaf.get_device())):
+                    leaf = _as_tensor(leaf, device).to(dtype)
+                    if dtype not in readable:
+                        leaf = leaf.to(torch.float32)
+                segs.append((leaf, sp.offset))
+            out[g] = segs
         return out
 
     def zeros(self, device: Optional[torch.device] = None

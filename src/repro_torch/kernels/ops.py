@@ -19,14 +19,18 @@ counterparts):
   only, incremented exactly where the kernel is launched (``chip_smoke.py``
   reads them to show that the main path went through the kernels).  A
   top-k launch is one cooperative kernel, for one span, and a scan launch
-  the three kernels of one call.
+  the three kernels of one call.  A fold launch is one kernel of either
+  form; :data:`agg_leaves_launches` counts the leaves form's alone (a
+  block's leaves, or a ``(C, n)`` block as one segment).
 
 :data:`flash_route_launches` splits the flash launches by the kernel the
 dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
 """
 from __future__ import annotations
 
-from typing import Sequence, Union
+import contextlib
+from array import array
+from typing import Sequence, Tuple, Union
 
 import torch
 
@@ -36,8 +40,14 @@ from repro_torch.kernels import rmsnorm as _rms
 from repro_torch.kernels import ssm_scan as _ssm
 from repro_torch.kernels import topk_compress as _tkc
 
+MAX_FOLD_ROWS = _agg.MAX_ROWS     # clients one fold call takes
+FOLD_DTYPES = _agg.DTYPES         # the row and leaf dtypes the fold reads
+
 agg_dispatches = 0
 agg_launches = 0
+# the leaves form's share of agg_launches, and the leaves it had to copy
+agg_leaves_launches = 0
+agg_leaf_copies = 0
 topk_dispatches = 0
 topk_launches = 0
 flash_dispatches = 0
@@ -51,40 +61,67 @@ rmsnorm_launches = 0
 
 
 def reset_agg_counts() -> None:
-    global agg_dispatches, agg_launches
+    global agg_dispatches, agg_launches, agg_leaves_launches, agg_leaf_copies
     agg_dispatches = 0
     agg_launches = 0
+    agg_leaves_launches = 0
+    agg_leaf_copies = 0
 
 
-def _weights(weights) -> list:
-    """Host fp32 weights as Python floats (the kernel takes them by value;
-    rounding through fp32 keeps the plain version on the same values)."""
+def _weights(weights) -> array:
+    """Host weights rounded to fp32 (the kernel takes them by value; the
+    plain version reads the same values back with ``tolist()``)."""
     if isinstance(weights, torch.Tensor):
         if weights.device.type != "cpu":
             raise ValueError("fold weights must be host values (a sequence "
                              "of floats or a CPU tensor)")
-        return weights.to(torch.float32).tolist()
-    return torch.tensor(list(weights), dtype=torch.float32).tolist()
+        weights = weights.tolist()
+    return array("f", [float(x) for x in weights])
 
 
-def _check(acc: torch.Tensor, rows, w: list, out: torch.Tensor) -> None:
-    C = len(rows)
-    if acc.dtype != torch.float32 or acc.dim() != 1 \
+def _on_device(t: torch.Tensor):
+    """A context that makes t's device current, unless it already is."""
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def _check_acc(acc: torch.Tensor, C: int) -> None:
+    """Raise on an accumulator or a row count the kernel does not take (the
+    output is acc itself or ``empty_like(acc)``)."""
+    if acc.dtype is not torch.float32 or acc.dim() != 1 \
             or not acc.is_contiguous():
         raise ValueError("acc must be a contiguous 1-D float32 tensor")
-    if out.dtype != torch.float32 or out.shape != acc.shape \
-            or not out.is_contiguous() or out.device != acc.device:
-        raise ValueError("out must be a contiguous float32 tensor like acc")
     if not 1 <= C <= _agg.MAX_ROWS:
         raise ValueError(f"fold takes 1..{_agg.MAX_ROWS} rows, got {C}")
+
+
+def _check(acc: torch.Tensor, rows, w: array) -> None:
+    """Raise on what ``agg_weighted_sum`` does not take: a (C, n) tensor
+    with a unit inner stride, or C contiguous (n,) tensors, of one dtype
+    (fp32 or bf16) on acc's device."""
+    C = rows.shape[0] if isinstance(rows, torch.Tensor) else len(rows)
+    _check_acc(acc, C)
     if len(w) != C:
         raise ValueError(f"{len(w)} weights for {C} rows")
+    n = acc.numel()
+    dev = acc.get_device()
+    if isinstance(rows, torch.Tensor):
+        if rows.dtype not in _agg.DTYPES:
+            raise ValueError(f"fold rows must be float32 or bfloat16, got "
+                             f"{rows.dtype}")
+        if rows.dim() != 2 or rows.shape[1] != n \
+                or (n > 1 and rows.stride(1) != 1) or rows.stride(0) < 0 \
+                or rows.get_device() != dev:
+            raise ValueError("the rows must be a (C, n) tensor with a unit "
+                             "stride along n, on acc's device")
+        return
     dt = rows[0].dtype
-    if dt not in (torch.float32, torch.bfloat16):
+    if dt not in _agg.DTYPES:
         raise ValueError(f"fold rows must be float32 or bfloat16, got {dt}")
     for r in rows:
         if r.dtype != dt or r.shape != acc.shape or not r.is_contiguous() \
-                or r.device != acc.device:
+                or r.get_device() != dev:
             raise ValueError("every row must be a contiguous (n,) tensor of "
                              "one dtype on acc's device")
 
@@ -95,28 +132,86 @@ def agg_weighted_sum(acc: torch.Tensor,
     """acc: (n,) fp32; deltas: (C, n) tensor or C (n,) tensors, fp32 or
     bf16; weights: C host floats -> acc + Σ_c w_c·deltas[c] in fp32.
 
-    One call folds C clients, both for the stacked (B, n) block the client
-    engine emits (``LocalAggregator.fold_block``) and for B separately
-    staged buffers (``agg_fold_batch``).  ``inplace=True`` writes the result
-    into ``acc`` (the counterpart of the TPU path's donated accumulator);
-    only pass it when no other reference to ``acc`` must keep its value."""
+    One call folds C clients with one launch: a stacked (C, n) block goes
+    to the leaves form as one segment (read through its base pointer and
+    row stride), C separately staged buffers (``agg_fold_batch``) to the
+    rows form (read through a pointer array).  ``inplace=True`` writes the
+    result into ``acc`` (the counterpart of the TPU path's donated
+    accumulator); only pass it when no other reference to ``acc`` must keep
+    its value."""
     global agg_dispatches, agg_launches
     agg_dispatches += 1
     w = _weights(weights)
-    rows = list(deltas) if not isinstance(deltas, torch.Tensor) \
-        else [deltas[c] for c in range(deltas.shape[0])]
+    if not isinstance(deltas, torch.Tensor):
+        deltas = list(deltas)
     if acc.device.type == "cpu":
-        res = _agg.agg_weighted_sum_plain(acc, rows, w)
+        res = _agg.agg_weighted_sum_plain(acc, deltas, w.tolist())
         if inplace:
             acc.copy_(res)
             return acc
         return res
     if acc.device.type != "cuda":
         raise ValueError(f"no fold kernel for device {acc.device}")
+    _check(acc, deltas, w)
     out = acc if inplace else torch.empty_like(acc)
-    _check(acc, rows, w, out)
-    _agg.agg_weighted_sum_cuda(acc, rows, w, out)
+    if isinstance(deltas, torch.Tensor):
+        table, _, _ = _agg.leaves_table([(deltas, 0)], len(w), acc.numel(),
+                                        acc.device)
+        _launch_leaves(acc, table, w, out)
+        return out
+    with _on_device(acc):
+        _agg.agg_weighted_sum_cuda(acc, deltas, w, out)
     agg_launches += 1
+    return out
+
+
+def _launch_leaves(acc: torch.Tensor, table: array, w: array,
+                   out: torch.Tensor) -> None:
+    """Launch the leaves form over a table from ``leaves_table`` on acc's
+    device, and count its kernels."""
+    global agg_launches, agg_leaves_launches
+    if len(table) == 1:            # nothing to fold: n == 0
+        return
+    with _on_device(acc):
+        n = _agg.agg_fold_leaves_cuda(acc, table, w, out)
+    agg_launches += n
+    agg_leaves_launches += n
+
+
+def agg_fold_leaves(acc: torch.Tensor,
+                    segments: Sequence[Tuple[torch.Tensor, int]], weights,
+                    *, inplace: bool = False) -> torch.Tensor:
+    """The leaves form: fold a client block straight from its parameter
+    leaves, ``out[off + j] = acc[off + j] + Σ_c w_c·leaf[c, j]`` in fp32 in
+    client order, for each ``(leaf, off)`` of ``segments``.
+
+    acc: (n,) fp32; segments: the group's stacked ``(C, ...)`` fp32 or bf16
+    leaves in layout order, each with its offset in the flat buffer, tiling
+    ``[0, n)``; weights: C host floats.  Per element it computes what
+    :func:`agg_weighted_sum` computes on the concatenated ``(C, n)`` block,
+    bit for bit, without building that block: one launch for every
+    ``MAX_SEGMENTS`` leaves.  A leaf that cannot be viewed as ``(C, -1)``
+    with a unit inner stride is made contiguous first (and counted in
+    :data:`agg_leaf_copies`).  ``inplace`` as for :func:`agg_weighted_sum`."""
+    global agg_dispatches, agg_leaf_copies
+    agg_dispatches += 1
+    w = _weights(weights)
+    kind = acc.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"no fold kernel for device {acc.device}")
+    _check_acc(acc, len(w))
+    # `keep` holds any leaf copied for the kernel until its launch is queued
+    table, keep, copies = _agg.leaves_table(segments, len(w), acc.numel(),
+                                            acc.device)
+    if kind == "cpu":
+        res = _agg.agg_fold_leaves_plain(acc, segments, w.tolist())
+        if inplace:
+            acc.copy_(res)
+            return acc
+        return res
+    agg_leaf_copies += copies
+    out = acc if inplace else torch.empty_like(acc)
+    _launch_leaves(acc, table, w, out)
     return out
 
 

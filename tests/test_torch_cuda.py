@@ -73,6 +73,149 @@ def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(cuda):
                                    torch.ones(8)], [1.0, 1.0])
 
 
+# per-client leaf shapes: the full-width MLP's leaves; odd sizes and 0-d
+# leaves (offsets in every 16-byte phase: the scalar edge beside vectors);
+# bf16 leaves among fp32 ones; a first leaf of 3 elements that puts every
+# later offset off the 16-byte phase
+FULL_WIDTH_LEAVES = [(128,)] * 70 + [(400,)] + [(128, 128)] * 70 + \
+    [(128, 400)]
+CUDA_LEAF_CASES = {
+    "full_width": (FULL_WIDTH_LEAVES, ()),
+    "odd": ([(3, 3), (), (13,), (1,), (2, 5, 3), (), (1000,), (77, 3)], ()),
+    "mixed": ([(7, 5), (9,), (), (33,), (256, 16), (100,)], (1, 2, 4)),
+    "misaligned": ([(3,), (4096,), (1,), (517, 9), (64,)], (3,)),
+    "many": ([(5,)] * 1000 + [(64,)] * 1000, (7,)),
+}
+
+
+def _cuda_leaves(cuda, shapes, C, bf16, seed=0):
+    """Leaves of the given per-client shapes on the card, their segments
+    and the (C, n) block they concatenate to (fp32 when every leaf is
+    fp32, else bf16 leaves widened: the group buffer flatten_batch
+    builds)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    segs, cols, off = [], [], 0
+    for i, shape in enumerate(shapes):
+        t = torch.randn((C,) + shape, device=cuda, generator=g)
+        if i in bf16:
+            t = t.to(torch.bfloat16)
+        segs.append((t, off))
+        cols.append(t.reshape(C, -1).float())
+        off += cols[-1].shape[1]
+    acc = torch.randn(off, device=cuda, generator=g)
+    return acc, segs, torch.cat(cols, 1)
+
+
+@pytest.mark.parametrize("case", sorted(CUDA_LEAF_CASES))
+@pytest.mark.parametrize("C", [1, 4, 64])
+def test_cuda_leaves_kernel_matches_rows_kernel_bitwise(cuda, case, C):
+    """The leaves form against the rows form (the pointer array) on the
+    rows of the concatenated block, bit for bit (same operations in the
+    same order), and against the plain version within FMA contraction;
+    fresh, in place, and over the (C, n) block as one segment."""
+    shapes, bf16 = CUDA_LEAF_CASES[case]
+    acc, segs, block = _cuda_leaves(cuda, shapes, C, bf16)
+    w = np.linspace(0.5, 2.0, C).tolist()
+    rows = ops.agg_fold_batch(acc, list(block), w)
+    launches = ops.agg_leaves_launches
+    fresh = ops.agg_fold_leaves(acc, segs, w)
+    inplace = ops.agg_fold_leaves(acc.clone(), segs, w, inplace=True)
+    one_segment = ops.agg_weighted_sum(acc, block, w)
+    plain = agg_weighted_sum_plain(acc, block, w)
+    torch.cuda.synchronize()
+    per_call = -(-len(segs) // 150)            # MAX_SEGMENTS a launch
+    assert ops.agg_leaves_launches == launches + 2 * per_call + 1
+    for out in (fresh, inplace, one_segment):
+        assert torch.equal(_bits(out), _bits(rows))
+    scale = acc.abs() + sum(abs(wc) * block[c].abs()
+                            for c, wc in enumerate(w))
+    assert bool(((fresh - plain).abs() <= 1e-5 * scale).all())
+
+
+def test_cuda_leaves_kernel_reads_strided_and_sliced_leaves(cuda):
+    """A transposed leaf is copied (and counted); a leaf sliced from a
+    padded bucket and one strided along the client axis are read in place;
+    all give the bits of their contiguous copies."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    C = 4
+    a = torch.randn(C, 60, 50, device=cuda, generator=g)
+    bucket = torch.randn(8, 1001, device=cuda, generator=g)
+    spaced = torch.randn(2 * C, 4000, device=cuda, generator=g)
+    leaves = [a.transpose(1, 2), bucket[:C], spaced[::2]]
+    segs, off = [], 0
+    for t in leaves:
+        segs.append((t, off))
+        off += t[0].numel()
+    acc = torch.randn(off, device=cuda, generator=g)
+    w = [1.5, -0.25, 3.0, 0.5]
+    ref = ops.agg_fold_leaves(acc, [(t.contiguous(), o) for t, o in segs], w)
+    copies = ops.agg_leaf_copies
+    got = ops.agg_fold_leaves(acc, segs, w)
+    torch.cuda.synchronize()
+    assert ops.agg_leaf_copies == copies + 1
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+def test_cuda_leaves_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    acc = torch.zeros(8, device=cuda)
+    with pytest.raises(ValueError):                      # C > 64
+        ops.agg_fold_leaves(acc, [(torch.ones(65, 8, device=cuda), 0)],
+                            [1.0] * 65)
+    with pytest.raises(ValueError):                      # fp16 leaf
+        ops.agg_fold_leaves(acc, [(torch.ones(2, 8, device=cuda,
+                                              dtype=torch.float16), 0)],
+                            [1.0] * 2)
+    with pytest.raises(ValueError):                      # a leaf on the CPU
+        ops.agg_fold_leaves(acc, [(torch.ones(2, 4, device=cuda), 0),
+                                  (torch.ones(2, 4), 4)], [1.0] * 2)
+    with pytest.raises(ValueError):                      # a gap
+        ops.agg_fold_leaves(acc, [(torch.ones(2, 4, device=cuda), 0),
+                                  (torch.ones(2, 3, device=cuda), 5)],
+                            [1.0] * 2)
+
+
+def test_cuda_full_width_fold_block_is_one_kernel_a_group(cuda):
+    """One full-width fold_block (the 142-leaf MLP, B = 4) puts exactly one
+    CUDA kernel and no copy or memset on the card (torch.profiler over ten
+    calls, after a profiled warm-up step), and gives the bits of the
+    flatten_batch + rows-form fold (the block's rows as a pointer array)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    g = torch.Generator(device=cuda).manual_seed(4)
+    dims = [128] * 71 + [400]
+    stacked = {"delta": {}}
+    for i, (a, b) in enumerate(zip(dims[:-1], dims[1:])):
+        stacked["delta"][f"w{i}"] = torch.randn(4, a, b, device=cuda,
+                                                generator=g)
+        stacked["delta"][f"b{i}"] = torch.randn(4, b, device=cuda,
+                                                generator=g)
+    ws = [32.0, 32.0, 16.0, 8.0]
+    agg = T.LocalAggregator({"delta": T.Op.WEIGHTED_AVG})
+    agg.fold_block(stacked, ws)            # builds the layout and acc
+    torch.cuda.synchronize()
+    got = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: got.append(p.key_averages())) \
+            as prof:
+        for _ in range(2):
+            for _ in range(10):
+                agg.fold_block(stacked, ws)
+            torch.cuda.synchronize()
+            prof.step()
+    counts = {e.key: e.count for e in got[0]
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.count
+              and not e.key.startswith("ProfilerStep")}    # the step's span
+    assert len(counts) == 1 and sum(counts.values()) == 10, counts
+    assert "agg_leaves_kernel" in next(iter(counts)), counts
+    flat = agg.layout.flatten_batch(stacked)["weighted"]
+    ref = torch.zeros(flat.shape[1], device=cuda)
+    for _ in range(21):
+        ref = ops.agg_fold_batch(ref, list(flat), ws)
+    part = agg.partial()["sums"]["buffers"]["weighted"]
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(part), _bits(ref))
+
+
 def _bits(t):
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 

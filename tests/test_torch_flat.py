@@ -202,3 +202,174 @@ def test_merge_and_tree_reduce_match_flat_left_fold():
                                rtol=0)
     with pytest.raises(ValueError):
         tagg.tree_reduce_partials(parts, 1)
+
+
+# ---------------------------------------------------------------------------
+# the block fold straight from the leaves (ops.agg_fold_leaves)
+# ---------------------------------------------------------------------------
+
+def _bf16_values(x):
+    """fp32 numpy values that bf16 holds exactly (rounded once, by JAX)."""
+    return np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+
+
+def _block_case(case, rng):
+    """(ops, stacked numpy payload, bf16 leaf paths, B, padded bucket) for
+    a fold_block case: leaves with a leading client axis."""
+    B = {"c1": 1, "c64": 64, "padded": 5}.get(case, 4)
+
+    def a(*shape):
+        return rng.normal(size=(B,) + shape).astype(np.float32)
+
+    weighted = {"delta": _ops(jagg.Op)["delta"]}
+    if case == "mixed":        # fp32 and bf16 leaves in one group
+        p = {"delta": {"w": a(5, 4), "b": _bf16_values(a(7)), "s": a()}}
+        return weighted, p, {("delta", "b")}, B, 0
+    if case == "odd":          # odd sizes and a 0-d leaf a client
+        p = {"delta": {"a": a(3, 3), "b": a(1), "c": a(), "d": a(13),
+                       "e": a(2, 5, 3)}}
+        return weighted, p, set(), B, 0
+    if case == "bf16":         # an all-bf16 group stays bf16 into the fold
+        p = {"delta": {"w": _bf16_values(a(6, 4)), "b": _bf16_values(a(9))}}
+        return weighted, p, {("delta", "w"), ("delta", "b")}, B, 0
+    if case == "scaffold":     # SCAFFOLD's unit group beside the weighted
+        p = {"delta": {"w": a(4, 3), "b": a(3)},
+             "delta_c": {"w": a(4, 3), "b": a(3)}}
+        return ({"delta": jagg.Op.WEIGHTED_AVG, "delta_c": jagg.Op.AVG}, p,
+                set(), B, 0)
+    p = {"delta": {"w": a(8, 6), "b": a(6), "v": a(11)}}
+    return weighted, p, set(), B, (8 if case == "padded" else 0)
+
+
+def _block_to_torch(p, bf16_paths, pad):
+    """The stacked payload as torch tensors; with ``pad`` each leaf is the
+    ``x[:B]`` slice of a padded bucket whose extra rows hold garbage."""
+    out = {}
+    for name, entry in p.items():
+        out[name] = {}
+        for k, v in entry.items():
+            t = torch.from_numpy(v.copy())
+            if pad:
+                big = torch.full((pad,) + tuple(t.shape[1:]), 1e30)
+                big[:t.shape[0]] = t
+                t = big[:t.shape[0]]
+            if (name, k) in bf16_paths:
+                t = t.to(torch.bfloat16)
+            out[name][k] = t
+    return out
+
+
+def _block_to_jax(p, bf16_paths):
+    return {name: {k: jnp.asarray(v, jnp.bfloat16 if (name, k) in bf16_paths
+                                  else jnp.float32)
+                   for k, v in entry.items()}
+            for name, entry in p.items()}
+
+
+def _t_ops(jops_):
+    return {k: tagg.Op[v.name] for k, v in jops_.items()}
+
+
+# tolerance: the test_kernels.py grid's (atol 1e-4, rtol 1e-4) — the Pallas
+# body contracts w @ D, the port adds client by client; against the port's
+# own flatten_batch + rows-form fold the bits must agree
+@pytest.mark.parametrize("case", ["mixed", "odd", "bf16", "padded",
+                                  "scaffold", "c1", "c64"])
+def test_leaves_fold_block_matches_jax_and_flatten_path(case):
+    rng = np.random.default_rng(11)
+    jops_, p, bf16_paths, B, pad = _block_case(case, rng)
+    ws = [float(x) for x in rng.uniform(1, 20, size=B).astype(np.float32)]
+    ja = jagg.LocalAggregator(jops_, use_kernel=True)
+    ja.fold_block(_block_to_jax(p, bf16_paths), ws)
+    tstacked = _block_to_torch(p, bf16_paths, pad)
+    ta = tagg.LocalAggregator(_t_ops(jops_))
+    ta.fold_block(tstacked, ws)
+    jpart, tpart = ja.partial(), ta.partial()
+    jbufs, tbufs = jpart["sums"]["buffers"], tpart["sums"]["buffers"]
+    assert set(jbufs) == set(tbufs)
+    flat = ta.layout.flatten_batch(tstacked)
+    for g, buf in tbufs.items():
+        np.testing.assert_allclose(buf.numpy(), np.asarray(jbufs[g]),
+                                   atol=1e-4, rtol=1e-4)
+        w = ws if g == "weighted" else [1.0] * B
+        ref = tagg.kops.agg_weighted_sum(
+            torch.zeros(ta.layout.group_sizes[g]), flat[g], w)
+        np.testing.assert_array_equal(buf.numpy().view(np.int32),
+                                      ref.numpy().view(np.int32))
+    assert tpart["weights"] == jpart["weights"]
+    assert tpart["counts"] == jpart["counts"]
+
+
+def test_batch_segments_tile_the_layout_as_flatten_batch_does():
+    """The segments are the leaves in layout order at the spec offsets; a
+    leaf the fold does not read (here int32) is cast as flatten_batch casts
+    it, so the concatenated segments equal the (B, n) buffer."""
+    rng = np.random.default_rng(12)
+    p = {"delta": {"w": torch.from_numpy(rng.normal(size=(3, 4, 2))
+                                         .astype(np.float32)),
+                   "n": torch.from_numpy(rng.integers(-9, 9, size=(3, 5))
+                                         .astype(np.int32)),
+                   "b": torch.from_numpy(rng.normal(size=(3, 2))
+                                         .astype(np.float32))
+                   .to(torch.bfloat16)}}
+    layout = TLayout.build({"delta": tagg.Op.WEIGHTED_AVG},
+                           tree.map(lambda x: x[0], p))
+    segs = layout.batch_segments(
+        p, readable=(torch.float32, torch.bfloat16))["weighted"]
+    specs = layout.specs["weighted"]
+    assert [off for _, off in segs] == [s.offset for s in specs]
+    assert [leaf.dtype for leaf, _ in segs] == [
+        torch.bfloat16, torch.float32, torch.float32]      # b, n (cast), w
+    cat = torch.cat([leaf.reshape(3, -1).float() for leaf, _ in segs], 1)
+    np.testing.assert_array_equal(
+        cat.numpy(), layout.flatten_batch(p)["weighted"].float().numpy())
+
+
+def test_batch_segments_convert_leaves_that_differ_from_the_layout():
+    """A leaf whose runtime dtype differs from the template's is converted
+    as flatten_batch converts it (an fp32 leaf in a bf16 group is rounded
+    to bf16), a numpy leaf becomes a tensor, a dtype the consumer does not
+    read goes to fp32, and a leaf that matches stays the same tensor."""
+    rng = np.random.default_rng(14)
+    tmpl = {"delta": {"a": torch.zeros(3, dtype=torch.bfloat16),
+                      "b": torch.zeros(2, dtype=torch.bfloat16)}}
+    layout = TLayout.build({"delta": tagg.Op.WEIGHTED_AVG}, tmpl)
+    a = torch.from_numpy(rng.normal(size=(4, 3)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(4, 2)).astype(np.float32)) \
+        .to(torch.bfloat16)
+    p = {"delta": {"a": a, "b": b}}
+    both = (torch.float32, torch.bfloat16)
+    segs = layout.batch_segments(p, readable=both)["weighted"]
+    assert segs[0][0].dtype == torch.bfloat16           # a: rounded
+    assert segs[1][0] is b                              # b: as it is
+    cat = torch.cat([leaf.reshape(4, -1) for leaf, _ in segs], 1)
+    assert torch.equal(cat, layout.flatten_batch(p)["weighted"])
+    p_np = {"delta": {"a": a.numpy(), "b": b}}
+    segs = layout.batch_segments(p_np, readable=both)["weighted"]
+    assert torch.equal(segs[0][0], cat[:, :3])
+    segs = layout.batch_segments(p, readable=(torch.float32,))["weighted"]
+    assert [leaf.dtype for leaf, _ in segs] == [torch.float32] * 2
+    assert torch.equal(torch.cat([leaf for leaf, _ in segs], 1),
+                       cat.float())
+
+
+def test_fold_block_past_64_clients_folds_in_parts():
+    """A block of 70 clients folds as 64 + 6 through the leaves form: the
+    same bits as one rows-form fold of the (70, n) buffer."""
+    rng = np.random.default_rng(13)
+    p = {"delta": {"w": torch.from_numpy(rng.normal(size=(70, 5, 3))
+                                         .astype(np.float32)),
+                   "b": torch.from_numpy(rng.normal(size=(70, 3))
+                                         .astype(np.float32))}}
+    ws = [float(x) for x in rng.uniform(1, 5, size=70).astype(np.float32)]
+    ops = {"delta": tagg.Op.WEIGHTED_AVG}
+    agg = tagg.LocalAggregator(ops)
+    tagg.kops.reset_agg_counts()
+    agg.fold_block(p, ws)
+    assert tagg.kops.agg_dispatches == 2
+    got = agg.partial()["sums"]["buffers"]["weighted"]
+    ref = tagg.kops.agg_weighted_sum(torch.zeros(18),
+                                     agg.layout.flatten_batch(p)["weighted"],
+                                     ws)
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  ref.numpy().view(np.int32))

@@ -1,5 +1,6 @@
-"""The port's fold kernel: its plain version against the JAX package's
-oracle and Pallas kernel, its call forms, and its no-fallback rules.
+"""The port's fold kernel: its plain versions (the rows and the leaves
+form) against the JAX package's oracle and Pallas kernel, its call forms,
+and its no-fallback rules.
 
 On the CPU the wrapper takes the plain version (the CUDA kernel needs the
 card); the card cases are in ``test_torch_cuda.py``.
@@ -123,6 +124,121 @@ def test_device_weights_are_refused():
     with pytest.raises(ValueError):
         ops.agg_weighted_sum(torch.zeros(4), torch.ones(2, 4),
                              torch.ones(2, device="meta"))
+
+
+def _leaves(shapes, C, bf16=(), seed=5):
+    """(numpy acc, torch segments, numpy (C, n) block) for leaves of the
+    given per-client shapes; leaves whose index is in ``bf16`` hold
+    bf16 values."""
+    rng = np.random.default_rng(seed)
+    segs, cols, off = [], [], 0
+    for i, shape in enumerate(shapes):
+        x = rng.normal(size=(C,) + shape).astype(np.float32)
+        if i in bf16:
+            x = np.array(jnp.asarray(x, jnp.bfloat16).astype(jnp.float32))
+        t = torch.from_numpy(x)
+        segs.append((t.to(torch.bfloat16) if i in bf16 else t, off))
+        cols.append(x.reshape(C, -1))
+        off += cols[-1].shape[1]
+    acc = rng.normal(size=(off,)).astype(np.float32)
+    return acc, segs, np.concatenate(cols, axis=1)
+
+
+# shapes a client: odd sizes, 0-d leaves, offsets off every 16-byte phase
+LEAF_CASES = {
+    "aligned": ([(128, 128), (128,), (128, 400), (400,)], ()),
+    "odd": ([(3, 3), (), (13,), (1,), (2, 5, 3), ()], ()),
+    "mixed": ([(7, 5), (9,), (), (33,)], (1, 2)),
+}
+
+
+# tolerance: the test_kernels.py grid's, as above; against the rows form on
+# the concatenated block the bits must agree
+@pytest.mark.parametrize("case", sorted(LEAF_CASES))
+@pytest.mark.parametrize("C", [1, 4, 64])
+def test_leaves_form_matches_jax_and_rows_form(case, C):
+    shapes, bf16 = LEAF_CASES[case]
+    acc, segs, block = _leaves(shapes, C, bf16)
+    w = np.linspace(0.5, 2.0, C).astype(np.float32)
+    out = ops.agg_fold_leaves(torch.from_numpy(acc), segs, w.tolist())
+    exp = jops.agg_weighted_sum(jnp.asarray(acc), jnp.asarray(block),
+                                jnp.asarray(w))
+    np.testing.assert_allclose(out.numpy(), np.asarray(exp), atol=1e-4,
+                               rtol=1e-4)
+    rows = ops.agg_weighted_sum(torch.from_numpy(acc),
+                                torch.from_numpy(block), w.tolist())
+    np.testing.assert_array_equal(out.numpy().view(np.int32),
+                                  rows.numpy().view(np.int32))
+
+
+def test_leaves_form_reads_strided_and_sliced_leaves():
+    """A transposed leaf (no (C, -1) view), a leaf sliced from a padded
+    bucket and a leaf strided along the client axis fold like contiguous
+    copies of themselves, in place or fresh."""
+    rng = np.random.default_rng(6)
+    C = 3
+    a = torch.from_numpy(rng.normal(size=(C, 6, 5)).astype(np.float32))
+    bucket = torch.from_numpy(rng.normal(size=(8, 7)).astype(np.float32))
+    spaced = torch.from_numpy(rng.normal(size=(2 * C, 4)).astype(np.float32))
+    leaves = [a.transpose(1, 2), bucket[:C], spaced[::2]]
+    segs, off = [], 0
+    for t in leaves:
+        segs.append((t, off))
+        off += t[0].numel()
+    acc = torch.from_numpy(rng.normal(size=(off,)).astype(np.float32))
+    w = [1.5, -0.25, 3.0]
+    ref = ops.agg_fold_leaves(acc, [(t.contiguous(), o) for t, o in segs], w)
+    fresh = ops.agg_fold_leaves(acc, segs, w)
+    assert fresh.data_ptr() != acc.data_ptr()
+    np.testing.assert_array_equal(fresh.numpy(), ref.numpy())
+    inplace = ops.agg_fold_leaves(acc, segs, w, inplace=True)
+    assert inplace.data_ptr() == acc.data_ptr()
+    np.testing.assert_array_equal(inplace.numpy(), ref.numpy())
+
+
+@pytest.mark.parametrize("bad", ["dtype", "too_many_rows", "no_rows",
+                                 "weights", "device", "gap", "overlap",
+                                 "short", "clients", "acc"])
+def test_leaves_form_refuses_what_the_kernel_does_not_take(bad):
+    C = 65 if bad == "too_many_rows" else 0 if bad == "no_rows" else 2
+    leaf = torch.ones(C, 4)
+    segs = [(leaf, 0), (torch.ones(C, 3), 4)]
+    acc = torch.zeros(7)
+    w = [1.0] * C
+    if bad == "dtype":
+        segs[1] = (torch.ones(C, 3, dtype=torch.float16), 4)
+    elif bad == "weights":
+        w = [1.0] * (C + 1)
+    elif bad == "device":
+        segs[1] = (torch.ones(C, 3, device="meta"), 4)
+    elif bad == "gap":
+        segs[1] = (torch.ones(C, 3), 5)
+    elif bad == "overlap":
+        segs[1] = (torch.ones(C, 3), 3)
+    elif bad == "short":
+        acc = torch.zeros(8)
+    elif bad == "clients":
+        segs[1] = (torch.ones(C + 1, 3), 4)
+    elif bad == "acc":
+        acc = torch.zeros(7, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        ops.agg_fold_leaves(acc, segs, w)
+
+
+def test_cpu_leaves_fold_counts_dispatch_not_launch():
+    ops.reset_agg_counts()
+    ops.agg_fold_leaves(torch.zeros(8), [(torch.ones(2, 8), 0)], [1.0, 2.0])
+    assert ops.agg_dispatches == 1
+    assert ops.agg_launches == ops.agg_leaves_launches == 0
+    assert ops.agg_leaf_copies == 0
+
+
+def test_weights_round_through_fp32():
+    """The host weights reach both routes as fp32 values: a weight fp32
+    cannot hold folds as its rounded value."""
+    w = 1.0 + 2.0 ** -30
+    out = ops.agg_fold_leaves(torch.zeros(1), [(torch.ones(1, 1), 0)], [w])
+    assert float(out[0]) == float(np.float32(w)) == 1.0
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
