@@ -80,9 +80,24 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    card and CPU give identical tokens and logits within 1e-4, and hymba's
    decode logit after the prefill equals a full forward within 2e-4.
 
-Phases 3, 4, 5, 6(c), 7(d) and 7(e) are the main path: kernel launch
-counters are set to 0 just before each and read just after, and every
-kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
+8. The DES round engines: (a) the quickstart under semi-sync (a 19×-slow
+   executor, deadline 0.5 of the predicted makespan, over-selection 1.5,
+   chunks of 2) and async (a 16×-slow executor, round-robin placement,
+   λ 0.5, chunks of 2), 6 windows each under a ``TickTimer`` on the card
+   and on the CPU: windows identical (makespans and every ``extra`` key),
+   params allclose, every fold a launch of the leaves form, and tasks
+   carried, chunks stolen and stale chunks folded; (b) phase 4's model
+   under ``dynamic_env(4, 5)`` with ``benchmarks/bench_round_modes.py``'s
+   engine options: 5 timed windows of each engine, every fold a launch of
+   the leaves form and one launch for each group the chunks folded; a
+   profiled window of each; one async window with top-k 0.01 (one launch
+   for each span shipped, the kernel equal to its plain version on a real
+   chunk partial); 2 windows of each on card and CPU under a
+   ``TickTimer``: windows identical, params after the first within 1e-4.
+
+Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a) and 8(b) are the main path: kernel
+launch counters are set to 0 just before each and read just after, and
+every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -758,15 +773,17 @@ def mlp_clients(T):
 
 
 def full_width(T, device, rounds, on_round=None, compressor=None,
-               timer=None, prepare=None):
+               timer=None, prepare=None, speed_model=None, **server_kw):
     algo = T.make_algorithm("fedprox", T.value_and_grad(mlp_loss), 0.05,
                             local_epochs=1)
     execs = [T.SequentialExecutor(k, algo, client_block=8, device=device,
-                                  timer=timer) for k in range(4)]
+                                  timer=timer,
+                                  speed_model=speed_model or T.homogeneous)
+             for k in range(4)]
     srv = T.ParrotServer(params=mlp_params(), algorithm=algo,
                          executors=execs, data_by_client=mlp_clients(T),
                          clients_per_round=16, seed=0, device=device,
-                         compressor=compressor)
+                         compressor=compressor, **server_kw)
     if prepare is not None:
         prepare(srv)
     for r in range(rounds):
@@ -783,12 +800,13 @@ FOLD_KERNELS = ("agg_leaves_kernel", "agg_rows_kernel")
 
 def profile_round(srv):
     """Device busy share and kernel time by name over one more full-width
-    round, from torch.profiler (CUPTI).  None where the trace holds no
-    device time."""
+    round (a window under a DES engine), from torch.profiler (CUPTI).
+    None where the trace holds no device time.  The device activity alone:
+    the host ops' trace added ~45 s of processing a round and changed no
+    device number."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         srv.run_round()
         torch.cuda.synchronize()
@@ -799,13 +817,14 @@ def profile_round(srv):
     if busy_us <= 0:
         return None
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    fold_us = sum(e.self_device_time_total for e in kernels
-                  if any(k in e.key for k in FOLD_KERNELS))
+    fold = [e for e in kernels if any(k in e.key for k in FOLD_KERNELS)]
+    fold_us = sum(e.self_device_time_total for e in fold)
     topk = [e for e in kernels if "topk_" in e.key]
     return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
             "device_idle_share": 1.0 - busy_us / 1e6 / wall,
             "kernel_launches": int(sum(e.count for e in kernels)),
             "fold_device_s": fold_us / 1e6,
+            "fold_kernels": int(sum(e.count for e in fold)),
             "topk_device_s": sum(e.self_device_time_total
                                  for e in topk) / 1e6,
             "topk_kernels": int(sum(e.count for e in topk)),
@@ -928,34 +947,43 @@ def phase_full_width(T, ops):
 # phase 5: the compressed full-width round
 # ---------------------------------------------------------------------------
 
-def capture_wires(srv, dense_round=None, all_dense=False):
+def capture_wires(srv, dense_round=None, all_dense=False, first=False):
     """Wrap the server's codec: keep every shipped top-k selection by
-    (round, executor); with ``all_dense`` every dense partial buffer too;
-    in ``dense_round``, executor 0's dense partial buffer with the residual
-    it carries from the round before, the wire it shipped and the residual
+    (round, executor) and count the compressed spans shipped; with
+    ``all_dense`` every dense partial buffer too; in ``dense_round``
+    (with ``first``: at the first partial shipped, whoever sends it) the
+    sender's dense partial buffer with the residual it carries from before
+    (zeros where it has none), the wire it shipped and the residual
     after."""
     comp, inner = srv.compressor, srv.compressor.compress_partial
-    seen = {"idx": {}, "dense": {}, "srv": srv}
+    seen = {"idx": {}, "dense": {}, "srv": srv, "spans": 0}
 
     def compress_partial(partial, key=None):
         rnd = srv.round
         if "weighted" not in partial["sums"]["buffers"]:
             return inner(partial, key=key)          # an executor with no work
-        keep = key == "exec0" and rnd == dense_round
+        keep = ("wire" not in seen) if first else \
+            (key == "exec0" and rnd == dense_round)
         dense = partial["sums"]["buffers"]["weighted"]
         if keep:
-            res = comp._residual.get("exec0/weighted")
-            seen["res_before"] = None if res is None else res.clone()
+            res = comp._residual.get(f"{key}/weighted")
+            seen["res_carried"] = res is not None
+            seen["res_before"] = (torch.zeros_like(dense) if res is None
+                                  else res.clone())
         if keep or all_dense:
             seen["dense"][(rnd, key)] = dense.clone()
         out = inner(partial, key=key)
+        seen["spans"] += sum(
+            kind == "comp" for buf in out["sums"]["buffers"].values()
+            if isinstance(buf, dict) for kind, _ in buf["segments"])
         [(idx, vals)] = [(x.data["idx"], x.data["vals"]) for kind, x in
                          out["sums"]["buffers"]["weighted"]["segments"]
                          if kind == "comp"]
         seen["idx"][(rnd, key)] = idx
         if keep:
+            seen["key"] = (rnd, key)
             seen["wire"] = (idx.clone(), vals.clone())
-            seen["res_after"] = comp._residual["exec0/weighted"].clone()
+            seen["res_after"] = comp._residual[f"{key}/weighted"].clone()
         return out
 
     comp.compress_partial = compress_partial
@@ -1005,7 +1033,7 @@ def phase_full_width_topk(T, ops, plain):
     # round 2, with the residual carried from round 1
     w = seen["wires"]
     x, r0 = w["dense"][(2, "exec0")], w["res_before"]
-    if r0 is None or x.numel() != n:
+    if not w["res_carried"] or x.numel() != n:
         raise AssertionError("no carried residual / unexpected partial size")
     want = plain(x, r0, k)
     got = ops.fused_topk(x, r0.clone(), k)
@@ -1858,6 +1886,288 @@ def phase_recurrent_serve(ops, lm, tree, generate, make_prompt, hymba,
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the DES round engines (semi-sync and async)
+# ---------------------------------------------------------------------------
+
+# engine -> (engine_opts, hetero_gpus ratios, scheduler policy) at the
+# quickstart size: the straggler configurations of
+# tests/test_round_engine.py (deadline carry-over; stealing from a slow
+# executor under round-robin placement)
+DES_QUICKSTART = {
+    "semi-sync": ({"deadline_frac": 0.5, "over_select": 1.5,
+                   "chunk_size": 2}, {3: 18.0}, "parrot"),
+    "async": ({"staleness_lambda": 0.5, "chunk_size": 2}, {0: 15.0}, "none"),
+}
+# benchmarks/bench_round_modes.py:33-38, under dynamic_env(4, DES_WINDOWS)
+DES_FULL = {
+    "semi-sync": {"deadline_frac": 0.55, "over_select": 1.2,
+                  "chunk_size": 4},
+    "async": {"staleness_lambda": 0.5, "chunk_size": 8},
+}
+DES_WINDOWS = 5
+DES_KEYS = ("carried_tasks", "landed_clients", "steals", "stale_folds",
+            "mean_staleness", "in_system")
+
+
+def window_key(m):
+    """What a window must reproduce exactly on another device."""
+    return (m.round, m.makespan, m.n_clients, m.n_executors, m.failures,
+            m.extra)
+
+
+def des_quickstart(T, make_clients, device, engine, windows=6):
+    """The quickstart (FedAvg, 100 clients, 4 executors, 20 a round) under
+    a DES engine and a TickTimer(1.0)."""
+    opts, ratios, policy = DES_QUICKSTART[engine]
+    algo = T.make_algorithm("fedavg", T.value_and_grad(softmax_loss),
+                            lr=0.05, local_epochs=2)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device,
+                                  speed_model=T.hetero_gpus(ratios))
+             for k in range(4)]
+    srv = T.ParrotServer(params={"w": torch.zeros(32, 10),
+                                 "b": torch.zeros(10)},
+                         algorithm=algo, executors=execs,
+                         data_by_client=make_clients(
+                             100, dim=32, n_classes=10, partition="natural",
+                             seed=0),
+                         clients_per_round=20, seed=0, device=device,
+                         round_engine=engine, engine_opts=opts,
+                         scheduler_policy=policy)
+    return [srv.run_round() for _ in range(windows)], srv.params
+
+
+def phase_des_quickstart(T, make_clients, ops):
+    """8a: each engine on the card and on the CPU, 6 windows: windows equal
+    exactly, params within 1e-5, every fold a launch of the leaves form,
+    and the carry, steal and stale-fold branches taken."""
+    out = {}
+    for engine in DES_QUICKSTART:
+        ops.reset_agg_counts()
+        t0 = time.perf_counter()
+        hg, pg = des_quickstart(T, make_clients, "cuda", engine)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+        copies = ops.agg_leaf_copies
+        t0 = time.perf_counter()
+        hc, pc = des_quickstart(T, make_clients, "cpu", engine)
+        t_cpu = time.perf_counter() - t0
+        if [window_key(m) for m in hg] != [window_key(m) for m in hc]:
+            raise AssertionError(
+                f"{engine} quickstart windows differ card vs CPU: "
+                f"{[window_key(m) for m in hg]} vs "
+                f"{[window_key(m) for m in hc]}")
+        for k in pc:
+            torch.testing.assert_close(pg[k].cpu(), pc[k], atol=1e-5,
+                                       rtol=1e-5,
+                                       msg=f"{engine} quickstart param {k}")
+        if launches <= 0 or leaves != launches or copies:
+            raise AssertionError(
+                f"{engine} quickstart: {launches} fold launches, {leaves} "
+                f"of the leaves form, {copies} leaves copied")
+        totals = {k: sum(m.extra.get(k, 0.0) for m in hg)
+                  for k in ("carried_tasks", "steals", "stale_folds")}
+        out[engine] = {"makespans": [m.makespan for m in hg],
+                       "fold_launches": launches, "wall_s_card": t_card,
+                       "wall_s_cpu": t_cpu, **totals}
+        log(f"phase 8a: {engine} quickstart, 6 windows: makespans "
+            f"{out[engine]['makespans']} and extra identical on card and "
+            f"CPU, params allclose (1e-5); {launches} fold launches, all of "
+            f"the leaves form; totals {totals}; wall {t_card:.2f} s card, "
+            f"{t_cpu:.2f} s CPU")
+    if not (out["semi-sync"]["carried_tasks"] > 0
+            and out["async"]["steals"] > 0
+            and out["async"]["stale_folds"] > 0):
+        raise AssertionError(f"a DES branch never ran: {out}")
+    return out
+
+
+class FoldGroups:
+    """While active, counts the groups ``LocalAggregator.fold_block``
+    folds: each is one launch of the leaves form (blocks of at most 64
+    clients, 142 leaves: one table)."""
+
+    def __init__(self, T):
+        self.cls, self.n = T.LocalAggregator, 0
+
+    def __enter__(self):
+        inner = self.inner = self.cls.fold_block
+
+        def fold_block(agg, stacked, weights):
+            inner(agg, stacked, weights)
+            self.n += len(agg._acc)
+
+        self.cls.fold_block = fold_block
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.fold_block = self.inner
+
+
+def des_full_width(T, device, engine, windows, **kw):
+    return full_width(T, device, windows,
+                      speed_model=T.dynamic_env(4, DES_WINDOWS),
+                      round_engine=engine, engine_opts=DES_FULL[engine],
+                      warmup_rounds=2, **kw)
+
+
+def phase_des_full_width(T, ops, plain):
+    """8b: phase 4's model under each engine: measured windows on the card
+    (every fold of the leaves form, one launch for each folded group), a
+    profiled window, an async window with top-k 0.01, and card against
+    CPU under a TickTimer."""
+    n, k = TOPK_MAIN
+    out = {}
+    for engine in DES_FULL:
+        rows = []
+        last = [0]
+
+        def on_window(w, m, wall, rows=rows, last=last):
+            torch.cuda.synchronize()
+            rows.append({"window": w, "wall_s": wall,
+                         "makespan_s": m.makespan, "n_clients": m.n_clients,
+                         "fold_launches": ops.agg_launches - last[0],
+                         **{key: m.extra[key] for key in DES_KEYS
+                            if key in m.extra}})
+            last[0] = ops.agg_launches
+            log(f"phase 8b {engine} window {w}: wall {wall:.3f} s, makespan "
+                f"{m.makespan:.4f} s, {m.n_clients} clients, "
+                + ", ".join(f"{key} {m.extra[key]:g}" for key in DES_KEYS
+                            if key in m.extra)
+                + f", fold launches {rows[-1]['fold_launches']}")
+
+        ops.reset_agg_counts()
+        with FoldGroups(T) as groups:
+            srv = des_full_width(T, "cuda", engine, DES_WINDOWS,
+                                 on_round=on_window)
+            torch.cuda.synchronize()
+        launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+        if launches <= 0 or leaves != launches or ops.agg_leaf_copies \
+                or launches != groups.n:
+            raise AssertionError(
+                f"{engine} full width: {launches} fold launches, {leaves} of "
+                f"the leaves form, {ops.agg_leaf_copies} leaves copied, "
+                f"{groups.n} groups folded by fold_block")
+        for key, v in srv.params.items():
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{engine} full width: {key} not finite")
+        t0 = time.perf_counter()
+        prof = profile_round(srv)          # one more window, after the count
+        t_prof = time.perf_counter() - t0
+        if prof is None:
+            log(f"phase 8b {engine} profile: the trace holds no device time "
+                f"(not measured)")
+        else:
+            log(f"phase 8b {engine} profile (one more window): wall "
+                f"{prof['wall_s']:.3f} s, device busy "
+                f"{prof['device_busy_s']:.4f} s, idle share "
+                f"{prof['device_idle_share']:.3f}, "
+                f"{prof['kernel_launches']} kernel launches, fold "
+                f"{prof['fold_device_s'] * 1e3:.4f} ms in "
+                f"{prof['fold_kernels']} kernels; the profiled call took "
+                f"{t_prof:.1f} s with the trace's processing")
+        out[engine] = {"windows": rows, "fold_launches": launches,
+                       "fold_block_groups": groups.n, "profile": prof}
+        log(f"phase 8b {engine}: {launches} fold launches in "
+            f"{DES_WINDOWS} windows, all of the leaves form, one for each "
+            f"of the {groups.n} groups the chunks folded")
+
+    # one async window with top-k 0.01: one launch for each span shipped,
+    # and the kernel equal to its plain version on a real chunk partial
+    box = {}
+    ops.reset_topk_counts()
+    t0 = time.perf_counter()
+    des_full_width(T, "cuda", "async", 1,
+                   compressor=T.TopKCompressor(0.01),
+                   prepare=lambda s: box.update(
+                       seen=capture_wires(s, first=True)))
+    torch.cuda.synchronize()
+    t_topk = time.perf_counter() - t0
+    seen = box["seen"]
+    topk_launches = ops.topk_launches
+    if topk_launches <= 0 or topk_launches != seen["spans"]:
+        raise AssertionError(f"async top-k window: {topk_launches} top-k "
+                             f"launches for {seen['spans']} spans shipped")
+    x, r0 = seen["dense"][seen["key"]], seen["res_before"]
+    if x.numel() != n:
+        raise AssertionError(f"unexpected chunk partial size {x.numel()}")
+    want = plain(x, r0, k)
+    got = ops.fused_topk(x, r0.clone(), k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "vals", "new_res"), want, got):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"chunk partial: kernel {name} != plain")
+    if not (torch.equal(seen["wire"][0], want[0])
+            and torch.equal(seen["wire"][1].view(torch.int32),
+                            want[1].view(torch.int32))
+            and torch.equal(seen["res_after"].view(torch.int32),
+                            want[2].view(torch.int32))):
+        raise AssertionError("the shipped chunk wire / residual differ from "
+                             "plain")
+    ops.reset_topk_counts()        # comparison launches do not count
+    out["async_topk"] = {"topk_launches": topk_launches,
+                         "spans_shipped": seen["spans"],
+                         "checked_partial": list(seen["key"]),
+                         "residual_carried": seen["res_carried"],
+                         "wall_s": t_topk}
+    log(f"phase 8b async, one window with top-k 0.01: {topk_launches} top-k "
+        f"launches for {seen['spans']} chunk-partial spans shipped; on "
+        f"{seen['key'][1]}'s first shipped chunk partial (n={n}, k={k}, "
+        f"residual carried: {seen['res_carried']}) kernel == plain == "
+        f"shipped wire, bit for bit; wall {t_topk:.2f} s")
+
+    # card against CPU under a TickTimer, 2 windows each: windows equal
+    # exactly, params after window 0 within 1e-4; window 1 reported (the
+    # deep ReLU model amplifies sum-order differences after round 0, as in
+    # phase 5)
+    for engine in DES_FULL:
+        runs, walls = {}, {}
+        for dev in ("cuda", "cpu"):
+            got = {"params": []}
+            t0 = time.perf_counter()
+
+            def keep(w, m, wall, got=got):
+                got["params"].append({q: v.detach().cpu().clone()
+                                      for q, v in got["srv"].params.items()})
+                got.setdefault("windows", []).append(window_key(m))
+
+            des_full_width(T, dev, engine, 2, on_round=keep,
+                           timer=T.TickTimer(1.0),
+                           prepare=lambda s, got=got: got.update(srv=s))
+            runs[dev], walls[dev] = got, time.perf_counter() - t0
+        g, c = runs["cuda"], runs["cpu"]
+        if g["windows"] != c["windows"]:
+            raise AssertionError(f"{engine} full width, TickTimer: windows "
+                                 f"differ: {g['windows']} vs {c['windows']}")
+        for q, pc in c["params"][0].items():
+            torch.testing.assert_close(g["params"][0][q], pc, atol=1e-4,
+                                       rtol=1e-4,
+                                       msg=f"{engine} full width window 0 "
+                                           f"{q}")
+        errs = [max(float((g["params"][w][q] - pc).abs().max())
+                    for q, pc in c["params"][w].items()) for w in range(2)]
+        out[engine]["card_vs_cpu"] = {"windows": g["windows"],
+                                      "params_max_err": errs,
+                                      "wall_s": walls}
+        log(f"phase 8b {engine}, card vs CPU under TickTimer, 2 windows: "
+            f"makespans {[wk[1] for wk in g['windows']]} and extra identical;"
+            f" params after window 0 allclose (1e-4, max |diff| "
+            f"{errs[0]:.3g}); after window 1 max |diff| {errs[1]:.3g} "
+            f"(reported, not held); wall {walls['cuda']:.2f} s card, "
+            f"{walls['cpu']:.2f} s CPU")
+    return out
+
+
+def phase_des(T, make_clients, ops, plain):
+    t0 = time.perf_counter()
+    quick = phase_des_quickstart(T, make_clients, ops)
+    full = phase_des_full_width(T, ops, plain)
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return {"quickstart": quick, "full_width": full}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1917,6 +2227,9 @@ def main() -> int:
         ops, lm, tree, generate, make_prompt, get_arch("hymba-1.5b"),
         get_arch("xlstm-125m"))
     h_launch, x_launch = h_serve["launches"], x_serve["launches"]
+    des = phase_des(T, make_classification_clients, ops,
+                    topk_with_residual_plain)
+    des_fold = {e: des["full_width"][e]["fold_launches"] for e in DES_FULL}
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -1954,6 +2267,10 @@ def main() -> int:
         "full_width_rounds": fw_rows,
         "full_width_profile": fw_prof,
         "fold_block": fw_block,
+        "des_quickstart_launches": {e: des["quickstart"][e]["fold_launches"]
+                                    for e in DES_QUICKSTART},
+        "des_full_width_launches": des_fold,
+        "des": des,
     }, {
         "name": "topk_compress",
         "route": "cuda",
@@ -1981,6 +2298,7 @@ def main() -> int:
         "compressed_full_width_rounds": c_rows,
         "compressed_full_width_profile": c_prof,
         "card_vs_cpu": c_check,
+        "des_async_launches": des["full_width"]["async_topk"]["topk_launches"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

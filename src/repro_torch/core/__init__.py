@@ -1,4 +1,4 @@
-"""Parrot core on PyTorch — the BSP round main path:
+"""Parrot core on PyTorch — the round main path:
 
   scheduler.py / workload.py — heterogeneity-aware task scheduling (Alg. 3)
   aggregation.py             — hierarchical local→global aggregation (§4.2)
@@ -10,7 +10,8 @@
   client_step.py             — client-training engine (local-SGD loop,
                                torch.func.vmap over client blocks)
   executor.py / round.py     — sequential executors + Parrot server (Alg. 2)
-  engine.py / clock.py       — the BSP round engine on the virtual clock
+  engine.py / clock.py       — round engines (BSP / semi-sync / async) on
+                               the virtual clock
   population.py              — client population and cohort sampling
   tree.py                    — nested-container helpers in jax.tree order
 """
@@ -25,7 +26,8 @@ from repro_torch.core.clock import TickTimer, VirtualClock
 from repro_torch.core.compression import (CompressedTensor, Int8Compressor,
                                           PowerSGDCompressor, TopKCompressor,
                                           make_compressor)
-from repro_torch.core.engine import BSPEngine, RoundEngine, make_engine
+from repro_torch.core.engine import (AsyncEngine, BSPEngine, RoundEngine,
+                                     SemiSyncEngine, make_engine)
 from repro_torch.core.executor import (ExecutorFailure, SequentialExecutor,
                                        dynamic_env, hetero_gpus, homogeneous)
 from repro_torch.core.flat import FlatLayout
@@ -35,23 +37,24 @@ from repro_torch.core.round import (ParrotServer, RoundMetrics,
                                     run_flat_reference)
 from repro_torch.core.scheduler import (ClientTask, ParrotScheduler, Schedule,
                                         oracle_makespan, predict_span,
-                                        split_chunks)
+                                        rebalance_queues, split_chunks)
 from repro_torch.core.state_manager import ClientStateManager, owner_host
 from repro_torch.core.workload import (RunRecord, WorkloadEstimator,
                                        WorkloadModel, fleet_average)
 
 __all__ = [
-    "ALGORITHMS", "BSPEngine", "ClientData", "ClientPopulation",
+    "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
     "CompressedTensor", "EagerPopulation", "ExecutorFailure", "FLAlgorithm",
     "FlatLayout", "Int8Compressor", "LocalAggregator", "Op",
     "ParrotScheduler", "ParrotServer", "PowerSGDCompressor", "RoundEngine",
-    "RoundMetrics", "RunRecord", "Schedule", "SequentialExecutor",
+    "RoundMetrics", "RunRecord", "Schedule", "SemiSyncEngine",
+    "SequentialExecutor",
     "TickTimer", "TopKCompressor", "VirtualClock", "WorkloadEstimator",
     "WorkloadModel", "as_population", "dynamic_env", "engine_for",
     "flat_aggregate", "fleet_average", "global_aggregate", "hetero_gpus",
     "homogeneous", "make_algorithm", "make_compressor", "make_engine",
     "merge_partials", "oracle_makespan", "owner_host", "predict_span",
-    "run_flat_reference", "scale_partial", "split_chunks",
+    "rebalance_queues", "run_flat_reference", "scale_partial", "split_chunks",
     "staleness_weight", "value_and_grad", "wire_bytes",
 ]

@@ -14,7 +14,8 @@ BSP round time is max_k Σ_task time.
 Client training runs through ``core.client_step``: ``run_queue`` groups
 same-signature clients into blocks of ``client_block`` and runs one vmapped
 local-SGD loop per block, folding the stacked (B, ...) deltas straight into
-the flat aggregator (``fold_block``).  Virtual time for a block is
+the flat aggregator (``fold_block``; a block of one client folds the
+same way).  Virtual time for a block is
 attributed per client (block time / B, scaled by η).  The eager per-task
 path is kept for ``use_compiled_steps=False``, for ragged clients, and for
 rounds with a pending ``fail_at`` injection (task-index granularity must
@@ -40,9 +41,9 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from repro_torch.core import client_step, tree
-from repro_torch.core.aggregation import LocalAggregator
+from repro_torch.core.aggregation import LocalAggregator, merge_partials
 from repro_torch.core.algorithms import ClientData, FLAlgorithm
-from repro_torch.core.scheduler import ClientTask
+from repro_torch.core.scheduler import ClientTask, split_chunks
 from repro_torch.core.state_manager import ClientStateManager
 from repro_torch.core.workload import RunRecord
 from repro_torch.device import resolve_device, synchronize
@@ -161,8 +162,28 @@ class SequentialExecutor:
 
     def run_queue(self, rnd: int, tasks: List[ClientTask], payload: Dict,
                   data_by_client: Dict[int, ClientData],
-                  skip_clients: Optional[set] = None) -> ExecutorReport:
-        """Run a task queue (``Device_Executes``)."""
+                  skip_clients: Optional[set] = None,
+                  chunk_size: Optional[int] = None,
+                  on_partial: Optional[Callable[["ExecutorReport"], None]]
+                  = None,
+                  task_offset: int = 0) -> ExecutorReport:
+        """Run a task queue (``Device_Executes``).
+
+        ``chunk_size`` switches to chunked *streaming* execution: the queue
+        is cut into chunks of at most that many tasks, each chunk runs as
+        its own span (own LocalAggregator, so its partial is shippable on
+        its own) and is emitted through ``on_partial`` the moment it
+        completes.  The returned report merges the chunk reports.  The
+        engines call this method once per chunk with ``task_offset``
+        instead (their event loop owns the interleaving); both routes run
+        the same per-chunk code.
+
+        ``task_offset`` keeps ``fail_at``'s task index global to the
+        executor's dispatch stream when the caller passes slices of it."""
+        if chunk_size is not None:
+            return self._run_chunked(rnd, tasks, payload, data_by_client,
+                                     skip_clients, chunk_size, on_partial,
+                                     task_offset)
         agg = LocalAggregator(self.algorithm.ops(),
                               micro_batch=self.agg_micro_batch,
                               layout=self._layout_cache,
@@ -174,6 +195,8 @@ class SequentialExecutor:
         eta = self.speed_model(self.id, rnd)
         # fail_at is task-index-granular: a round with a pending injection
         # runs the eager per-task loop so the index semantics stay exact
+        # (round -1 is a wildcard: fire at that dispatch index in any round
+        # — the async engine's dispatch stream spans update boundaries)
         if self.use_compiled_steps and not self.fail_pending(rnd):
             vtime = self._run_blocked(rnd, tasks, payload, data_by_client,
                                       skip_clients, agg, records, completed,
@@ -181,25 +204,50 @@ class SequentialExecutor:
         else:
             vtime = self._run_eager(rnd, tasks, payload, data_by_client,
                                     skip_clients, agg, records, completed,
-                                    eta)
+                                    eta, task_offset)
         self._layout_cache = agg.layout     # flatten-once across rounds
         return ExecutorReport(
             executor=self.id, partial=agg.partial(), records=records,
             virtual_time=vtime, wall_time=self.timer() - t_start,
             n_tasks=len(completed), completed_clients=completed)
 
+    def _run_chunked(self, rnd, tasks, payload, data_by_client, skip_clients,
+                     chunk_size, on_partial, task_offset) -> ExecutorReport:
+        merged: Optional[Dict] = None
+        records: List[RunRecord] = []
+        completed: List[int] = []
+        vtime = wall = 0.0
+        offset = task_offset
+        for chunk in split_chunks(tasks, chunk_size):
+            rep = self.run_queue(rnd, chunk, payload, data_by_client,
+                                 skip_clients, task_offset=offset)
+            offset += len(chunk)
+            if on_partial is not None:
+                on_partial(rep)
+            merged = merge_partials(merged, rep.partial)
+            records.extend(rep.records)
+            completed.extend(rep.completed_clients)
+            vtime += rep.virtual_time
+            wall += rep.wall_time
+        return ExecutorReport(
+            executor=self.id, partial=merged if merged is not None else
+            LocalAggregator(self.algorithm.ops(),
+                            device=self.device).partial(),
+            records=records, virtual_time=vtime, wall_time=wall,
+            n_tasks=len(completed), completed_clients=completed)
+
     # ------------------------------------------------------------------
     def _run_eager(self, rnd, tasks, payload, data_by_client, skip_clients,
-                   agg, records, completed, eta) -> float:
+                   agg, records, completed, eta, task_offset=0) -> float:
         """Per-task reference path (one eager client_update per task; also
         the fault-injection path)."""
         vtime = 0.0
-        for i, task in enumerate(tasks):
+        for i, task in enumerate(tasks, start=task_offset):
             if self.fail_at is not None and self.fail_at[1] == i \
                     and self.fail_pending(rnd):
                 raise ExecutorFailure(
                     self.id, rnd, i, device=self.device,
-                    chunk=(0, len(tasks)),
+                    chunk=(task_offset, task_offset + len(tasks)),
                     vtime=vtime)
             if skip_clients and task.client in skip_clients:
                 continue  # result already produced by a backup replica
@@ -337,8 +385,12 @@ class SequentialExecutor:
             if kind == "eager":
                 agg.fold(result)
             elif len(block) == 1:
+                # a block of one folds through the leaves form as well: one
+                # launch straight from the result's leaves, no staged copy
                 result, new_state = out
-                agg.fold(result)
+                agg.fold_block(
+                    tree.map(lambda x: x.unsqueeze(0), result.payload),
+                    [result.weight])
                 new_states = [new_state]
             else:
                 stacked, new_states = out

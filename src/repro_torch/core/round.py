@@ -1,5 +1,6 @@
-"""Parrot server — Algorithm 2 (``Server_Executes``) on the BSP round
-engine.  Port of ``repro/core/round.py``.
+"""Parrot server — Algorithm 2 (``Server_Executes``) on a pluggable round
+engine (BSP, semi-sync or async; ``core/engine.py``).  Port of
+``repro/core/round.py``.
 
 One ``ParrotServer`` owns the FL algorithm, the heterogeneity-aware
 scheduler + workload estimator, K sequential executors, the client state
@@ -125,7 +126,8 @@ class ParrotServer:
         # multi-device placement is ported (ROADMAP.md, modules queue item
         # 15), as it is in the JAX package without a placement
         self.gang_dispatch = bool(gang_dispatch)
-        # cumulative simulated time across rounds
+        # cumulative simulated time across rounds (BSP and semi-sync advance
+        # it by each round's makespan; async pins it to its persistent clock)
         self.virtual_now = 0.0
         self.overlap_scheduling = overlap_scheduling
         self.backup_fraction = backup_fraction
@@ -136,6 +138,16 @@ class ParrotServer:
         self.history: List[RoundMetrics] = []
         self._pending_schedule: Optional[Schedule] = None
         self.engine = make_engine(round_engine, **(engine_opts or {}))
+        if self.engine.mode != "bsp":
+            # BSP-specific knobs would silently no-op under the DES engines
+            # (which mitigate tails by deadline carry-over and work stealing
+            # instead); parallel_dispatch already raised above (item 15)
+            for knob, val in (("backup_fraction", backup_fraction),
+                              ("overlap_scheduling", overlap_scheduling)):
+                if val:
+                    raise ValueError(
+                        f"{knob} only applies to round_engine='bsp' "
+                        f"(got {self.engine.mode!r})")
 
     # ------------------------------------------------------------------
     def select_clients(self, n: Optional[int] = None,
@@ -232,9 +244,24 @@ class ParrotServer:
         """Elastic K shrink: drop a dead executor."""
         self.executors.pop(k, None)
 
+    def _sched_comm_cost(self):
+        """Per-task comm-cost closure for the scheduler's Eq. 4: None, comm
+        is free until the network model is ported (ROADMAP.md, modules
+        queue item 13)."""
+        return None
+
+    def _commit_metrics(self, metrics: RoundMetrics, t0: float) -> None:
+        """Round-boundary commit: every engine routes its finished
+        RoundMetrics through here with the round window's virtual start
+        ``t0``.  Telemetry ingests them here once it is ported (item 16);
+        until then this is exactly ``history.append``."""
+        self.history.append(metrics)
+
     # ------------------------------------------------------------------
     def run_round(self) -> RoundMetrics:
-        """One BSP server round (see ``core/engine.py``)."""
+        """One server round under the configured engine: a full BSP barrier,
+        a deadline-bounded semi-sync round, or one bounded-staleness update
+        window (see ``core/engine.py``)."""
         return self.engine.run_round(self)
 
     def run(self, n_rounds: int) -> List[RoundMetrics]:

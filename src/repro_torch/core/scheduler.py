@@ -20,11 +20,14 @@ Schedulers:
 
 Chunk granularity (event-driven engines, DESIGN.md §3): the semi-sync and
 async engines execute queues in *chunks* of a few tasks and re-schedule at
-chunk completion events — :func:`split_chunks` cuts a queue and
-:func:`predict_span` prices a chunk under a fitted model (work stealing and
-queue rebalancing come with those engines).  :meth:`Schedule.remap` re-homes queues that a
-pre-computed (overlapped) schedule assigned to an executor that has since
-died — without it those clients would silently never run.
+chunk completion events — :func:`split_chunks` cuts a queue,
+:func:`predict_span` / :func:`predict_remaining` price a chunk / a queue
+under a fitted model, :func:`pick_steal_victim` picks the queue an idle
+executor steals from, and :func:`rebalance_queues` re-packs undispatched
+work.  All of it stays in Python floats, so deadline tests and victim
+choices are the JAX package's bit for bit.  :meth:`Schedule.remap` re-homes
+queues that a pre-computed (overlapped) schedule assigned to an executor
+that has since died — without it those clients would silently never run.
 """
 from __future__ import annotations
 
@@ -161,6 +164,14 @@ def split_chunks(tasks: Sequence[ClientTask],
     return [tasks[i:i + chunk_size] for i in range(0, len(tasks), chunk_size)]
 
 
+def prefetch_ids(queue: Sequence[ClientTask], chunk_size: int) -> List[int]:
+    """Client ids of a queue's NEXT dispatch chunk — the schedule-keyed
+    hint the engines hand to ``ClientStateManager.prefetch`` right after
+    dispatching the current chunk, so the following chunk's state shards
+    stream into the RAM tier while this one computes."""
+    return [t.client for t in queue[:max(1, int(chunk_size))]]
+
+
 def predict_span(model: Optional[WorkloadModel],
                  tasks: Sequence[ClientTask],
                  comm: Optional[ChunkCommCost] = None) -> float:
@@ -176,6 +187,45 @@ def predict_span(model: Optional[WorkloadModel],
     out = model.predict(sum(t.n_samples for t in tasks))
     if comm is not None:
         out += comm([t.client for t in tasks])
+    return out
+
+
+def predict_remaining(model: Optional[WorkloadModel],
+                      tasks: Sequence[ClientTask], chunk_size: int,
+                      comm: Optional[ChunkCommCost] = None) -> float:
+    """Predicted time to drain a queue chunk-by-chunk."""
+    return sum(predict_span(model, c, comm)
+               for c in split_chunks(tasks, chunk_size))
+
+
+def pick_steal_victim(queues: Dict[int, List[ClientTask]],
+                      avail: Dict[int, float],
+                      models: Dict[int, WorkloadModel],
+                      thief: int, chunk_size: int,
+                      comm: Optional[ChunkCommCost] = None) -> Optional[int]:
+    """The executor an idle ``thief`` should steal a chunk from: the one
+    whose *predicted completion time* (availability + remaining queue under
+    its fitted model, comm included when priced) is largest — the predicted
+    straggler.  Ties break on the lower executor id (deterministic).
+    Returns None when nobody has stealable work."""
+    best_k, best_t = None, -float("inf")
+    for k in sorted(queues):
+        if k == thief or not queues[k]:
+            continue
+        done_at = avail.get(k, 0.0) + predict_remaining(
+            models.get(k), queues[k], chunk_size, comm)
+        if done_at > best_t:
+            best_k, best_t = k, done_at
+    return best_k
+
+
+def makespan(assignment: Dict[int, List[ClientTask]],
+             models: Dict[int, WorkloadModel]) -> float:
+    """Predicted makespan of an assignment under given workload models."""
+    out = 0.0
+    for k, q in assignment.items():
+        m = models.get(k, DEFAULT_MODEL)
+        out = max(out, sum(m.predict(t.n_samples) for t in q))
     return out
 
 
@@ -236,3 +286,51 @@ def oracle_makespan(jobs: Sequence[OracleJob],
                 best_k, best_w = k, cand
         w[best_k] = best_w
     return max(w.values(), default=0.0)
+
+
+def rebalance_queues(queues: Dict[int, List[ClientTask]],
+                     horizons: Dict[int, float],
+                     models: Dict[int, WorkloadModel],
+                     comm_cost: Optional[Callable[[ClientTask], float]] = None
+                     ) -> Tuple[Dict[int, List[ClientTask]], int]:
+    """Re-pack every *undispatched* task across the executor set.
+
+    The async engine's queues are built incrementally (one refill schedule
+    per commit, each against the models of its moment), so under drifting
+    device speeds the aggregate backlog goes stale.  This pools all queued
+    tasks and re-runs the Eq. 4 LPT argmin over the CURRENT models, seeding
+    each executor's load with its busy ``horizon`` (completion time of the
+    in-flight chunk) — a busy-slow executor starts deep and sheds work to
+    idle-fast ones.  In-flight work never moves, so nothing
+    double-executes.  The control plane (ROADMAP.md, modules queue item 16)
+    is its caller.
+
+    Deterministic: pool order is (executor, queue position), LPT ties break
+    on that order.  Returns the new assignment (same keys as ``queues``)
+    and the number of tasks whose executor changed."""
+    keys = sorted(queues)
+    pool: List[Tuple[int, ClientTask]] = [
+        (k, t) for k in keys for t in queues[k]]
+    if not pool:
+        return {k: [] for k in keys}, 0
+    avg = fleet_average(models) or DEFAULT_MODEL
+    mdl = {k: models.get(k, avg) for k in keys}
+    base = min(horizons.get(k, 0.0) for k in keys)
+    w = {k: max(horizons.get(k, 0.0) - base, 0.0) for k in keys}
+    assignment: Dict[int, List[ClientTask]] = {k: [] for k in keys}
+    moved = 0
+    order = sorted(range(len(pool)),
+                   key=lambda i: (-pool[i][1].n_samples, i))
+    for i in order:
+        home, task = pool[i]
+        t_comm = comm_cost(task) if comm_cost is not None else 0.0
+        best_k, best_w = None, float("inf")
+        for k in keys:
+            cand = w[k] + mdl[k].predict(task.n_samples) + t_comm
+            if cand < best_w:
+                best_k, best_w = k, cand
+        assignment[best_k].append(task)
+        w[best_k] = best_w
+        if best_k != home:
+            moved += 1
+    return assignment, moved

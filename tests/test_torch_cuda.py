@@ -343,20 +343,22 @@ def _loss(params, batch):
     return torch.mean(torch.logsumexp(logits, -1) - gold)
 
 
-def _quickstart(compressor, rounds, device=None):
+def _quickstart(compressor, rounds, device=None, speed=T.homogeneous,
+                **server_kw):
     """The quickstart's 4 executors and 20 clients a round; ``device=None``
     takes the entry points' default, the card."""
     algo = T.make_algorithm("fedavg", T.value_and_grad(_loss), lr=0.05,
                             local_epochs=2)
     timer = T.TickTimer(1.0)
-    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device)
-             for k in range(4)]
+    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device,
+                                  speed_model=speed) for k in range(4)]
     srv = T.ParrotServer(
         params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
         algorithm=algo, executors=execs,
         data_by_client=make_classification_clients(
             100, dim=32, n_classes=10, partition="natural", seed=0),
-        clients_per_round=20, seed=0, device=device, compressor=compressor)
+        clients_per_round=20, seed=0, device=device, compressor=compressor,
+        **server_kw)
     srv.run(rounds)
     return srv
 
@@ -419,6 +421,41 @@ def test_cuda_main_path_goes_through_the_kernel(cuda, tmp_path):
         [m.makespan for m in on_cpu.history]
     for k in on_cpu.params:
         # same clients, schedules and fold order; only sum order differs
+        torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
+                                   atol=1e-5, rtol=1e-5)
+
+
+# the DES engines at the quickstart size (chip_smoke.py phase 8a's runs)
+DES_RUNS = {
+    "semi-sync": ({"deadline_frac": 0.5, "over_select": 1.5,
+                   "chunk_size": 2}, {3: 18.0}, "parrot"),
+    "async": ({"staleness_lambda": 0.5, "chunk_size": 2}, {0: 15.0}, "none"),
+}
+
+
+@pytest.mark.parametrize("engine", sorted(DES_RUNS))
+def test_cuda_des_engine_matches_cpu_and_folds_by_leaves(cuda, engine):
+    """Three windows of each DES engine on the card against the same on
+    the CPU: makespans and ``extra`` identical, params allclose, and every
+    fold a launch of the leaves form."""
+    opts, ratios, policy = DES_RUNS[engine]
+
+    def run(device):
+        return _quickstart(None, 3, device, speed=T.hetero_gpus(ratios),
+                           round_engine=engine, engine_opts=opts,
+                           scheduler_policy=policy)
+
+    ops.reset_agg_counts()
+    on_card = run(cuda)
+    torch.cuda.synchronize()
+    launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+    on_cpu = run("cpu")
+    assert launches > 0 and leaves == launches and ops.agg_leaf_copies == 0
+    assert [(m.makespan, m.n_clients, m.failures, m.extra)
+            for m in on_card.history] == \
+        [(m.makespan, m.n_clients, m.failures, m.extra)
+         for m in on_cpu.history]
+    for k in on_cpu.params:
         torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
                                    atol=1e-5, rtol=1e-5)
 

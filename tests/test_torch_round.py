@@ -249,12 +249,100 @@ def test_mode_and_gang_dispatch_stored_like_jax(kw):
 
 
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
-def test_des_engines_raise(engine):
-    algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+@pytest.mark.parametrize("knob", ["backup_fraction", "overlap_scheduling"])
+def test_bsp_only_knobs_rejected_by_des_engines(engine, knob):
+    """Both packages refuse a BSP-only knob under a DES engine."""
+    kw = {"round_engine": engine,
+          knob: {"backup_fraction": 0.2, "overlap_scheduling": True}[knob]}
+    with pytest.raises(ValueError, match=knob):
+        _servers("fedavg", n_clients=8, per_round=2, K=2, server_kw=kw,
+                 jax_too=False)
+    with pytest.raises(ValueError, match=knob):
+        J.ParrotServer(params={"w": jnp.zeros(2)},
+                       algorithm=J.make_algorithm("fedavg", JGRAD, 0.1),
                        executors=[], data_by_client={}, clients_per_round=1,
-                       device="cpu", round_engine=engine)
+                       **kw)
+
+
+@pytest.mark.parametrize("engine", ["semi-sync", "async"])
+def test_des_engines_refuse_the_left_out_knobs(engine):
+    """Under a DES engine the knobs of later slices still raise, naming
+    their item; the engines' checkpoint state raises naming item 11."""
+    algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
+    items = {"network": "item 13", "faults": "item 13",
+             "control": "item 16", "telemetry": "item 16",
+             "checkpoint_manager": "item 11"}
+    for knob, item in items.items():
+        with pytest.raises(NotImplementedError, match=item):
+            T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                           executors=[], data_by_client={},
+                           clients_per_round=1, device="cpu",
+                           round_engine=engine, **{knob: object()})
+    eng = T.make_engine(engine)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.state_dict()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        eng.load_state_dict({"mode": engine})
+
+
+def _chunk_setup(pkg, make, grad, params, n):
+    data = make(12, dim=8, n_classes=4, mean_samples=30, batch_size=10,
+                seed=1)
+    algo = pkg.make_algorithm("fedavg", grad, 0.1)
+    tasks = [pkg.ClientTask(c, data[c].n_samples) for c in sorted(data)[:n]]
+    payload = algo.broadcast_payload(params, algo.server_init(params))
+    return data, algo, tasks, payload
+
+
+def test_chunked_run_queue_emits_and_merges():
+    data, algo, tasks, payload = _chunk_setup(
+        T, tclients, TGRAD, {"w": torch.zeros(8, 4), "b": torch.zeros(4)},
+        10)
+    whole = T.SequentialExecutor(0, algo, device="cpu").run_queue(
+        0, tasks, payload, data)
+    seen = []
+    chunked = T.SequentialExecutor(1, algo, device="cpu").run_queue(
+        0, tasks, payload, data, chunk_size=3, on_partial=seen.append)
+    assert [r.n_tasks for r in seen] == [3, 3, 3, 1]
+    # same clients complete (order differs: signature-blocking is per-chunk)
+    assert sorted(chunked.completed_clients) == \
+        sorted(whole.completed_clients)
+    assert chunked.virtual_time == sum(r.virtual_time for r in seen)
+    ops_ = algo.ops()
+    a = T.global_aggregate([whole.partial], ops_)
+    # the merged chunk partials, and the chunk partials folded one by one,
+    # aggregate to the one-span result
+    for parts in ([chunked.partial], [r.partial for r in seen]):
+        b = T.global_aggregate(parts, ops_)
+        for k in a["delta"]:
+            torch.testing.assert_close(b["delta"][k], a["delta"][k],
+                                       atol=1e-6, rtol=1e-6)
+    # and to the JAX package's chunked run
+    jdata, jalgo, jtasks, jpayload = _chunk_setup(
+        J, jclients, JGRAD, {"w": jnp.zeros((8, 4)), "b": jnp.zeros((4,))},
+        10)
+    jrep = J.SequentialExecutor(1, jalgo).run_queue(
+        0, jtasks, jpayload, jdata, chunk_size=3)
+    c = J.global_aggregate([jrep.partial], jalgo.ops())
+    _assert_params_close(a["delta"], c["delta"])
+    assert chunked.completed_clients == jrep.completed_clients
+
+
+def test_chunked_fail_at_uses_global_task_index():
+    data, algo, tasks, payload = _chunk_setup(
+        T, tclients, TGRAD, {"w": torch.zeros(8, 4), "b": torch.zeros(4)}, 8)
+    ex = T.SequentialExecutor(0, algo, fail_at=(0, 5), device="cpu")
+    seen = []
+    with pytest.raises(T.ExecutorFailure) as ei:
+        ex.run_queue(0, tasks, payload, data, chunk_size=2,
+                     on_partial=seen.append)
+    assert ei.value.task_index == 5
+    assert ei.value.chunk == (4, 6)
+    assert len(seen) == 2          # chunks [0,1] and [2,3] completed first
+    # an engine's call with the offset of its dispatch stream
+    with pytest.raises(T.ExecutorFailure) as ei:
+        ex.run_queue(0, tasks[:2], payload, data, task_offset=4)
+    assert ei.value.task_index == 5
 
 
 def test_state_manager_keeps_bf16_through_disk(tmp_path):

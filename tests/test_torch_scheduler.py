@@ -120,3 +120,100 @@ def test_synthetic_clients_are_byte_identical(partition):
     np.testing.assert_array_equal(
         tpart.partition_sizes(partition, 30, 0.5, 50, 1),
         jpart.partition_sizes(partition, 30, 0.5, 50, 1))
+
+
+# ---------------------------------------------------------------------------
+# the DES engines' helpers: same floats, victims, ids and queues as JAX
+# ---------------------------------------------------------------------------
+
+def _fitted(wl, seed, executors=(0, 1, 2, 3)):
+    est = wl.WorkloadEstimator()
+    est.record_many([r for r in _records(wl, np.random.default_rng(seed))
+                     if r.executor in executors])
+    return est.fit(5)
+
+
+def _queues(sch, seed, K=5, empty=(2,)):
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k in range(K):
+        n = 0 if k in empty else int(rng.integers(1, 12))
+        out[k] = [sch.ClientTask(int(c), int(s)) for c, s in
+                  zip(rng.integers(0, 500, n), rng.integers(5, 300, n))]
+    return out
+
+
+def _ids(queues):
+    return {k: [(t.client, t.n_samples) for t in q] for k, q in queues.items()}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_prefetch_ids_identical(seed):
+    jq, tq = _queues(jsch, seed), _queues(tsch, seed)
+    for k in jq:
+        for chunk in (0, 1, 3, 20):
+            assert tsch.prefetch_ids(tq[k], chunk) == \
+                jsch.prefetch_ids(jq[k], chunk)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_predict_remaining_identical(seed):
+    jm, tm = _fitted(jwl, seed), _fitted(twl, seed)
+    jq, tq = _queues(jsch, seed), _queues(tsch, seed)
+    comm = lambda ids: 1e-4 * len(ids) + 1e-6 * sum(ids)   # noqa: E731
+    for k in jq:
+        for chunk in (1, 2, 5):
+            for c in (None, comm):
+                got = tsch.predict_remaining(tm.get(k), tq[k], chunk, c)
+                want = jsch.predict_remaining(jm.get(k), jq[k], chunk, c)
+                assert got == want, (k, chunk)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pick_steal_victim_identical(seed):
+    jm, tm = _fitted(jwl, seed, executors=(0, 1, 3)), \
+        _fitted(twl, seed, executors=(0, 1, 3))
+    jq, tq = _queues(jsch, seed), _queues(tsch, seed)
+    rng = np.random.default_rng(seed + 10)
+    avail = {k: float(rng.uniform(0, 5)) for k in jq}
+    picks = []
+    for thief in range(6):
+        for chunk in (1, 2, 4):
+            want = jsch.pick_steal_victim(jq, avail, jm, thief, chunk)
+            assert tsch.pick_steal_victim(tq, avail, tm, thief, chunk) == want
+            picks.append(want)
+    assert len(set(picks)) > 1
+    # equal predicted completions break to the lower id; nothing to steal
+    # gives None
+    tie = {k: [tsch.ClientTask(k, 10)] for k in (4, 1, 3)}
+    jtie = {k: [jsch.ClientTask(k, 10)] for k in (4, 1, 3)}
+    assert tsch.pick_steal_victim(tie, {}, {}, 0, 1) == \
+        jsch.pick_steal_victim(jtie, {}, {}, 0, 1) == 1
+    assert tsch.pick_steal_victim({0: [], 1: []}, {}, {}, 0, 1) is None
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_makespan_identical(seed):
+    jm, tm = _fitted(jwl, seed, executors=(0, 1)), \
+        _fitted(twl, seed, executors=(0, 1))
+    jq, tq = _queues(jsch, seed), _queues(tsch, seed)
+    assert tsch.makespan(tq, tm) == jsch.makespan(jq, jm)   # 2-4 default
+    assert tsch.makespan({}, tm) == jsch.makespan({}, jm) == 0.0
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_rebalance_queues_identical(seed):
+    jm, tm = _fitted(jwl, seed, executors=(0, 1, 3)), \
+        _fitted(twl, seed, executors=(0, 1, 3))
+    jq, tq = _queues(jsch, seed), _queues(tsch, seed)
+    rng = np.random.default_rng(seed + 20)
+    horizons = {k: float(rng.uniform(0, 20)) for k in jq}
+    cost = lambda task: 1e-3 * task.n_samples   # noqa: E731
+    for c in (None, cost):
+        ja, jmoved = jsch.rebalance_queues(jq, horizons, jm, c)
+        ta, tmoved = tsch.rebalance_queues(tq, horizons, tm, c)
+        assert _ids(ta) == _ids(ja)
+        assert tmoved == jmoved
+    assert jmoved > 0
+    assert tsch.rebalance_queues({0: [], 1: []}, {}, tm) == \
+        ({0: [], 1: []}, 0)
