@@ -25,10 +25,12 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    one) and no memset.
 3. The quickstart configuration (100 clients, 4 executors, 20 per round)
    under a ``TickTimer``, on the card and on the CPU: 10 FedAvg rounds,
-   then 3 SCAFFOLD rounds with a spilling ``ClientStateManager`` and an
-   executor failure; then 10 FedAvg rounds with a top-k codec (fraction
-   0.1).  Makespan histories and comm bytes must be identical, params
-   allclose.
+   then 4 SCAFFOLD rounds with a spilling ``ClientStateManager``, an
+   executor failure and a checkpoint every 2 rounds, restored by
+   ``restore_latest`` into a fresh 7-executor server (6 run: the failed
+   one retires) for 2 more rounds; then 10 FedAvg rounds with a top-k
+   codec (fraction 0.1).  Makespan histories and comm bytes must be
+   identical, params allclose.
 4. The full-width client model of ``benchmarks/bench_client_training.py``
    (a 142-leaf MLP, 1,207,440 params) under FedProx: 3 BSP rounds on the
    card, timed, every block folded by the leaves form, and the same
@@ -94,8 +96,26 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    for each span shipped, the kernel equal to its plain version on a real
    chunk partial); 2 windows of each on card and CPU under a
    ``TickTimer``: windows identical, params after the first within 1e-4.
+9. Checkpoints and the streamed population: (a) phase 4's model, data and
+   executors under SCAFFOLD with a state manager holding 4 client states
+   (the rest spill), a ``TickTimer`` and a checkpoint every round, under
+   BSP, semi-sync and async (phase 8b's options; async with top-k 0.01):
+   an uninterrupted 4-round reference, the same server killed mid-round
+   by a ``run_queue`` that raises ``KeyboardInterrupt``, and a fresh
+   server's ``run(4, auto_resume=True)``: ``params_digest``, makespans and
+   cohorts equal to the reference's, every fold after the resume a
+   leaves-form launch; for async one top-k launch for each span shipped,
+   the kernel equal to plain on the first resumed partial (with its
+   restored residual), and another wire when the restored codec state is
+   dropped; save and restore walls, blob bytes, shard bytes written and
+   linked.  (b) ``make_classification_population(1_000_000)`` with the
+   quickstart's model, SCAFFOLD, 64 a round, 3 rounds on the card: the
+   registry's bytes, the fetch cache against its bound, ``select_clients``
+   at M = 1,000 and 1,000,000, the process's RSS; then M = 2,000 lazy
+   against its ``materialize()`` eager twin, bit for bit.
 
-Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a) and 8(b) are the main path: kernel
+Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run) and
+9(b) are the main path: kernel
 launch counters are set to 0 just before each and read just after, and
 every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -103,6 +123,7 @@ record; the last line is ``{"ok": true, "device": {...}}``.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -616,8 +637,11 @@ def softmax_loss(params, batch):
 
 def quickstart(T, make_clients, device, work):
     """examples/quickstart.py (FedAvg, 10 rounds) then the
-    examples/stateful_scaffold.py wiring (SCAFFOLD, 3 rounds, state spilled
-    to disk, executor 5 failing in round 2), both under TickTimer(1.0)."""
+    examples/stateful_scaffold.py wiring (SCAFFOLD, 4 rounds, state spilled
+    to disk, executor 5 failing in round 2, a checkpoint every 2 rounds;
+    then ``restore_latest`` into a fresh 7-executor server with a fresh
+    state manager and 2 more rounds), all under TickTimer(1.0)."""
+    from repro_torch.checkpoint import CheckpointManager, restore_latest
     grad_fn = T.value_and_grad(softmax_loss)
     data = make_clients(100, dim=32, n_classes=10, partition="natural",
                         seed=0)
@@ -641,13 +665,39 @@ def quickstart(T, make_clients, device, work):
     execs2 = [T.SequentialExecutor(k, algo2, state_manager=sm2, timer=timer2,
                                    device=device) for k in range(8)]
     execs2[5].fail_at = (2, 2)
+    ckpt = os.path.join(work, f"ckpt_{device}")
     srv2 = T.ParrotServer(params={"w": torch.zeros(16, 8),
                                   "b": torch.zeros(8)},
                           algorithm=algo2, executors=execs2,
                           data_by_client=data2, clients_per_round=50, seed=0,
+                          device=device,
+                          checkpoint_manager=CheckpointManager(
+                              ckpt, every_rounds=2))
+    scaffold = [srv2.run_round() for _ in range(4)]
+
+    # the crash and restart: the step of round 4 holds executors {0-4, 6,
+    # 7}; the new server has 0-6, so 5 retires and 7 cannot rejoin
+    algo3 = T.make_algorithm("scaffold", grad_fn, lr=0.1)
+    sm3 = T.ClientStateManager(os.path.join(work, f"sc2_{device}"),
+                               memory_budget_bytes=8 * 2048)
+    timer3 = T.TickTimer(1.0)
+    execs3 = [T.SequentialExecutor(k, algo3, state_manager=sm3, timer=timer3,
+                                   device=device) for k in range(7)]
+    srv3 = T.ParrotServer(params={"w": torch.zeros(16, 8),
+                                  "b": torch.zeros(8)},
+                          algorithm=algo3, executors=execs3,
+                          data_by_client=data2, clients_per_round=50, seed=0,
                           device=device)
-    scaffold = [srv2.run_round() for _ in range(3)]
-    return fedavg, scaffold, srv.params, srv2.params, sm2
+    restored = restore_latest(srv3, ckpt)
+    if restored != 4 or sorted(srv3.executors) != [0, 1, 2, 3, 4, 6]:
+        raise AssertionError(f"restore on {device}: round {restored}, "
+                             f"executors {sorted(srv3.executors)}")
+    if any(not torch.equal(srv3.params[k], srv2.params[k])
+           for k in srv2.params):
+        raise AssertionError(f"restore on {device}: params differ from the "
+                             f"checkpointed run's")
+    resumed = [srv3.run_round() for _ in range(2)]
+    return fedavg, scaffold + resumed, srv.params, srv3.params, sm2
 
 
 def phase_quickstart(T, make_clients, ops, work):
@@ -668,6 +718,8 @@ def phase_quickstart(T, make_clients, ops, work):
             raise AssertionError(f"{name}: executor counts differ")
     if sc_g[2].failures != 1 or sc_g[2].n_executors != 7:
         raise AssertionError("the injected executor failure did not re-run")
+    if [m.n_executors for m in sc_g[4:]] != [6, 6]:
+        raise AssertionError("the restored server should run 6 executors")
     if sm_g.stats["spills"] == 0:
         raise AssertionError("SCAFFOLD state never spilled")
     # tolerance: same clients, schedules and fold order; only the order of
@@ -679,9 +731,10 @@ def phase_quickstart(T, make_clients, ops, work):
     if launches <= 0:
         raise AssertionError("quickstart on the card launched no fold kernel")
     log(f"phase 3: quickstart makespans {[m.makespan for m in fa_g]} and "
-        f"SCAFFOLD makespans {[m.makespan for m in sc_g]} identical on card "
-        f"and CPU; params allclose (1e-5); fold launches {launches}; "
-        f"wall {t_gpu:.2f} s card, {t_cpu:.2f} s CPU")
+        f"SCAFFOLD makespans {[m.makespan for m in sc_g]} (4 rounds, then 2 "
+        f"restored from the round-4 checkpoint onto 6 executors) identical "
+        f"on card and CPU; params allclose (1e-5); fold launches "
+        f"{launches}; wall {t_gpu:.2f} s card, {t_cpu:.2f} s CPU")
     return launches
 
 
@@ -966,10 +1019,13 @@ def capture_wires(srv, dense_round=None, all_dense=False, first=False):
             (key == "exec0" and rnd == dense_round)
         dense = partial["sums"]["buffers"]["weighted"]
         if keep:
+            # a restored residual is host numpy until its first use
             res = comp._residual.get(f"{key}/weighted")
             seen["res_carried"] = res is not None
             seen["res_before"] = (torch.zeros_like(dense) if res is None
-                                  else res.clone())
+                                  else torch.as_tensor(
+                                      res, dtype=torch.float32,
+                                      device=dense.device).clone())
         if keep or all_dense:
             seen["dense"][(rnd, key)] = dense.clone()
         out = inner(partial, key=key)
@@ -2089,22 +2145,7 @@ def phase_des_full_width(T, ops, plain):
     if topk_launches <= 0 or topk_launches != seen["spans"]:
         raise AssertionError(f"async top-k window: {topk_launches} top-k "
                              f"launches for {seen['spans']} spans shipped")
-    x, r0 = seen["dense"][seen["key"]], seen["res_before"]
-    if x.numel() != n:
-        raise AssertionError(f"unexpected chunk partial size {x.numel()}")
-    want = plain(x, r0, k)
-    got = ops.fused_topk(x, r0.clone(), k)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("idx", "vals", "new_res"), want, got):
-        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
-            raise AssertionError(f"chunk partial: kernel {name} != plain")
-    if not (torch.equal(seen["wire"][0], want[0])
-            and torch.equal(seen["wire"][1].view(torch.int32),
-                            want[1].view(torch.int32))
-            and torch.equal(seen["res_after"].view(torch.int32),
-                            want[2].view(torch.int32))):
-        raise AssertionError("the shipped chunk wire / residual differ from "
-                             "plain")
+    check_topk_partial(ops, plain, seen, "async top-k window chunk partial")
     ops.reset_topk_counts()        # comparison launches do not count
     out["async_topk"] = {"topk_launches": topk_launches,
                          "spans_shipped": seen["spans"],
@@ -2168,6 +2209,425 @@ def phase_des(T, make_clients, ops, plain):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: checkpoints and auto-resume; the streamed population
+# ---------------------------------------------------------------------------
+
+CKPT_ROUNDS = 4
+MLP_STATE_BYTES = 4 * MAIN_SHAPE[0]     # one SCAFFOLD control variate
+# engine -> (engine_opts, top-k fraction): phase 8b's options, and top-k
+# 0.01 on the async run
+CKPT_ENGINES = {"bsp": (None, None),
+                "semi-sync": (DES_FULL["semi-sync"], None),
+                "async": (DES_FULL["async"], 0.01)}
+
+
+def ckpt_server(T, device, engine, work, ckpt):
+    """Phase 4's model, data and executors under SCAFFOLD: a state manager
+    that holds 4 client states (the rest spill, one client a shard file),
+    virtual time from a TickTimer, a checkpoint every round."""
+    from repro_torch.checkpoint import CheckpointManager
+    opts, frac = CKPT_ENGINES[engine]
+    algo = T.make_algorithm("scaffold", T.value_and_grad(mlp_loss), 0.05,
+                            local_epochs=1)
+    sm = T.ClientStateManager(tempfile.mkdtemp(dir=work, prefix="spill_"),
+                              memory_budget_bytes=4 * MLP_STATE_BYTES,
+                              shard_clients=1)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, client_block=8, device=device,
+                                  timer=timer, state_manager=sm,
+                                  speed_model=T.dynamic_env(4, DES_WINDOWS))
+             for k in range(4)]
+    return T.ParrotServer(
+        params=mlp_params(), algorithm=algo, executors=execs,
+        data_by_client=mlp_clients(T), clients_per_round=16, seed=0,
+        device=device, round_engine=engine, engine_opts=opts,
+        warmup_rounds=2 if opts else 1,
+        compressor=None if frac is None else T.TopKCompressor(frac),
+        checkpoint_manager=CheckpointManager(ckpt, every_rounds=1, keep=2))
+
+
+def record_cohorts(srv):
+    seen, inner = [], srv.scheduler.schedule
+
+    def schedule(rnd, tasks, executors, **kw):
+        seen.append((rnd, [t.client for t in tasks]))
+        return inner(rnd, tasks, executors, **kw)
+
+    srv.scheduler.schedule = schedule
+    return seen
+
+
+def timed_saves(srv, sync):
+    """Time each save (wall, ms), its blob's bytes, and the shard bytes it
+    wrote since the save before (files of a new inode) against the bytes
+    it hard-linked."""
+    cm, rows, inodes = srv.checkpoint_manager, [], set()
+    inner = cm.save
+
+    def save(server):
+        sync()
+        t0 = time.perf_counter()
+        path = inner(server)
+        ms = (time.perf_counter() - t0) * 1e3
+        written = linked = 0
+        state = os.path.join(path, "state")
+        for f in sorted(os.listdir(state)) if os.path.isdir(state) else []:
+            st = os.stat(os.path.join(state, f))
+            if not f.startswith("shard_"):
+                continue
+            if st.st_ino not in inodes:
+                written += st.st_size
+                inodes.add(st.st_ino)
+            if st.st_nlink > 1:
+                linked += st.st_size
+        rows.append({"round": server.round, "ms": ms,
+                     "blob_bytes": os.path.getsize(
+                         os.path.join(path, "server.pkl")),
+                     "shard_bytes_written": written,
+                     "shard_bytes_linked": linked})
+        return path
+
+    cm.save = save
+    return rows
+
+
+def ckpt_engine_run(T, device, engine, work, on_resumed=None):
+    """One engine: an uninterrupted CKPT_ROUNDS-round reference; the same
+    server killed mid-round by a ``run_queue`` that raises
+    KeyboardInterrupt at the middle one of executor 0's calls made in
+    rounds 1 to CKPT_ROUNDS - 1 (the reference's count); a fresh server's
+    ``run(CKPT_ROUNDS, auto_resume=True)``.  ``on_resumed(srv)`` runs on the
+    resumed server before it restores (counters, wraps)."""
+    from repro_torch.checkpoint import manager as ckm
+    from repro_torch.checkpoint import params_digest
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    out = {}
+    ref = ckpt_server(T, device, engine, work, os.path.join(work, "ref"))
+    ref_cohorts, saves = record_cohorts(ref), timed_saves(ref, sync)
+    ex0, rounds = ref.executors[0], []
+    real = ex0.run_queue
+
+    def counting(*a, **kw):
+        rounds.append(ref.round)
+        return real(*a, **kw)
+
+    ex0.run_queue = counting
+    t0 = time.perf_counter()
+    ref.run(CKPT_ROUNDS)
+    sync()
+    out["ref_wall_s"] = time.perf_counter() - t0
+    out["digest"] = params_digest(ref.params)
+    out["makespans"] = [m.makespan for m in ref.history]
+    out["saves"] = saves
+    mid = [i + 1 for i, r in enumerate(rounds) if 1 <= r < CKPT_ROUNDS]
+    kill_at = mid[len(mid) // 2]
+
+    ck = os.path.join(work, "ck")
+    victim = ckpt_server(T, device, engine, work, ck)
+    ex0, calls = victim.executors[0], [0]
+    real = ex0.run_queue
+
+    def dying(*a, **kw):
+        calls[0] += 1
+        if calls[0] >= kill_at:
+            raise KeyboardInterrupt
+        return real(*a, **kw)
+
+    ex0.run_queue = dying
+    try:
+        victim.run(CKPT_ROUNDS)
+    except KeyboardInterrupt:
+        pass
+    else:
+        raise AssertionError(f"{engine}: the kill at call {kill_at} of "
+                             f"executor 0 never fired")
+    out["killed_in_round"] = victim.round
+    if not 1 <= victim.round < CKPT_ROUNDS:
+        raise AssertionError(f"{engine}: killed in round {victim.round}")
+    del victim
+
+    resumed = ckpt_server(T, device, engine, work, ck)
+    cohorts = record_cohorts(resumed)
+    box = {}
+    inner = ckm.CheckpointManager.restore
+
+    def restore(self, server, step_dir):
+        sync()
+        t0 = time.perf_counter()
+        rnd = inner(self, server, step_dir)
+        sync()
+        box["ms"] = (time.perf_counter() - t0) * 1e3
+        return rnd
+
+    if on_resumed is not None:
+        on_resumed(resumed)
+    ckm.CheckpointManager.restore = restore
+    try:
+        t0 = time.perf_counter()
+        hist = resumed.run(CKPT_ROUNDS, auto_resume=True)
+        sync()
+    finally:
+        ckm.CheckpointManager.restore = inner
+    out["resumed_wall_s"] = time.perf_counter() - t0
+    out["restore_ms"] = box["ms"]
+    out["resumed_digest"] = params_digest(resumed.params)
+    out["resumed_makespans"] = [m.makespan for m in hist]
+    out["cohorts_equal"] = bool(cohorts) and \
+        ref_cohorts[-len(cohorts):] == cohorts
+    out["n_clients_equal"] = [m.n_clients for m in hist] == \
+        [m.n_clients for m in ref.history]
+    return out
+
+
+def check_topk_partial(ops, plain, seen, label):
+    """The fused top-k equals its plain version bit for bit on the first
+    partial ``capture_wires(first=True)`` kept, with the residual its
+    sender carried, and both equal the wire shipped and the residual
+    kept."""
+    n, k = TOPK_MAIN
+    x, r0 = seen["dense"][seen["key"]], seen["res_before"]
+    if x.numel() != n:
+        raise AssertionError(f"{label}: unexpected partial size {x.numel()}")
+    want = plain(x, r0, k)
+    got = ops.fused_topk(x, r0.clone(), k)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("idx", "vals", "new_res"), want, got):
+        if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            raise AssertionError(f"{label}: kernel {name} != plain")
+    if not (torch.equal(seen["wire"][0], want[0])
+            and torch.equal(seen["wire"][1].view(torch.int32),
+                            want[1].view(torch.int32))
+            and torch.equal(seen["res_after"].view(torch.int32),
+                            want[2].view(torch.int32))):
+        raise AssertionError(f"{label}: the shipped wire / residual differ "
+                             f"from plain")
+
+
+def phase_checkpoint(T, ops, plain):
+    """9a: kill and auto-resume at full width for each engine, bit for bit
+    against the uninterrupted run, every fold after the resume a
+    leaves-form launch; for async, one top-k launch for each span shipped
+    after the resume, the kernel equal to plain on a resumed partial, and
+    a different wire when the codec's restored state is dropped."""
+    from repro_torch.checkpoint import CheckpointManager
+    out = {}
+    for engine in CKPT_ENGINES:
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_ckpt_{engine}_")
+        try:
+            box = {}
+
+            def on_resumed(srv, box=box):
+                if srv.compressor is not None:
+                    box["seen"] = capture_wires(srv, first=True)
+                ops.reset_agg_counts()
+                ops.reset_topk_counts()
+
+            r = ckpt_engine_run(T, "cuda", engine, work, on_resumed)
+            launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+            copies, topk = ops.agg_leaf_copies, ops.topk_launches
+            if r["resumed_digest"] != r["digest"]:
+                raise AssertionError(f"{engine}: resumed params_digest "
+                                     f"{r['resumed_digest'][:16]} != "
+                                     f"{r['digest'][:16]}")
+            if r["resumed_makespans"] != r["makespans"] \
+                    or not r["cohorts_equal"] or not r["n_clients_equal"]:
+                raise AssertionError(
+                    f"{engine}: resumed makespans / cohorts differ: "
+                    f"{r['resumed_makespans']} vs {r['makespans']}, "
+                    f"cohorts equal {r['cohorts_equal']}")
+            if launches <= 0 or leaves != launches or copies:
+                raise AssertionError(
+                    f"{engine} after the resume: {launches} fold launches, "
+                    f"{leaves} of the leaves form, {copies} leaves copied")
+            r.update(fold_launches=launches, topk_launches=topk)
+            if "seen" in box:
+                seen = box["seen"]
+                if topk <= 0 or topk != seen["spans"]:
+                    raise AssertionError(f"{engine}: {topk} top-k launches "
+                                         f"for {seen['spans']} spans shipped")
+                if not seen["res_carried"]:
+                    raise AssertionError(f"{engine}: the first partial after "
+                                         f"the resume carried no residual")
+                check_topk_partial(ops, plain, seen,
+                                   f"{engine} resumed partial")
+                ops.reset_topk_counts()     # comparison launches
+                # the same restore with the codec's state dropped ships
+                # another first wire
+                skip = ckpt_server(T, "cuda", engine, work,
+                                   os.path.join(work, "skip"))
+                ck = os.path.join(work, "ck")
+                CheckpointManager(ck).restore(skip, os.path.join(
+                    ck, f"step_{r['killed_in_round']:08d}"))
+                skip.compressor.load_state_dict(None)
+                seen_skip = capture_wires(skip, first=True)
+                skip.run_round()
+                torch.cuda.synchronize()
+                if seen_skip["key"] != seen["key"] or torch.equal(
+                        seen_skip["wire"][0], seen["wire"][0]):
+                    raise AssertionError(
+                        f"{engine}: dropping the restored residuals left the "
+                        f"first wire unchanged ({seen_skip['key']} vs "
+                        f"{seen['key']})")
+                ops.reset_topk_counts()
+                r.update(spans_shipped=seen["spans"],
+                         checked_partial=list(seen["key"]),
+                         wire_differs_without_residuals=True)
+                del skip
+            out[engine] = r
+            saves = r["saves"]
+            log(f"phase 9a {engine}: killed in round {r['killed_in_round']},"
+                f" auto-resumed: params_digest {r['digest'][:16]} equal, "
+                f"makespans {r['makespans']} and cohorts equal; after the "
+                f"resume {launches} fold launches, all of the leaves form"
+                + (f"; {topk} top-k launches for {r['spans_shipped']} spans "
+                   f"shipped, kernel == plain on the resumed partial "
+                   f"{r['checked_partial']}, another wire without the "
+                   f"restored residuals" if "seen" in box else "")
+                + f"; save {[round(v['ms'], 1) for v in saves]} ms, blob "
+                f"{[v['blob_bytes'] for v in saves]} B, shard bytes written "
+                f"{[v['shard_bytes_written'] for v in saves]} of linked "
+                f"{[v['shard_bytes_linked'] for v in saves]}; restore "
+                f"{r['restore_ms']:.1f} ms; walls {r['ref_wall_s']:.2f} s "
+                f"(4 rounds) / {r['resumed_wall_s']:.2f} s (resume)")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def rss_bytes():
+    """(current, peak) resident set of this process: VmRSS from /proc and
+    ``ru_maxrss`` (KiB on Linux)."""
+    import resource
+    cur = 0
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                cur = int(line.split()[1]) * 1024
+    return cur, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def population_server(T, device, data, work):
+    """The quickstart's model under SCAFFOLD, 4 executors, 64 clients a
+    round, a TickTimer."""
+    algo = T.make_algorithm("scaffold", T.value_and_grad(softmax_loss),
+                            lr=0.05, local_epochs=1)
+    sm = T.ClientStateManager(tempfile.mkdtemp(dir=work, prefix="pop_"))
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device,
+                                  state_manager=sm) for k in range(4)]
+    return T.ParrotServer(params={"w": torch.zeros(32, 10),
+                                  "b": torch.zeros(10)},
+                          algorithm=algo, executors=execs,
+                          data_by_client=data, clients_per_round=64, seed=0,
+                          device=device)
+
+
+def select_us(T, data, draws=200):
+    srv = T.ParrotServer(params={"w": torch.zeros(2)},
+                         algorithm=T.make_algorithm(
+                             "fedavg", T.value_and_grad(softmax_loss), 0.1),
+                         executors=[], data_by_client=data,
+                         clients_per_round=64, seed=1, device="cpu")
+    srv.select_clients()
+    t0 = time.perf_counter()
+    for _ in range(draws):
+        srv.select_clients()
+    return (time.perf_counter() - t0) / draws * 1e6
+
+
+def phase_population(T, ops, make_population):
+    """9b: a 1,000,000-client streamed population on the card (SCAFFOLD,
+    64 a round, 3 rounds) with its registry, fetch cache and selection
+    cost; then M = 2,000 lazy against its ``materialize()`` twin, bit for
+    bit."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_pop_")
+    try:
+        rss0 = rss_bytes()
+        t0 = time.perf_counter()
+        pop = make_population(1_000_000, dim=32, n_classes=10, seed=0,
+                              fetch_cache_bytes=1 << 20)
+        t_reg = time.perf_counter() - t0
+        reg_bytes = pop._sizes.nbytes
+        sel = {m: select_us(T, p) for m, p in (
+            (1000, make_population(1000, dim=32, n_classes=10, seed=0)),
+            (1_000_000, pop))}
+        srv = population_server(T, "cuda", pop, work)
+        ops.reset_agg_counts()
+        t0 = time.perf_counter()
+        hist = srv.run(3)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+        rss1 = rss_bytes()
+        if launches <= 0 or leaves != launches:
+            raise AssertionError(f"1M population: {launches} fold launches, "
+                                 f"{leaves} of the leaves form")
+        if pop.cache_bytes > pop.fetch_cache_bytes:
+            raise AssertionError(f"fetch cache {pop.cache_bytes} B over its "
+                                 f"{pop.fetch_cache_bytes} B")
+        if any(m.n_clients != 64 for m in hist) or not all(
+                bool(torch.isfinite(v).all()) for v in srv.params.values()):
+            raise AssertionError("1M population: a round lost clients or "
+                                 "the params are not finite")
+        out = {"clients": len(pop), "registry_bytes": reg_bytes,
+               "registry_s": t_reg, "cache_bytes": pop.cache_bytes,
+               "fetch_cache_bytes": pop.fetch_cache_bytes,
+               "stats": dict(pop.stats), "select_us": sel,
+               "makespans": [m.makespan for m in hist], "wall_s": wall,
+               "fold_launches": launches,
+               "rss_bytes_before": rss0[0], "rss_bytes_after": rss1[0],
+               "peak_rss_bytes": rss1[1]}
+        log(f"phase 9b: 1,000,000 streamed clients, registry {reg_bytes} B "
+            f"({reg_bytes / len(pop):.0f} B a client, built in {t_reg:.3f} "
+            f"s); 3 SCAFFOLD rounds of 64 on the card in {wall:.2f} s, "
+            f"makespans {out['makespans']}, {launches} fold launches all of "
+            f"the leaves form; fetch cache {pop.cache_bytes} B of "
+            f"{pop.fetch_cache_bytes} B, {pop.stats}; select_clients "
+            f"{sel[1000]:.1f} us a draw at M = 1,000, "
+            f"{sel[1_000_000]:.1f} us at M = 1,000,000; RSS "
+            f"{rss0[0]} -> {rss1[0]} B, peak {rss1[1]} B")
+
+        def twin_run(data):
+            s = population_server(T, "cuda", data, work)
+            s.run(3)
+            torch.cuda.synchronize()
+            return s
+
+        def small():
+            return make_population(2000, dim=32, n_classes=10, seed=0,
+                                   fetch_cache_bytes=64 << 10)
+
+        eager = twin_run(small().materialize())
+        lazy_pop = small()
+        lazy = twin_run(lazy_pop)
+        if any(not torch.equal(eager.params[k], lazy.params[k])
+               for k in eager.params) or \
+                [m.makespan for m in eager.history] != \
+                [m.makespan for m in lazy.history]:
+            raise AssertionError("M = 2,000: the lazy run differs from its "
+                                 "eager twin")
+        if lazy_pop.cache_bytes > lazy_pop.fetch_cache_bytes:
+            raise AssertionError("M = 2,000: fetch cache over its bound")
+        out["twin"] = {"clients": 2000, "bit_exact": True,
+                       "stats": dict(lazy_pop.stats)}
+        log(f"phase 9b: M = 2,000 lazy run == its materialize() eager twin "
+            f"bit for bit on the card (params, makespans "
+            f"{[m.makespan for m in lazy.history]}); fetch cache "
+            f"{lazy_pop.stats}")
+        return out
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_ckpt(T, ops, plain, make_population):
+    t0 = time.perf_counter()
+    ckpt = phase_checkpoint(T, ops, plain)
+    pop = phase_population(T, ops, make_population)
+    log(f"phase 9: {time.perf_counter() - t0:.1f} s")
+    return {"checkpoint": ckpt, "population": pop}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2176,7 +2636,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch.core as T
-    from repro_torch.data import make_classification_clients
+    from repro_torch.data import (make_classification_clients,
+                                  make_classification_population)
     from repro_torch.kernels import _build, ops
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import tree
@@ -2230,6 +2691,10 @@ def main() -> int:
     des = phase_des(T, make_classification_clients, ops,
                     topk_with_residual_plain)
     des_fold = {e: des["full_width"][e]["fold_launches"] for e in DES_FULL}
+    ckpt = phase_ckpt(T, ops, topk_with_residual_plain,
+                      make_classification_population)
+    ckpt_fold = {e: ckpt["checkpoint"][e]["fold_launches"]
+                 for e in CKPT_ENGINES}
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -2271,6 +2736,9 @@ def main() -> int:
                                     for e in DES_QUICKSTART},
         "des_full_width_launches": des_fold,
         "des": des,
+        "checkpoint_resume_launches": ckpt_fold,
+        "population_launches": ckpt["population"]["fold_launches"],
+        "checkpoint": ckpt,
     }, {
         "name": "topk_compress",
         "route": "cuda",
@@ -2299,6 +2767,8 @@ def main() -> int:
         "compressed_full_width_profile": c_prof,
         "card_vs_cpu": c_check,
         "des_async_launches": des["full_width"]["async_topk"]["topk_launches"],
+        "checkpoint_resume_launches":
+            ckpt["checkpoint"]["async"]["topk_launches"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

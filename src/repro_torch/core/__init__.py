@@ -12,7 +12,8 @@
   executor.py / round.py     — sequential executors + Parrot server (Alg. 2)
   engine.py / clock.py       — round engines (BSP / semi-sync / async) on
                                the virtual clock
-  population.py              — client population and cohort sampling
+  population.py              — client populations (eager and streamed)
+                               and cohort sampling
   tree.py                    — nested-container helpers in jax.tree order
 """
 from repro_torch.core.aggregation import (ClientResult, LocalAggregator, Op,
@@ -32,7 +33,7 @@ from repro_torch.core.executor import (ExecutorFailure, SequentialExecutor,
                                        dynamic_env, hetero_gpus, homogeneous)
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.population import (ClientPopulation, EagerPopulation,
-                                         as_population)
+                                         LazyPopulation, as_population)
 from repro_torch.core.round import (ParrotServer, RoundMetrics,
                                     run_flat_reference)
 from repro_torch.core.scheduler import (ClientTask, ParrotScheduler, Schedule,
@@ -46,7 +47,8 @@ __all__ = [
     "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
     "CompressedTensor", "EagerPopulation", "ExecutorFailure", "FLAlgorithm",
-    "FlatLayout", "Int8Compressor", "LocalAggregator", "Op",
+    "FlatLayout", "Int8Compressor", "LazyPopulation", "LocalAggregator",
+    "Op",
     "ParrotScheduler", "ParrotServer", "PowerSGDCompressor", "RoundEngine",
     "RoundMetrics", "RunRecord", "Schedule", "SemiSyncEngine",
     "SequentialExecutor",

@@ -36,7 +36,7 @@ from __future__ import annotations
 import heapq
 import time
 from dataclasses import dataclass, field
-from typing import Any, Iterator, List, Tuple
+from typing import Any, Dict, Iterator, List, Tuple
 
 SystemTimer = time.perf_counter
 
@@ -89,6 +89,27 @@ class VirtualClock:
         self._seq += 1
         heapq.heappush(self._heap, (ev.time, ev.seq, ev))
         return ev
+
+    # ------------------------------------------------------------------
+    # checkpointing (async engine in-flight state): the queue is plain data
+    # — (time, seq, kind, data) tuples — plus the seq counter and ``now``.
+    # The seq counter must round-trip exactly: it breaks same-time ties, so
+    # a resumed clock must keep numbering where the saved one stopped.
+    def state_dict(self) -> Dict[str, Any]:
+        return {"now": self.now, "seq": self._seq,
+                "events": [(ev.time, ev.seq, ev.kind, ev.data)
+                           for _, _, ev in sorted(self._heap,
+                                                  key=lambda e: e[:2])]}
+
+    @classmethod
+    def from_state_dict(cls, state: Dict[str, Any]) -> "VirtualClock":
+        clock = cls()
+        clock.now = float(state["now"])
+        clock._seq = int(state["seq"])
+        for t, seq, kind, data in state["events"]:
+            ev = Event(time=float(t), seq=int(seq), kind=kind, data=data)
+            heapq.heappush(clock._heap, (ev.time, ev.seq, ev))
+        return clock
 
     def pop(self) -> Event:
         _, _, ev = heapq.heappop(self._heap)

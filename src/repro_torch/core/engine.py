@@ -35,19 +35,25 @@ order is a pure function of the per-chunk virtual durations, and the fold
 order (float summation is not associative) follows the events' (time, seq)
 order exactly as in the JAX package.
 
-This slice ports the comm-free, fault-free engines.  The branches of the
-JAX engines that read a network model, a fault plan, the control plane,
-telemetry, a device placement or a checkpoint manager are left out, each
-with a comment naming the ROADMAP.md item (modules queue) that ports it;
-``ParrotServer`` refuses those knobs, so none of them can be reached.
+The engines are comm-free and fault-free.  The branches of the JAX
+engines that read a network model, a fault plan, the control plane,
+telemetry or a device placement are left out, each with a comment naming
+the ROADMAP.md item (modules queue) that ports it; ``ParrotServer`` refuses
+those knobs, so none of them can be reached.  A checkpoint manager saves at
+each engine's commit point; the engines' cross-round state round-trips
+through ``state_dict`` / ``load_state_dict``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
+import torch
+
+from repro_torch.core import tree
 from repro_torch.core.aggregation import (merge_partials, scale_partial,
                                           staleness_weight)
 from repro_torch.core.clock import VirtualClock
@@ -55,10 +61,8 @@ from repro_torch.core.executor import ExecutorFailure, ExecutorReport
 from repro_torch.core.scheduler import (ClientTask, Schedule,
                                         pick_steal_victim, predict_remaining,
                                         predict_span, prefetch_ids)
+from repro_torch.core.state_manager import _host_tree
 from repro_torch.core.workload import RunRecord
-
-_ITEM_11 = ("engine checkpoints are not ported yet (ROADMAP.md, modules "
-            "queue item 11)")
 
 
 def _tasks_of(srv, clients) -> List[ClientTask]:
@@ -66,6 +70,22 @@ def _tasks_of(srv, clients) -> List[ClientTask]:
     population registry, so no client batches materialise here)."""
     n_of = srv.population.n_samples
     return [ClientTask(int(c), n_of(int(c))) for c in clients]
+
+
+def _host_report(rep: ExecutorReport) -> ExecutorReport:
+    """Host-side copy of an in-flight chunk report (CPU tensors; the
+    partial's FlatLayout and floats pass through)."""
+    return dataclasses.replace(rep, partial=_host_tree(rep.partial),
+                               records=list(rep.records),
+                               completed_clients=list(rep.completed_clients))
+
+
+def _on(state: Any, device: Optional[torch.device]) -> Any:
+    """Every tensor of ``state`` on ``device`` (None: left where it is)."""
+    if device is None:
+        return state
+    return tree.map(lambda t: t.to(device) if isinstance(t, torch.Tensor)
+                    else t, state)
 
 
 @dataclass
@@ -96,6 +116,23 @@ class RoundEngine:
 
     def run_round(self, srv) -> "RoundMetrics":
         raise NotImplementedError
+
+    # Engines with cross-round state implement ``state_dict`` /
+    # ``load_state_dict`` (plain data, every tensor a CPU tensor) so the
+    # checkpoint manager can save and deterministically resume them
+    # mid-pipeline; ``device`` is where the restored tensors go.
+    def state_dict(self) -> Optional[Dict]:
+        return None                 # stateless between rounds (BSP)
+
+    def load_state_dict(self, state: Optional[Dict],
+                        device: Optional[torch.device] = None) -> None:
+        if state:
+            raise ValueError(f"engine {self.mode!r} cannot restore state")
+
+    def _check_mode(self, state: Dict) -> None:
+        if state.get("mode") != self.mode:
+            raise ValueError(f"checkpointed engine state is "
+                             f"{state.get('mode')!r}, not {self.mode!r}")
 
     # -- shared plumbing ---------------------------------------------------
     def _chunk_size(self, srv, override: Optional[int]) -> int:
@@ -261,6 +298,8 @@ class BSPEngine(RoundEngine):
             estimation_error=err, failures=n_failed, extra=extra)
         srv._commit_metrics(metrics, base)
         srv.round += 1
+        if srv.checkpoint_manager is not None:
+            srv.checkpoint_manager.maybe_save(srv)
         return metrics
 
     # ------------------------------------------------------------------
@@ -365,12 +404,16 @@ class SemiSyncEngine(RoundEngine):
         self.quorum_frac = float(quorum_frac)
         self._carry: List[ClientTask] = []
 
-    # the carry pool is the engine's cross-round state
+    # -- checkpointing: the carry pool is the only cross-round state -------
     def state_dict(self) -> Dict:
-        raise NotImplementedError(_ITEM_11)
+        return {"mode": self.mode, "carry": list(self._carry)}
 
-    def load_state_dict(self, state: Optional[Dict]) -> None:
-        raise NotImplementedError(_ITEM_11)
+    def load_state_dict(self, state: Optional[Dict],
+                        device: Optional[torch.device] = None) -> None:
+        if not state:
+            return
+        self._check_mode(state)
+        self._carry = list(state["carry"])
 
     def run_round(self, srv):
         from repro_torch.core.round import RoundMetrics
@@ -504,7 +547,8 @@ class SemiSyncEngine(RoundEngine):
         srv._commit_metrics(metrics, abs0)
         srv.virtual_now += makespan
         srv.round += 1
-        # the checkpoint manager's save: item 11
+        if srv.checkpoint_manager is not None:
+            srv.checkpoint_manager.maybe_save(srv)
         return metrics
 
     # ------------------------------------------------------------------
@@ -603,13 +647,90 @@ class AsyncEngine(RoundEngine):
         self._stale_folds = 0
         self._stale_sum = 0.0
 
-    # the in-flight pipeline (queues, clock, payload, window) is the
-    # engine's cross-round state
+    # -- checkpointing of the in-flight pipeline ---------------------------
+    # The engine persists across rounds, so a checkpoint taken at an update
+    # boundary still has a live pipeline: undispatched queues, in-flight
+    # chunk completions sitting in the clock (their partials already
+    # computed and folded into nothing yet), the payload version executors
+    # are training against, and the window accumulators.  All of it is
+    # serialised host-side (CPU tensors) as plain data; restore moves the
+    # tensors back onto the server's device and rebuilds the clock heap
+    # with the exact (time, seq) ordering, so the resumed run pops the same
+    # events in the same order and stays bit-deterministic.  (Client states
+    # and the server blob ride the normal checkpoint path; the executor
+    # topology must match on restore.)  The fault counters join with item
+    # 13, the control plane's payload anchor, oracle jobs and rebalance
+    # count with item 16.
+    # Known gap (as in JAX): params/makespans are bit-exact, but the first
+    # resumed round's comm_bytes metric omits the round-end broadcast that
+    # the original process sent just before the checkpoint (comm stats are
+    # not part of the blob) — metrics accounting only.
     def state_dict(self) -> Dict:
-        raise NotImplementedError(_ITEM_11)
+        if self._states is None:
+            return {"mode": self.mode, "initialized": False}
+        clock = self._clock.state_dict()
 
-    def load_state_dict(self, state: Optional[Dict]) -> None:
-        raise NotImplementedError(_ITEM_11)
+        def host_event(kind, data):
+            if kind == "chunk_done":
+                return (data[0], _host_report(data[1]), data[2])
+            # "chunk_arrived" (an in-flight upload) comes with the network
+            # model: item 13
+            return data
+
+        clock["events"] = [(t, seq, kind, host_event(kind, data))
+                           for (t, seq, kind, data) in clock["events"]]
+        return {
+            "mode": self.mode, "initialized": True,
+            "states": {k: dict(queue=list(es.queue), t=es.t,
+                               busy_until=es.busy_until, inflight=es.inflight,
+                               offset=es.offset, stopped=es.stopped,
+                               dead=es.dead)
+                       for k, es in self._states.items()},
+            "clock": clock,
+            "in_system": sorted(self._in_system),
+            "last_update_t": self._last_update_t,
+            "payload": _host_tree(self._payload),
+            "buffer": _host_tree(self._buffer),
+            "n_folded": self._n_folded,
+            "records": list(self._records),
+            "n_failed": self._n_failed,
+            "steals": self._steals,
+            "stale_folds": self._stale_folds,
+            "stale_sum": self._stale_sum,
+            "last_sched": self._last_sched,
+        }
+
+    def load_state_dict(self, state: Optional[Dict],
+                        device: Optional[torch.device] = None) -> None:
+        if not state:
+            return
+        self._check_mode(state)
+        if not state.get("initialized"):
+            return
+
+        def device_event(t, seq, kind, data):
+            if kind == "chunk_done":
+                k, rep, version = data
+                data = (k, dataclasses.replace(
+                    rep, partial=_on(rep.partial, device)), version)
+            return (t, seq, kind, data)
+
+        clock = dict(state["clock"])
+        clock["events"] = [device_event(*ev) for ev in clock["events"]]
+        self._states = {k: _ExecState(**es)
+                        for k, es in state["states"].items()}
+        self._clock = VirtualClock.from_state_dict(clock)
+        self._in_system = set(state["in_system"])
+        self._last_update_t = state["last_update_t"]
+        self._payload = _on(state["payload"], device)
+        self._buffer = _on(state["buffer"], device)
+        self._n_folded = state["n_folded"]
+        self._records = list(state["records"])
+        self._n_failed = state["n_failed"]
+        self._steals = state["steals"]
+        self._stale_folds = state["stale_folds"]
+        self._stale_sum = state["stale_sum"]
+        self._last_sched = state["last_sched"]
 
     # ------------------------------------------------------------------
     def _ensure_init(self, srv) -> None:
@@ -810,5 +931,6 @@ class AsyncEngine(RoundEngine):
         for k in list(self._states):
             if not self._states[k].inflight:
                 self._dispatch_next(srv, k)
-        # the checkpoint manager's save: item 11
+        if srv.checkpoint_manager is not None:
+            srv.checkpoint_manager.maybe_save(srv)
         return metrics

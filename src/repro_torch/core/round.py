@@ -42,7 +42,6 @@ from repro_torch.device import resolve_device
 
 # knob -> the ROADMAP.md item (modules queue) that ports it
 _LATER_KNOBS = {
-    "checkpoint_manager": "item 11 (checkpoints)",
     "network": "item 13 (network and faults)",
     "availability": "item 13 (network and faults)",
     "faults": "item 13 (network and faults)",
@@ -90,6 +89,7 @@ class ParrotServer:
                  gang_dispatch: bool = True,
                  seed: int = 0,
                  device: Optional[Any] = None,
+                 checkpoint_manager: Optional[Any] = None,
                  **later_knobs: Any):
         for knob, val in later_knobs.items():
             if knob not in _LATER_KNOBS:
@@ -102,6 +102,8 @@ class ParrotServer:
         self.params = tree.map(lambda t: t.to(self.device), params)
         self.algorithm = algorithm
         self.executors: Dict[int, SequentialExecutor] = {e.id: e for e in executors}
+        # dead executors parked for a restart or a restore to revive
+        self._retired: Dict[int, SequentialExecutor] = {}
         self.population: ClientPopulation = as_population(data_by_client)
         self.data_by_client = self.population
         self.clients_per_round = clients_per_round
@@ -138,6 +140,7 @@ class ParrotServer:
         self.history: List[RoundMetrics] = []
         self._pending_schedule: Optional[Schedule] = None
         self.engine = make_engine(round_engine, **(engine_opts or {}))
+        self.checkpoint_manager = checkpoint_manager
         if self.engine.mode != "bsp":
             # BSP-specific knobs would silently no-op under the DES engines
             # (which mitigate tails by deadline carry-over and work stealing
@@ -241,8 +244,31 @@ class ParrotServer:
         return self.compressor.decompress_partial(partial)
 
     def _drop_executor(self, k: int) -> None:
-        """Elastic K shrink: drop a dead executor."""
-        self.executors.pop(k, None)
+        """Elastic K shrink: retire a dead executor.  The object parks in
+        ``_retired`` so a restart or a restore can rejoin it later — its
+        measured block costs survive the outage.  (Releasing its device pin
+        comes with the placement, ROADMAP.md item 15.)"""
+        ex = self.executors.pop(k, None)
+        if ex is not None:
+            self._retired[k] = ex
+
+    def _revive_executor(self, k: int) -> bool:
+        """A retired executor rejoins (restore of a pre-crash topology; the
+        fault plan's restart events come with item 13) and subsequent
+        schedules see K grow again.  False if ``k`` is not revivable."""
+        ex = self._retired.pop(k, None)
+        if ex is None or k in self.executors:
+            return False
+        self.executors[k] = ex
+        # canonical live order: plain insertion would park the revived k at
+        # the dict's tail, making round iteration (dispatch and fold order)
+        # depend on the process's crash history — a resumed process rebuilds
+        # the dict in constructor order and would fold in a different order,
+        # breaking bit-exact auto-resume
+        if list(self.executors) != sorted(self.executors):
+            self.executors = {j: self.executors[j]
+                              for j in sorted(self.executors)}
+        return True
 
     def _sched_comm_cost(self):
         """Per-task comm-cost closure for the scheduler's Eq. 4: None, comm
@@ -264,8 +290,25 @@ class ParrotServer:
         window (see ``core/engine.py``)."""
         return self.engine.run_round(self)
 
-    def run(self, n_rounds: int) -> List[RoundMetrics]:
-        return [self.run_round() for _ in range(n_rounds)]
+    def run(self, n_rounds: int,
+            auto_resume: bool = False) -> List[RoundMetrics]:
+        """Run rounds.  With ``auto_resume=True``, first restore the newest
+        valid checkpoint (walking past torn/corrupt ones) and then run until
+        ``n_rounds`` TOTAL rounds have completed — the crash-recovery entry
+        point: after a mid-round kill, a fresh server constructed with the
+        same configuration resumes from the last durable round boundary and
+        replays deterministically (params digest matches the uninterrupted
+        run).  Without it, ``n_rounds`` more rounds from wherever the server
+        stands."""
+        if not auto_resume:
+            return [self.run_round() for _ in range(n_rounds)]
+        if self.checkpoint_manager is None:
+            raise ValueError("auto_resume needs a checkpoint_manager")
+        from repro_torch.checkpoint.manager import restore_latest
+        restore_latest(self, self.checkpoint_manager.directory)
+        while self.round < n_rounds:
+            self.run_round()
+        return list(self.history[:n_rounds])
 
 
 def run_flat_reference(params, algorithm: FLAlgorithm,

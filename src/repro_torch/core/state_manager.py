@@ -1,6 +1,5 @@
 """Client state manager for stateful FL algorithms (paper §3.4).  Port of
-``repro/core/state_manager.py`` (checkpointing, restore and elastic
-re-hashing come with the checkpoint slice, ROADMAP item 11).
+``repro/core/state_manager.py``.
 
 Simulating M stateful clients needs O(s_d · M) state which cannot live in
 accelerator (or even host) memory at scale; Parrot's manager keeps a bounded
@@ -28,7 +27,9 @@ the disk.
 
 Multi-host design: client ids are hash-partitioned across hosts
 (``owner_host``); each host's manager only ever holds its shard, so the
-aggregate footprint scales with hosts.
+aggregate footprint scales with hosts.  The manager is checkpointable
+(incremental and shard-granular: only dirty shards are rewritten, clean
+ones are hard-linked) for fault tolerance.
 
 Host copies are CPU tensors, which keep bf16 (``Tensor.numpy()`` refuses
 it); digests hash each leaf's raw bytes with its dtype and shape.
@@ -37,8 +38,10 @@ from __future__ import annotations
 
 import collections
 import hashlib
+import json
 import os
 import pickle
+import shutil
 import tempfile
 import threading
 from typing import Any, Dict, Iterable, List, Optional
@@ -393,3 +396,131 @@ class ClientStateManager:
             snap["shard_ram_bytes"] = self._shard_bytes
             snap["disk_bytes"] = self.disk_bytes()
             return snap
+
+    # -------------------------------------------------------- checkpointing
+    def checkpoint(self, ckpt_dir: str) -> None:
+        """Flush dirty state shard-granularly and hard-link the shard files
+        into a checkpoint directory (incremental: clean shards are only
+        linked, and states byte-identical to their durable copy are not
+        rewritten)."""
+        os.makedirs(ckpt_dir, exist_ok=True)
+        with self._lock:
+            for client in sorted(self._dirty):
+                host_tree = _host_tree(self._mem[client])
+                dig = _digest(host_tree)
+                pending = self._staged.get(client)
+                if pending is not None:
+                    if pending == dig:
+                        self.stats["skipped_rewrites"] += 1
+                        continue
+                elif self._digests.get(client) == dig:
+                    self.stats["skipped_rewrites"] += 1
+                    continue
+                self._stage(client, host_tree, dig)
+            self._dirty.clear()
+            for sid in sorted(self._shard_dirty):
+                self._flush_shard(sid)
+            manifest = {
+                "host": self.host, "n_hosts": self.n_hosts,
+                "shard_clients": self.shard_clients,
+                "clients": sorted(
+                    c for cl in self._disk_clients.values() for c in cl),
+                "shards": {str(sid): sorted(cl)
+                           for sid, cl in sorted(self._disk_clients.items())
+                           if cl},
+            }
+            for sid, clients in self._disk_clients.items():
+                if not clients:
+                    continue
+                dst = os.path.join(ckpt_dir,
+                                   os.path.basename(self._shard_path(sid)))
+                if os.path.exists(dst):
+                    os.unlink(dst)
+                try:
+                    os.link(self._shard_path(sid), dst)
+                except OSError:
+                    shutil.copy2(self._shard_path(sid), dst)
+            with open(os.path.join(ckpt_dir,
+                                   f"state_manifest_{self.host}.json"),
+                      "w") as f:
+                json.dump(manifest, f)
+            self._evict_shards()
+
+    def restore(self, ckpt_dir: str) -> int:
+        """Re-adopt a checkpointed shard set; returns number of clients
+        restored."""
+        path = os.path.join(ckpt_dir, f"state_manifest_{self.host}.json")
+        if not os.path.exists(path):
+            return 0
+        with open(path) as f:
+            manifest = json.load(f)
+        with self._lock:
+            # adopt-exactly: drop any state not in the manifest (a later
+            # round's leftovers would otherwise leak into the replay)
+            self._mem.clear()
+            self._mem_bytes = 0
+            self._dirty.clear()
+            self._shards.clear()
+            self._shard_bytes = 0
+            self._shard_dirty.clear()
+            self._digests.clear()
+            self._staged.clear()
+            for sid in list(self._disk_clients):
+                try:
+                    os.unlink(self._shard_path(sid))
+                except OSError:
+                    pass
+            self._disk_clients.clear()
+            self.shard_clients = int(manifest.get("shard_clients",
+                                                  self.shard_clients))
+            n = 0
+            for sid_str, clients in manifest.get("shards", {}).items():
+                sid = int(sid_str)
+                src = os.path.join(ckpt_dir,
+                                   os.path.basename(self._shard_path(sid)))
+                if not os.path.exists(src):
+                    continue
+                dst = self._shard_path(sid)
+                # checkpoints hard-link shard files, so a restore into the
+                # original spill dir may find dst already IS src (same
+                # inode) — copying onto itself would raise SameFileError
+                if not (os.path.exists(dst) and os.path.samefile(src, dst)):
+                    shutil.copy2(src, dst)
+                self._disk_clients[sid] = set(int(c) for c in clients)
+                n += len(clients)
+        return n
+
+    def rebalance(self, new_n_hosts: int,
+                  peers: Dict[int, "ClientStateManager"]) -> int:
+        """Elastic membership change: re-hash ownership and hand off states
+        that now belong to other hosts.  Returns number moved."""
+        moved = 0
+        with self._lock:
+            for client in self.known_clients():
+                new_owner = owner_host(client, new_n_hosts)
+                if new_owner == self.host:
+                    continue
+                state = self.load(client)
+                peers[new_owner].save(client, state)
+                self._discard(client)
+                moved += 1
+            for sid in sorted(self._shard_dirty):
+                self._flush_shard(sid)
+        self.n_hosts = new_n_hosts
+        return moved
+
+    def _discard(self, client: int) -> None:
+        """Forget one client everywhere (rebalance hand-off)."""
+        if client in self._mem:
+            self._mem_bytes -= _tree_bytes(self._mem.pop(client))
+        self._dirty.discard(client)
+        sid = self.shard_of(client)
+        sh = self._shards.get(sid)
+        if sh is not None and client in sh:
+            self._shard_bytes -= _tree_bytes(sh.pop(client))
+        on_disk = self._disk_clients.get(sid)
+        if on_disk is not None and client in on_disk:
+            on_disk.discard(client)
+            self._shard_dirty.add(sid)   # file must shed the moved entry
+        self._digests.pop(client, None)
+        self._staged.pop(client, None)

@@ -10,16 +10,22 @@ imports JAX):
 
 Every test here needs a card and skips without one.
 """
+import dataclasses
+import os
+import pickle
+import tempfile
+
 import numpy as np
 import pytest
 import torch
 
-import dataclasses
-
 import repro_torch.core as T
+from repro_torch.checkpoint import (CheckpointManager, params_digest,
+                                   restore_latest)
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import tree
-from repro_torch.data import make_classification_clients
+from repro_torch.data import (make_classification_clients,
+                              make_classification_population)
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
@@ -458,6 +464,182 @@ def test_cuda_des_engine_matches_cpu_and_folds_by_leaves(cuda, engine):
     for k in on_cpu.params:
         torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
                                    atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, auto-resume and the streamed population on the card
+# ---------------------------------------------------------------------------
+
+def _ckpt_server(device, ckpt_dir, engine, compressor=None, data=None):
+    """The quickstart's model under SCAFFOLD, 4 executors, a state manager
+    holding 4 client states (the rest spill), a TickTimer, a checkpoint
+    every round."""
+    algo = T.make_algorithm("scaffold", T.value_and_grad(_loss), lr=0.05)
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sm = T.ClientStateManager(tempfile.mkdtemp(dir=ckpt_dir),
+                              memory_budget_bytes=4 * 330 * 4)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, state_manager=sm, timer=timer,
+                                  device=device) for k in range(4)]
+    opts = {"chunk_size": 2} if engine != "bsp" else None
+    return T.ParrotServer(
+        params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
+        algorithm=algo, executors=execs,
+        data_by_client=data or make_classification_clients(
+            100, dim=32, n_classes=10, partition="natural", seed=0),
+        clients_per_round=20, seed=0, device=device, compressor=compressor,
+        round_engine=engine, engine_opts=opts,
+        checkpoint_manager=CheckpointManager(
+            os.path.join(ckpt_dir, "ck"), every_rounds=1, keep=10))
+
+
+def _count_spans(srv):
+    """Count the compressed spans the server's codec ships."""
+    seen, inner = [0], srv.compressor.compress_partial
+
+    def compress_partial(partial, key=None):
+        out = inner(partial, key=key)
+        seen[0] += sum(kind == "comp"
+                       for buf in out["sums"]["buffers"].values()
+                       if isinstance(buf, dict)
+                       for kind, _ in buf["segments"])
+        return out
+
+    srv.compressor.compress_partial = compress_partial
+    return seen
+
+
+@pytest.mark.parametrize("engine,codec", [("bsp", None),
+                                          ("semi-sync", None),
+                                          ("async", None),
+                                          ("async", "topk")])
+def test_cuda_kill_and_auto_resume_is_bit_exact(cuda, tmp_path, engine,
+                                                codec):
+    """On the card: a run killed mid-round and resumed by a fresh server's
+    ``run(N, auto_resume=True)`` ends on the uninterrupted run's params
+    bit for bit, every fold after the resume a leaves-form launch and,
+    under top-k, one launch for each span shipped; dropping the codec's
+    restored residuals changes the result."""
+    N = 4
+
+    def codec_():
+        return None if codec is None else T.make_compressor(codec, 0.1)
+
+    ref = _ckpt_server(cuda, str(tmp_path / "ref"), engine, codec_())
+    ex0, calls = ref.executors[0], [0]
+    real = ex0.run_queue
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    ex0.run_queue = counting
+    ref.run(N)
+    want = params_digest(ref.params)
+    kill_at = calls[0] * 5 // 8
+
+    work = str(tmp_path / "run")
+    victim = _ckpt_server(cuda, work, engine, codec_())
+    ex0, calls = victim.executors[0], [0]
+    real = ex0.run_queue
+
+    def dying(*a, **kw):
+        calls[0] += 1
+        if calls[0] >= kill_at:
+            raise KeyboardInterrupt
+        return real(*a, **kw)
+
+    ex0.run_queue = dying
+    with pytest.raises(KeyboardInterrupt):
+        victim.run(N)
+    assert 1 <= victim.round < N
+
+    resumed = _ckpt_server(cuda, work, engine, codec_())
+    spans = _count_spans(resumed) if codec else [0]
+    ops.reset_agg_counts()
+    ops.reset_topk_counts()
+    hist = resumed.run(N, auto_resume=True)
+    torch.cuda.synchronize()
+    assert params_digest(resumed.params) == want
+    assert [m.makespan for m in hist] == [m.makespan for m in ref.history]
+    assert ops.agg_launches > 0
+    assert ops.agg_leaves_launches == ops.agg_launches
+    assert ops.topk_launches == spans[0]
+    if codec:
+        assert spans[0] > 0
+        # the same resume with the restored residuals dropped (from the
+        # step the resume started at: the resumed run saved later ones)
+        skip = _ckpt_server(cuda, str(tmp_path / "skip"), engine, codec_())
+        CheckpointManager(os.path.join(work, "ck")).restore(
+            skip, os.path.join(work, "ck", f"step_{victim.round:08d}"))
+        skip.compressor.load_state_dict(None)
+        while skip.round < N:
+            skip.run_round()
+        assert params_digest(skip.params) != want
+
+
+def test_cuda_checkpoint_is_host_data_and_restores_on_the_cpu(cuda,
+                                                              tmp_path):
+    """A checkpoint written on the card holds CPU tensors only and restores
+    into a server on the CPU with the same params bit for bit; a CPU
+    checkpoint restores onto the card."""
+    srv = _ckpt_server(cuda, str(tmp_path), "async",
+                       T.make_compressor("topk", 0.1))
+    srv.run(2)
+    step = os.path.join(str(tmp_path), "ck", "step_00000002")
+    with open(os.path.join(step, "server.pkl"), "rb") as f:
+        blob = pickle.load(f)
+    events = blob["engine"]["clock"]["events"]
+    found = [t for _, _, kind, d in events if kind == "chunk_done"
+             for t in tree.leaves(d[1].partial)
+             if isinstance(t, torch.Tensor)]
+    for part in ("params", "server_state"):
+        found += [t for t in tree.leaves(blob[part])]
+    found += [t for t in tree.leaves(blob["engine"]["payload"])
+              if isinstance(t, torch.Tensor)]
+    assert found and all(t.device.type == "cpu" for t in found)
+    cpu_dir = tmp_path / "cpu"
+    on_cpu = _ckpt_server("cpu", str(cpu_dir), "async",
+                          T.make_compressor("topk", 0.1))
+    assert restore_latest(on_cpu, os.path.join(str(tmp_path), "ck")) == 2
+    for k, v in srv.params.items():
+        assert on_cpu.params[k].device.type == "cpu"
+        assert torch.equal(on_cpu.params[k], v.cpu())
+    on_cpu.run_round()
+    card_dir = tmp_path / "card"
+    back = _ckpt_server(cuda, str(card_dir), "async",
+                        T.make_compressor("topk", 0.1))
+    assert restore_latest(back, str(cpu_dir / "ck")) == 3
+    assert all(v.device.type == "cuda" for v in back.params.values())
+    assert all(t.device.type == "cuda"
+               for _, _, kind, d in back.engine._clock.state_dict()["events"]
+               if kind == "chunk_done"
+               for t in tree.leaves(d[1].partial)
+               if isinstance(t, torch.Tensor))
+    back.run_round()
+
+
+def test_cuda_lazy_population_equals_its_eager_twin(cuda, tmp_path):
+    """M = 2,000 streamed clients on the card: the lazy run equals its
+    ``materialize()`` eager twin bit for bit, with the fetch cache bounded."""
+    def pop():
+        return make_classification_population(
+            2000, dim=32, n_classes=10, seed=0, fetch_cache_bytes=64 << 10)
+
+    runs = []
+    for i, data in enumerate((pop().materialize(), pop())):
+        d = tmp_path / str(i)
+        srv = _ckpt_server(cuda, str(d), "bsp", data=data)
+        srv.checkpoint_manager = None
+        srv.run(3)
+        runs.append((srv, data))
+    (eager, _), (lazy, lp) = runs
+    for k in eager.params:
+        assert torch.equal(eager.params[k], lazy.params[k])
+    assert [m.makespan for m in eager.history] == \
+        [m.makespan for m in lazy.history]
+    assert lp.cache_bytes <= lp.fetch_cache_bytes
+    assert lp.stats["evictions"] > 0
 
 
 def test_executor_defaults_to_the_card(cuda):
