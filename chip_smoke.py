@@ -113,9 +113,30 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    registry's bytes, the fetch cache against its bound, ``select_clients``
    at M = 1,000 and 1,000,000, the process's RSS; then M = 2,000 lazy
    against its ``materialize()`` eager twin, bit for bit.
+10. The network, availability and fault model on phase 4's model under
+   ``dynamic_env(4, 5)`` with phase 8b's options: (a) BSP, semi-sync and
+   async under ``benchmarks/bench_network.py``'s constrained lognormal
+   uplink (median 40 kbps, trace seed 13), each without a codec and with
+   top-k 0.01, 4 rounds: per round the virtual makespan, the comm keys,
+   the wall and the launches; one top-k launch for each span shipped,
+   every fold of the leaves form and one launch a folded group,
+   ``comm_wire_bytes`` equal to the bytes shipped, the kernel equal to
+   plain on a real shipped partial, and top-k's makespan cut; (b) BSP and
+   async under diurnal churn: no offline client selected, drops and
+   fast-forwards printed; (c) ``benchmarks/bench_fault_tolerance.py``'s
+   plan at rate 0.05 (seed 46, each cell's horizon the span of its
+   fault-free run) with a uniform 12 MB/s link and a retry policy, BSP
+   and semi-sync at quorum 1.0 and 0.7 and async, 3 rounds under a
+   ``TickTimer`` on the card, each engine's first cell's first 2 on the
+   CPU: windows and fault counters identical, params within 1e-5;
+   crashes, restarts, retries and corrupt payloads each nonzero over the
+   phase; the host time of the pricing and fault checks a round; (d)
+   phase 9a's kill and auto-resume
+   on async with top-k 0.01 under a fault plan: ``params_digest``,
+   makespans, cohorts and fault counters equal the uninterrupted run's.
 
-Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run) and
-9(b) are the main path: kernel
+Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run),
+9(b) and 10(a)-(d) are the main path: kernel
 launch counters are set to 0 just before each and read just after, and
 every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -2221,10 +2242,11 @@ CKPT_ENGINES = {"bsp": (None, None),
                 "async": (DES_FULL["async"], 0.01)}
 
 
-def ckpt_server(T, device, engine, work, ckpt):
+def ckpt_server(T, device, engine, work, ckpt, knobs=dict):
     """Phase 4's model, data and executors under SCAFFOLD: a state manager
     that holds 4 client states (the rest spill, one client a shard file),
-    virtual time from a TickTimer, a checkpoint every round."""
+    virtual time from a TickTimer, a checkpoint every round; ``knobs()``
+    builds the network / fault kwargs afresh for each server."""
     from repro_torch.checkpoint import CheckpointManager
     opts, frac = CKPT_ENGINES[engine]
     algo = T.make_algorithm("scaffold", T.value_and_grad(mlp_loss), 0.05,
@@ -2243,7 +2265,8 @@ def ckpt_server(T, device, engine, work, ckpt):
         device=device, round_engine=engine, engine_opts=opts,
         warmup_rounds=2 if opts else 1,
         compressor=None if frac is None else T.TopKCompressor(frac),
-        checkpoint_manager=CheckpointManager(ckpt, every_rounds=1, keep=2))
+        checkpoint_manager=CheckpointManager(ckpt, every_rounds=1, keep=2),
+        **knobs())
 
 
 def record_cohorts(srv):
@@ -2291,7 +2314,7 @@ def timed_saves(srv, sync):
     return rows
 
 
-def ckpt_engine_run(T, device, engine, work, on_resumed=None):
+def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict):
     """One engine: an uninterrupted CKPT_ROUNDS-round reference; the same
     server killed mid-round by a ``run_queue`` that raises
     KeyboardInterrupt at the middle one of executor 0's calls made in
@@ -2302,7 +2325,8 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None):
     from repro_torch.checkpoint import params_digest
     sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
     out = {}
-    ref = ckpt_server(T, device, engine, work, os.path.join(work, "ref"))
+    ref = ckpt_server(T, device, engine, work, os.path.join(work, "ref"),
+                      knobs)
     ref_cohorts, saves = record_cohorts(ref), timed_saves(ref, sync)
     ex0, rounds = ref.executors[0], []
     real = ex0.run_queue
@@ -2323,7 +2347,7 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None):
     kill_at = mid[len(mid) // 2]
 
     ck = os.path.join(work, "ck")
-    victim = ckpt_server(T, device, engine, work, ck)
+    victim = ckpt_server(T, device, engine, work, ck, knobs)
     ex0, calls = victim.executors[0], [0]
     real = ex0.run_queue
 
@@ -2346,7 +2370,7 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None):
         raise AssertionError(f"{engine}: killed in round {victim.round}")
     del victim
 
-    resumed = ckpt_server(T, device, engine, work, ck)
+    resumed = ckpt_server(T, device, engine, work, ck, knobs)
     cohorts = record_cohorts(resumed)
     box = {}
     inner = ckm.CheckpointManager.restore
@@ -2376,6 +2400,8 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None):
         ref_cohorts[-len(cohorts):] == cohorts
     out["n_clients_equal"] = [m.n_clients for m in hist] == \
         [m.n_clients for m in ref.history]
+    out["fault_counters"] = [fault_counters(m) for m in ref.history]
+    out["resumed_fault_counters"] = [fault_counters(m) for m in hist]
     return out
 
 
@@ -2628,6 +2654,476 @@ def phase_ckpt(T, ops, plain, make_population):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the network, availability and fault model
+# ---------------------------------------------------------------------------
+
+NET_ROUNDS = 4
+# engine -> engine_opts: phase 8b's options (BSP takes none)
+NET_ENGINES = {"bsp": None, "semi-sync": DES_FULL["semi-sync"],
+               "async": DES_FULL["async"]}
+NET_KEYS = ("comm_time_up", "comm_time_down", "comm_wire_bytes")
+FAULT_KEYS = ("retries", "corrupt_payloads", "dropped_clients",
+              "fault_crashes", "fault_restarts", "chunk_timeouts",
+              "quorum_commits")
+AVAIL_PERIOD = 30.0             # virtual seconds: ~5 full-width rounds
+FAULT_ROUNDS = 3
+FAULT_RATE = 0.05               # benchmarks/bench_fault_tolerance.py's top
+# the plan seed: the first seed (in order from 0) whose per-cell plans,
+# over the horizons the fault-free runs set, hold a crash early enough for
+# its restart to fire inside the run and a corrupt event, and whose run
+# then moved crashes, restarts, retries and corrupt payloads over the
+# phase -- found by rehearsing 10(c) on the CPU under the same TickTimer,
+# whose virtual times are the card's
+FAULT_SEED = 46
+# 10(d)'s plan: ten times the benchmark's rate over the first 8 virtual s
+# of the 4-window SCAFFOLD run, so that a crash, retries and the crash's
+# restart fall inside it with the kill between them (rehearsed on the CPU)
+RESUME_RATE, RESUME_HORIZON = 0.5, 8.0
+FAULT_CELLS = (("bsp", 1.0), ("bsp", 0.7), ("semi-sync", 1.0),
+               ("semi-sync", 0.7), ("async", None))
+
+
+def fault_counters(m):
+    return {k: m.extra.get(k, 0.0) for k in FAULT_KEYS}
+
+
+def lognormal_net(T):
+    """benchmarks/bench_network.py:40, 58-60's constrained uplink (median
+    40 kbps, lognormal σ 1, trace seed 13) over phase 4's 64 clients."""
+    from repro_torch.data import synthesize_capacity_trace
+    return T.NetworkModel.from_trace(synthesize_capacity_trace(
+        M, seed=13, dist="lognormal", median_uplink_kbps=40.0))
+
+
+def engine_run(T, device, engine, rounds, opts=None, **kw):
+    """Phase 4's model under ``engine`` with phase 8b's options (``opts``
+    merged in), ``dynamic_env(4, 5)`` and warmup 2, as phase 8b runs it."""
+    opts = dict(NET_ENGINES[engine] or {}, **(opts or {}))
+    return full_width(T, device, rounds,
+                      speed_model=T.dynamic_env(4, DES_WINDOWS),
+                      round_engine=engine, engine_opts=opts,
+                      warmup_rounds=2, **kw)
+
+
+class ShippedBytes:
+    """While active, sums the achieved wire bytes of every partial the
+    network pricer ships (``_NetSim.ship``: compress, measure, send), by
+    the round the server stood at when it shipped — an async window's tail
+    ships bill the next window."""
+
+    def __init__(self):
+        from repro_torch.core import engine
+        self.cls = engine._NetSim
+
+    def __enter__(self):
+        inner = self.inner = self.cls.ship
+        self.by_round, self.n = {}, 0
+
+        def ship(ns, executor, partial):
+            wire, nb = inner(ns, executor, partial)
+            rnd = ns.srv.round
+            self.by_round[rnd] = self.by_round.get(rnd, 0) + nb
+            self.n += 1
+            return wire, nb
+
+        self.cls.ship = ship
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.ship = self.inner
+
+
+class HostCost:
+    """While active, the host seconds spent in the network pricer's and
+    the fault injector's checks (``_NetSim``'s pricing and availability
+    methods, every public ``FaultInjector`` method; the outermost call
+    only, so ``price_upload``'s re-pricing counts once), read and reset
+    per round by ``take()``.  ``ship`` (the codec and the comm layer) is
+    not among them."""
+
+    NETSIM = ("down", "up", "comm_pred", "split_available", "extra")
+    FAULTS = ("crash_due", "crash_in", "fire_crash", "restarts_due",
+              "slowdown", "scaled_model", "client_down", "dropout_in",
+              "split_up", "upload_lost", "take_corrupt", "xfer_end",
+              "charge_retry", "clear_retries", "price_upload")
+
+    def __enter__(self):
+        from repro_torch.core import engine, faults
+        self.saved, self.s, depth = [], 0.0, [0]
+        for cls, names in ((engine._NetSim, self.NETSIM),
+                           (faults.FaultInjector, self.FAULTS)):
+            for name in names:
+                inner = getattr(cls, name)
+
+                def timed(*a, inner=inner, **kw):
+                    if depth[0]:
+                        return inner(*a, **kw)
+                    depth[0] += 1
+                    t0 = time.perf_counter()
+                    try:
+                        return inner(*a, **kw)
+                    finally:
+                        self.s += time.perf_counter() - t0
+                        depth[0] -= 1
+
+                self.saved.append((cls, name, inner))
+                setattr(cls, name, timed)
+        return self
+
+    def take(self):
+        s, self.s = self.s, 0.0
+        return s
+
+    def __exit__(self, *exc):
+        for cls, name, inner in self.saved:
+            setattr(cls, name, inner)
+
+
+def phase_network(T, ops, plain):
+    """10a: each engine under the constrained lognormal uplink, without a
+    codec and with top-k 0.01, NET_ROUNDS rounds on the card: per round
+    the makespan, the comm keys, the wall and the launches; top-k launches
+    == spans shipped, every fold of the leaves form and one launch a
+    folded group, ``comm_wire_bytes`` == the bytes shipped, the kernel
+    equal to plain on a real shipped partial."""
+    out = {}
+    for engine in NET_ENGINES:
+        for codec in (None, 0.01):
+            label = f"{engine}, {'top-k 0.01' if codec else 'no codec'}"
+            rows, last, box = [], {"topk": 0, "fold": 0}, {}
+
+            def on_round(r, m, wall, rows=rows, last=last, label=label):
+                torch.cuda.synchronize()
+                row = {"round": r, "makespan_s": m.makespan, "wall_s": wall,
+                       "n_clients": m.n_clients,
+                       "netsim_host_ms": cost.take() * 1e3,
+                       "topk_launches": ops.topk_launches - last["topk"],
+                       "fold_launches": ops.agg_launches - last["fold"],
+                       **{k: m.extra[k] for k in NET_KEYS}}
+                last.update(topk=ops.topk_launches, fold=ops.agg_launches)
+                rows.append(row)
+                log(f"phase 10a {label} round {r}: makespan "
+                    f"{m.makespan:.4f} virtual s (comm up "
+                    f"{row['comm_time_up']:.4f}, down "
+                    f"{row['comm_time_down']:.4f}), "
+                    f"{row['comm_wire_bytes']:.0f} wire bytes, wall "
+                    f"{wall:.3f} s (pricing {row['netsim_host_ms']:.3f} ms "
+                    f"of host), {row['topk_launches']} top-k and "
+                    f"{row['fold_launches']} fold launches")
+
+            ops.reset_agg_counts()
+            ops.reset_topk_counts()
+            prepare = (lambda s: box.update(seen=capture_wires(
+                s, first=True))) if codec else None
+            t0 = time.perf_counter()
+            with FoldGroups(T) as groups, ShippedBytes() as shipped, \
+                    HostCost() as cost:
+                srv = engine_run(
+                    T, "cuda", engine, NET_ROUNDS, on_round=on_round,
+                    network=lognormal_net(T), prepare=prepare,
+                    compressor=T.TopKCompressor(codec) if codec else None)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches, leaves = ops.agg_launches, ops.agg_leaves_launches
+            topk = ops.topk_launches
+            if launches <= 0 or leaves != launches or ops.agg_leaf_copies \
+                    or launches != groups.n:
+                raise AssertionError(
+                    f"10a {label}: {launches} fold launches, {leaves} of the "
+                    f"leaves form, {groups.n} groups folded")
+            wire = [m.extra["comm_wire_bytes"] for m in srv.history]
+            want = [float(shipped.by_round.get(r, 0))
+                    for r in range(NET_ROUNDS)]
+            if wire != want or not all(w > 0 for w in wire):
+                raise AssertionError(f"10a {label}: comm_wire_bytes {wire} "
+                                     f"!= bytes shipped {want}")
+            for key, v in srv.params.items():
+                if not bool(torch.isfinite(v).all()):
+                    raise AssertionError(f"10a {label}: {key} not finite")
+            row = {"rounds": rows, "fold_launches": launches,
+                   "topk_launches": topk, "partials_shipped": shipped.n,
+                   "makespan_s": sum(m.makespan for m in srv.history),
+                   "wall_s": wall}
+            if codec:
+                seen = box["seen"]
+                if topk <= 0 or topk != seen["spans"]:
+                    raise AssertionError(f"10a {label}: {topk} top-k "
+                                         f"launches for {seen['spans']} "
+                                         f"spans shipped")
+                check_topk_partial(ops, plain, seen, f"10a {label}")
+                ops.reset_topk_counts()       # comparison launches
+                row.update(spans_shipped=seen["spans"],
+                           checked_partial=list(seen["key"]))
+            elif topk:
+                raise AssertionError(f"10a {label}: {topk} top-k launches")
+            out[(engine, codec)] = row
+            log(f"phase 10a {label}: {launches} fold launches (all of the "
+                f"leaves form, one a group), {topk} top-k launches for "
+                f"{shipped.n} partials shipped; comm_wire_bytes == bytes "
+                f"shipped each round"
+                + (f"; kernel == plain on {seen['key'][1]}'s shipped partial "
+                   f"of round {seen['key'][0]}" if codec else "")
+                + f"; {NET_ROUNDS} rounds {row['makespan_s']:.2f} virtual s,"
+                f" wall {wall:.2f} s")
+    cuts = {}
+    for engine in NET_ENGINES:
+        dense = out[(engine, None)]["makespan_s"]
+        comp = out[(engine, 0.01)]["makespan_s"]
+        cuts[engine] = {"makespan_s": dense, "topk_makespan_s": comp,
+                        "cut": 1.0 - comp / dense}
+        log(f"phase 10a {engine}: top-k 0.01 makespan {comp:.2f} against "
+            f"{dense:.2f} virtual s uncompressed over {NET_ROUNDS} rounds: "
+            f"{100 * cuts[engine]['cut']:.1f} % cut (full width; "
+            f"BENCH_network.json's 71.6-74.3 % is the pre-port 32-dim MLP)")
+    return {"runs": {f"{e}/{c or 'none'}": v for (e, c), v in out.items()},
+            "topk_cut": cuts}
+
+
+def availability_run(T, device, engine, rounds):
+    """10b: phase 4's model under diurnal churn (64 clients, period
+    AVAIL_PERIOD virtual s, duty 0.6, seed 22) and a TickTimer; every
+    client selected is recorded with the virtual time it was picked at."""
+    av = T.ClientAvailability.diurnal(M, period_s=AVAIL_PERIOD,
+                                      duty_mean=0.6, seed=22)
+    picked = []
+
+    def prepare(s):
+        inner = s.select_clients
+
+        def select(*a, **kw):
+            tasks = inner(*a, **kw)
+            picked.extend((t.client, s.virtual_now) for t in tasks)
+            return tasks
+
+        s.select_clients = select
+
+    srv = engine_run(T, device, engine, rounds, availability=av,
+                     timer=T.TickTimer(1.0), prepare=prepare)
+    return srv, av, picked
+
+
+def phase_availability(T, ops):
+    out = {}
+    for engine in ("bsp", "async"):
+        ops.reset_agg_counts()
+        t0 = time.perf_counter()
+        srv, av, picked = availability_run(T, "cuda", engine, NET_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        offline = [(c, t) for c, t in picked if not av.available(c, t)]
+        if offline or not picked:
+            raise AssertionError(f"10b {engine}: offline clients selected: "
+                                 f"{offline[:5]}")
+        if ops.agg_launches <= 0 \
+                or ops.agg_leaves_launches != ops.agg_launches:
+            raise AssertionError(f"10b {engine}: fold launches not all of "
+                                 f"the leaves form")
+        dropped = [m.extra["dropped_clients"] for m in srv.history]
+        idle = [m.extra.get("idle_time", 0.0) for m in srv.history]
+        out[engine] = {"makespans": [m.makespan for m in srv.history],
+                       "dropped_clients": dropped, "idle_time": idle,
+                       "selected": len(picked),
+                       "fold_launches": ops.agg_launches, "wall_s": wall}
+        log(f"phase 10b {engine}, diurnal availability: {len(picked)} "
+            f"clients selected, none offline; dropped {dropped}, "
+            f"fast-forwards {idle} virtual s; makespans "
+            f"{out[engine]['makespans']}; {ops.agg_launches} fold launches, "
+            f"all of the leaves form; wall {wall:.2f} s")
+    return out
+
+
+def fault_knobs(T, plan):
+    return {"faults": plan,
+            "retry": T.RetryPolicy(timeout_s=8.0, max_retries=2,
+                                   backoff_s=0.5),
+            "network": T.NetworkModel.uniform(12e6, 24e6, latency_s=0.03)}
+
+
+def fault_plan(T, seed, horizon, rate=FAULT_RATE):
+    """benchmarks/bench_fault_tolerance.py:39-54's plan at ``rate`` over
+    phase 4's 4 executors and 64 clients."""
+    return T.FaultPlan.random(
+        seed=seed, horizon=horizon, executors=list(range(4)),
+        clients=list(range(M)), crash_rate=rate * 0.3, restart_delay=6.0,
+        dropout_rate=rate, dropout_duration=5.0, corrupt_rate=rate * 0.5,
+        blackout_rate=rate * 0.2, blackout_duration=1.5,
+        slowdown_rate=rate * 0.3, slowdown_duration=8.0,
+        slowdown_factor=3.0)
+
+
+def fault_run(T, device, engine, quorum, rounds, plan, **kw):
+    """One 10(c) cell under a TickTimer: the uniform 12 MB/s link, the
+    retry policy and ``plan`` (None: the fault-free run whose span sets
+    the cell's horizon)."""
+    opts = {} if quorum is None else {"quorum_frac": quorum}
+    return engine_run(T, device, engine, rounds, opts=opts,
+                      timer=T.TickTimer(1.0), **fault_knobs(T, plan), **kw)
+
+
+def fault_cell(T, ops, device, engine, quorum, rounds, seed=FAULT_SEED,
+               horizon=None):
+    """One cell on ``device``: the horizon (the fault-free span of
+    ``rounds`` rounds unless given), then the plan's run: its windows,
+    history, walls, params after round 2 and fold launches."""
+    if horizon is None:
+        horizon = fault_run(T, device, engine, quorum, rounds,
+                            None).virtual_now
+    got = {"horizon_s": horizon, "windows": [], "walls": [], "host_ms": []}
+
+    def keep(r, m, wall):
+        got["windows"].append(window_key(m))
+        got["walls"].append(wall)
+        got["host_ms"].append(cost.take() * 1e3)
+        if r == 1:
+            got["params"] = {q: v.detach().cpu().clone()
+                             for q, v in got["srv"].params.items()}
+
+    ops.reset_agg_counts()
+    with HostCost() as cost:
+        srv = fault_run(T, device, engine, quorum, rounds,
+                        fault_plan(T, seed, horizon), on_round=keep,
+                        prepare=lambda s: got.update(srv=s))
+    if device != "cpu":
+        torch.cuda.synchronize()
+    got.update(history=list(srv.history), fold_launches=ops.agg_launches,
+               leaves_launches=ops.agg_leaves_launches)
+    return got
+
+
+def phase_faults(T, ops):
+    """10c: every cell's fault-free span sets its horizon; the plan's
+    FAULT_ROUNDS rounds on the card; each engine's first cell's first 2
+    rounds on the CPU too: windows and fault counters identical, params
+    after round 2 within 1e-5."""
+    out, totals, spans = {}, {k: 0.0 for k in FAULT_KEYS}, {}
+    for engine, quorum in FAULT_CELLS:
+        label = engine if quorum is None else f"{engine} q{quorum}"
+        # BSP's quorum acts only when an executor fails: one fault-free
+        # span serves both of its cells
+        span_key = (engine, None if engine == "bsp" else quorum)
+        g = fault_cell(T, ops, "cuda", engine, quorum, FAULT_ROUNDS,
+                       horizon=spans.get(span_key))
+        if g["fold_launches"] <= 0 \
+                or g["leaves_launches"] != g["fold_launches"]:
+            raise AssertionError(f"10c {label}: fold launches not all of "
+                                 f"the leaves form")
+        err = None
+        if engine not in {e for e, _ in spans}:     # the engine's twin
+            c = fault_cell(T, ops, "cpu", engine, quorum, 2,
+                           horizon=g["horizon_s"])
+            if g["windows"][:2] != c["windows"]:
+                raise AssertionError(
+                    f"10c {label}: windows differ card vs CPU: "
+                    f"{g['windows'][:2]} vs {c['windows']}")
+            err = max(float((g["params"][q] - pc).abs().max())
+                      for q, pc in c["params"].items())
+            for q, pc in c["params"].items():
+                torch.testing.assert_close(g["params"][q], pc, atol=1e-5,
+                                           rtol=1e-5,
+                                           msg=f"10c {label} {q}")
+        spans[span_key] = g["horizon_s"]
+        counters = [fault_counters(m) for m in g["history"]]
+        for row in counters:
+            for k, v in row.items():
+                totals[k] += v
+        out[label] = {"horizon_s": g["horizon_s"],
+                      "makespans": [m.makespan for m in g["history"]],
+                      "fault_counters": counters,
+                      "comm": [{k: m.extra[k] for k in NET_KEYS}
+                               for m in g["history"]],
+                      "fold_launches": g["fold_launches"],
+                      "walls_s": g["walls"], "check_host_ms": g["host_ms"],
+                      "params_max_err": err}
+        log(f"phase 10c {label}: horizon {g['horizon_s']:.3f} virtual s "
+            f"(the fault-free span of {FAULT_ROUNDS} rounds), plan seed "
+            f"{FAULT_SEED}; makespans {out[label]['makespans']}; fault "
+            f"counters {counters}; "
+            + ("" if err is None else
+               f"card == CPU over 2 rounds (windows and counters identical, "
+               f"params max |diff| {err:.3g} <= 1e-5); ")
+            + f"{g['fold_launches']} fold launches, all of the leaves form; "
+            f"walls {[round(w, 3) for w in g['walls']]} s, pricing and "
+            f"fault checks {[round(h, 3) for h in g['host_ms']]} ms of "
+            f"host a round")
+    for key in ("fault_crashes", "fault_restarts", "retries",
+                "corrupt_payloads"):
+        if totals[key] <= 0:
+            raise AssertionError(f"10c: plan seed {FAULT_SEED} never moved "
+                                 f"{key} over the phase: {totals}")
+    log(f"phase 10c: plan seed {FAULT_SEED}: the first seed whose plans "
+        f"put a crash early enough for its restart to fire and a corrupt "
+        f"event in some cell, and whose run then moved crashes, restarts, "
+        f"retries and corrupt payloads (rehearsed on the CPU under the same "
+        f"TickTimer, whose virtual times are the card's); totals {totals}")
+    out["totals"] = totals
+    return out
+
+
+def phase_fault_resume(T, ops, plain):
+    """10d: phase 9a's kill and auto-resume on async with top-k 0.01 under
+    a fault plan (seed FAULT_SEED at RESUME_RATE over RESUME_HORIZON) with
+    10c's network and retry policy."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_faults_")
+    try:
+        box = {}
+
+        def on_resumed(srv):
+            box["seen"] = capture_wires(srv, first=True)
+            ops.reset_agg_counts()
+            ops.reset_topk_counts()
+
+        r = ckpt_engine_run(
+            T, "cuda", "async", work, on_resumed,
+            knobs=lambda: fault_knobs(T, fault_plan(
+                T, FAULT_SEED, RESUME_HORIZON, RESUME_RATE)))
+        topk, seen = ops.topk_launches, box["seen"]
+        if r["resumed_digest"] != r["digest"] \
+                or r["resumed_makespans"] != r["makespans"] \
+                or not r["cohorts_equal"] or not r["n_clients_equal"] \
+                or r["resumed_fault_counters"] != r["fault_counters"]:
+            raise AssertionError(
+                f"10d: the resumed run differs: digest "
+                f"{r['resumed_digest'][:16]} vs {r['digest'][:16]}, "
+                f"makespans {r['resumed_makespans']} vs {r['makespans']}, "
+                f"counters {r['resumed_fault_counters']} vs "
+                f"{r['fault_counters']}")
+        fired = {k: sum(row[k] for row in r["fault_counters"])
+                 for k in ("fault_crashes", "fault_restarts", "retries")}
+        if not all(fired.values()):
+            raise AssertionError(f"10d: the plan left a counter at 0: "
+                                 f"{fired}")
+        if topk <= 0 or topk != seen["spans"] \
+                or ops.agg_leaves_launches != ops.agg_launches:
+            raise AssertionError(f"10d: {topk} top-k launches for "
+                                 f"{seen['spans']} spans shipped")
+        check_topk_partial(ops, plain, seen, "10d resumed partial")
+        ops.reset_topk_counts()
+        r.update(topk_launches=topk, spans_shipped=seen["spans"],
+                 fold_launches=ops.agg_launches)
+        log(f"phase 10d async top-k 0.01 under the fault plan: killed in "
+            f"round {r['killed_in_round']}, auto-resumed: params_digest "
+            f"{r['digest'][:16]}, makespans {r['makespans']}, cohorts and "
+            f"fault counters {r['fault_counters']} equal; {topk} top-k "
+            f"launches for {seen['spans']} spans after the resume, kernel "
+            f"== plain on the first; walls {r['ref_wall_s']:.2f} / "
+            f"{r['resumed_wall_s']:.2f} s")
+        return r
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_net_faults(T, ops, plain):
+    t0 = time.perf_counter()
+    net = phase_network(T, ops, plain)
+    avail = phase_availability(T, ops)
+    faults = phase_faults(T, ops)
+    resume = phase_fault_resume(T, ops, plain)
+    log(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"network": net, "availability": avail, "faults": faults,
+            "resume": resume}
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2695,6 +3191,8 @@ def main() -> int:
                       make_classification_population)
     ckpt_fold = {e: ckpt["checkpoint"][e]["fold_launches"]
                  for e in CKPT_ENGINES}
+    nf = phase_net_faults(T, ops, topk_with_residual_plain)
+    nf_runs = nf["network"]["runs"]
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -2739,6 +3237,15 @@ def main() -> int:
         "checkpoint_resume_launches": ckpt_fold,
         "population_launches": ckpt["population"]["fold_launches"],
         "checkpoint": ckpt,
+        "network_launches": {k: v["fold_launches"]
+                             for k, v in nf_runs.items()},
+        "availability_launches": {k: v["fold_launches"] for k, v in
+                                  nf["availability"].items()},
+        "fault_launches": {k: v["fold_launches"]
+                           for k, v in nf["faults"].items()
+                           if k != "totals"},
+        "fault_resume_launches": nf["resume"]["fold_launches"],
+        "network_faults": nf,
     }, {
         "name": "topk_compress",
         "route": "cuda",
@@ -2769,6 +3276,9 @@ def main() -> int:
         "des_async_launches": des["full_width"]["async_topk"]["topk_launches"],
         "checkpoint_resume_launches":
             ckpt["checkpoint"]["async"]["topk_launches"],
+        "network_launches": {k: v["topk_launches"]
+                             for k, v in nf_runs.items()},
+        "fault_resume_launches": nf["resume"]["topk_launches"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

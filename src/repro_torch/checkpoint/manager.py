@@ -110,12 +110,15 @@ class CheckpointManager:
                 # the save left it (None for the stateless BSP engine)
                 "engine": server.engine.state_dict(),
                 "virtual_now": server.virtual_now,
-                # the network model's anchors (last broadcast size, achieved
-                # wire ratio) and the fault injector's state come with
-                # ROADMAP item 13: until then the JAX defaults stand here
-                "last_payload_nbytes": 0,
-                "wire_ratio": 1.0,
-                "faults": None,
+                # the network model's anchors: the last broadcast's size and
+                # the compressor's achieved wire ratio price the next
+                # round's comm predictions and schedule
+                "last_payload_nbytes": server._last_payload_nbytes,
+                "wire_ratio": server._wire_ratio,
+                # the fault injector's fired one-shot events and retry
+                # budgets: a resumed run replays the remaining faults
+                "faults": (server.faults.state_dict()
+                           if server.faults is not None else None),
                 # the control plane and telemetry come with item 16
                 "control": None,
                 # compressor state (top-k error-feedback residuals, PowerSGD
@@ -196,9 +199,13 @@ class CheckpointManager:
         server.history = list(blob["history"])
         server.round = blob["round"]
         server.virtual_now = float(blob.get("virtual_now", 0.0))
+        server._last_payload_nbytes = int(blob.get("last_payload_nbytes", 0))
+        server._wire_ratio = float(blob.get("wire_ratio", 1.0))
         # every restored tensor lands on the server's device: an in-flight
         # partial left on the host would fold through the plain version
         server.engine.load_state_dict(blob.get("engine"), device=dev)
+        if server.faults is not None:
+            server.faults.load_state_dict(blob.get("faults"))
         if server.compressor is not None \
                 and hasattr(server.compressor, "load_state_dict"):
             server.compressor.load_state_dict(blob.get("compressor"))

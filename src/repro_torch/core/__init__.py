@@ -14,6 +14,10 @@
                                the virtual clock
   population.py              — client populations (eager and streamed)
                                and cohort sampling
+  network.py                 — trace-driven network & availability
+                               simulation (comm-priced virtual time)
+  faults.py                  — fault injection & recovery (seeded chaos
+                               plans, retries, crashes and restarts)
   tree.py                    — nested-container helpers in jax.tree order
 """
 from repro_torch.core.aggregation import (ClientResult, LocalAggregator, Op,
@@ -31,7 +35,11 @@ from repro_torch.core.engine import (AsyncEngine, BSPEngine, RoundEngine,
                                      SemiSyncEngine, make_engine)
 from repro_torch.core.executor import (ExecutorFailure, SequentialExecutor,
                                        dynamic_env, hetero_gpus, homogeneous)
+from repro_torch.core.faults import (FaultEvent, FaultInjector, FaultPlan,
+                                     RetryPolicy)
 from repro_torch.core.flat import FlatLayout
+from repro_torch.core.network import (ClientAvailability, CommEvent,
+                                      LinkProfile, NetworkModel)
 from repro_torch.core.population import (ClientPopulation, EagerPopulation,
                                          LazyPopulation, as_population)
 from repro_torch.core.round import (ParrotServer, RoundMetrics,
@@ -44,13 +52,15 @@ from repro_torch.core.workload import (RunRecord, WorkloadEstimator,
                                        WorkloadModel, fleet_average)
 
 __all__ = [
-    "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientData", "ClientPopulation",
+    "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientAvailability",
+    "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
-    "CompressedTensor", "EagerPopulation", "ExecutorFailure", "FLAlgorithm",
-    "FlatLayout", "Int8Compressor", "LazyPopulation", "LocalAggregator",
-    "Op",
+    "CommEvent", "CompressedTensor", "EagerPopulation", "ExecutorFailure",
+    "FLAlgorithm", "FaultEvent", "FaultInjector", "FaultPlan",
+    "FlatLayout", "Int8Compressor", "LazyPopulation", "LinkProfile",
+    "LocalAggregator", "NetworkModel", "Op",
     "ParrotScheduler", "ParrotServer", "PowerSGDCompressor", "RoundEngine",
-    "RoundMetrics", "RunRecord", "Schedule", "SemiSyncEngine",
+    "RetryPolicy", "RoundMetrics", "RunRecord", "Schedule", "SemiSyncEngine",
     "SequentialExecutor",
     "TickTimer", "TopKCompressor", "VirtualClock", "WorkloadEstimator",
     "WorkloadModel", "as_population", "dynamic_env", "engine_for",

@@ -79,6 +79,9 @@ class ExecutorReport:
     wall_time: float
     n_tasks: int
     completed_clients: List[int] = field(default_factory=list)
+    # achieved wire size of the shipped partial (set by the engines when a
+    # NetworkModel prices uploads; 0 = not measured)
+    wire_bytes: int = 0
 
 
 class SequentialExecutor:

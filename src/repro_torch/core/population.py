@@ -87,16 +87,32 @@ class ClientPopulation(Mapping):
 
     # ------------------------------------------------------------------
     def sample(self, rng: np.random.Generator, k: int,
-               exclude: Optional[Sequence[int]] = None) -> List[int]:
+               exclude: Optional[Sequence[int]] = None,
+               filters: Sequence[Callable[[int], bool]] = ()) -> List[int]:
         """Draw ``min(k, pool)`` distinct client ids, rng-identical to the
         legacy ``rng.choice(sorted(ids) - exclude, size, replace=False)``.
 
-        The pool is never materialised: positional indices are drawn
-        against the virtual pool length and rank-adjusted past the excluded
-        ids' positions in the sorted registry — O(k log k + |exclude| log M)
-        per call.  (Availability and fault filters come with ROADMAP item
-        13.)"""
+        Without filters the pool is never materialised: positional indices
+        are drawn against the virtual pool length and rank-adjusted past the
+        excluded ids' positions in the sorted registry — O(k log k +
+        |exclude| log M) per call.  With availability/fault filters each
+        candidate is tested individually (in sorted order) and survivors
+        pack into an int64 array, so the filtered pool costs one machine
+        word per available client, not a boxed-int Python list."""
         ids = self.ids_array()
+        if filters:
+            excl = {int(c) for c in exclude} if exclude else None
+            pool = np.fromiter(
+                (c for c in ids
+                 if (excl is None or int(c) not in excl)
+                 and all(f(int(c)) for f in filters)),
+                dtype=np.int64)
+            size = min(int(k), int(pool.size))
+            if size <= 0:
+                return []
+            idx = rng.choice(pool.size, size=size, replace=False)
+            return [int(c) for c in pool[np.asarray(idx, dtype=np.int64)]]
+
         P = np.empty(0, dtype=np.int64)
         if exclude:
             ex = np.unique(np.asarray([int(c) for c in exclude],

@@ -13,14 +13,22 @@ minimises.
 Executor failures mid-round re-run the dead executor's remaining work on
 the survivors and K shrinks for subsequent rounds (elastic membership).
 A ``compressor`` (an object, or "topk" / "int8" / "powersgd") shrinks each
-partial before it crosses the comm layer (``core/compression.py``).
+partial before it crosses the comm layer (``core/compression.py``).  A
+``network`` prices uploads and downloads on the virtual clock at the
+partials' achieved wire size, an ``availability`` model filters offline
+clients, and a ``faults`` plan with its ``retry`` policy injects crashes,
+restarts, dropouts, corrupt payloads, blackouts and slowdowns
+(``core/network.py``, ``core/faults.py``, DESIGN.md §9–§10).
 
-Knobs of later slices raise ``NotImplementedError`` naming their ROADMAP
-item rather than being ignored.
+The knobs still to port — ``placement`` and ``parallel_dispatch`` (item
+15), ``control`` and ``telemetry`` (item 16) — raise
+``NotImplementedError`` naming their ROADMAP item rather than being
+ignored.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+import math
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -35,6 +43,8 @@ from repro_torch.core.algorithms import ClientData, FLAlgorithm
 from repro_torch.core.compression import make_compressor
 from repro_torch.core.engine import make_engine
 from repro_torch.core.executor import SequentialExecutor
+from repro_torch.core.faults import FaultInjector, FaultPlan, RetryPolicy
+from repro_torch.core.network import ClientAvailability, NetworkModel
 from repro_torch.core.population import ClientPopulation, as_population
 from repro_torch.core.scheduler import ClientTask, ParrotScheduler, Schedule
 from repro_torch.core.workload import WorkloadEstimator
@@ -42,10 +52,6 @@ from repro_torch.device import resolve_device
 
 # knob -> the ROADMAP.md item (modules queue) that ports it
 _LATER_KNOBS = {
-    "network": "item 13 (network and faults)",
-    "availability": "item 13 (network and faults)",
-    "faults": "item 13 (network and faults)",
-    "retry": "item 13 (network and faults)",
     "placement": "item 15 (placement and gang dispatch)",
     "parallel_dispatch": "item 15 (placement and gang dispatch)",
     "control": "item 16 (control and telemetry)",
@@ -90,6 +96,10 @@ class ParrotServer:
                  seed: int = 0,
                  device: Optional[Any] = None,
                  checkpoint_manager: Optional[Any] = None,
+                 network: Optional[NetworkModel] = None,
+                 availability: Optional[ClientAvailability] = None,
+                 faults: Optional[FaultPlan] = None,
+                 retry: Optional[RetryPolicy] = None,
                  **later_knobs: Any):
         for knob, val in later_knobs.items():
             if knob not in _LATER_KNOBS:
@@ -128,9 +138,21 @@ class ParrotServer:
         # multi-device placement is ported (ROADMAP.md, modules queue item
         # 15), as it is in the JAX package without a placement
         self.gang_dispatch = bool(gang_dispatch)
-        # cumulative simulated time across rounds (BSP and semi-sync advance
-        # it by each round's makespan; async pins it to its persistent clock)
+        # trace-driven network & availability simulation (DESIGN.md §9):
+        # None for both keeps every engine on its comm-free code path
+        self.network = network
+        self.availability = availability
+        # fault injection (DESIGN.md §10): None keeps every engine on its
+        # fault-free code path; an empty plan behaves identically to None
+        self.faults: Optional[FaultInjector] = (
+            FaultInjector(faults, retry) if faults is not None
+            or retry is not None else None)
+        # cumulative simulated time across rounds — the availability axis
+        # (BSP and semi-sync advance it by each round's makespan; async pins
+        # it to its persistent clock)
         self.virtual_now = 0.0
+        self._last_payload_nbytes = 0    # comm-cost estimates (round r-1's)
+        self._wire_ratio = 1.0           # achieved wire/raw compression ratio
         self.overlap_scheduling = overlap_scheduling
         self.backup_fraction = backup_fraction
         self._next_tasks: Optional[List[ClientTask]] = None
@@ -157,10 +179,21 @@ class ParrotServer:
                        exclude: Optional[Any] = None) -> List[ClientTask]:
         """Sample the round's cohort without replacement (rng-identical to
         the JAX package).  ``n`` overrides ``clients_per_round``;
-        ``exclude`` removes clients already in flight."""
+        ``exclude`` removes clients already in flight.  With an availability
+        model, clients offline at the current virtual time are filtered
+        before sampling; with a fault plan, clients inside a dropout window
+        too."""
+        filters = []
+        if self.availability is not None:
+            av, now = self.availability, self.virtual_now
+            filters.append(lambda c: av.available(c, now))
+            # the control plane's window-fit filter: ROADMAP item 16
+        if self.faults is not None:
+            fi, now = self.faults, self.virtual_now
+            filters.append(lambda c: not fi.client_down(c, now))
         ids = self.population.sample(
             self.rng, self.clients_per_round if n is None else n,
-            exclude=exclude)
+            exclude=exclude, filters=filters)
         n_of = self.population.n_samples
         return [ClientTask(c, n_of(c)) for c in ids]
 
@@ -253,9 +286,10 @@ class ParrotServer:
             self._retired[k] = ex
 
     def _revive_executor(self, k: int) -> bool:
-        """A retired executor rejoins (restore of a pre-crash topology; the
-        fault plan's restart events come with item 13) and subsequent
-        schedules see K grow again.  False if ``k`` is not revivable."""
+        """A retired executor rejoins (a fault plan's restart event, or a
+        restore of a pre-crash topology) and subsequent schedules see K
+        grow again; re-pinning it through a device placement comes with
+        ROADMAP item 15.  False if ``k`` is not revivable."""
         ex = self._retired.pop(k, None)
         if ex is None or k in self.executors:
             return False
@@ -270,11 +304,56 @@ class ParrotServer:
                               for j in sorted(self.executors)}
         return True
 
+    # ------------------------------------------------------------------
+    # network/availability plumbing (no-ops when both are None)
     def _sched_comm_cost(self):
-        """Per-task comm-cost closure for the scheduler's Eq. 4: None, comm
-        is free until the network model is ported (ROADMAP.md, modules
-        queue item 13)."""
-        return None
+        """Per-task comm-cost closure for the scheduler's Eq. 4 (None when
+        no network is modelled).  Prices one client round-trip at the last
+        broadcast's size and the compressor's last achieved wire ratio —
+        round 0 prices latency only (no payload has been sized yet), which
+        the uniform warmup schedule ignores anyway."""
+        if self.network is None:
+            return None
+        net, down = self.network, self._last_payload_nbytes
+        up = int(down * self._wire_ratio)
+        return lambda task: net.client_comm_time(task.client, down, up)
+
+    def _next_available_time(self, exclude: Optional[Any] = None) -> float:
+        """Earliest virtual time any selectable client comes online (inf if
+        never) — the engines fast-forward an empty round to it."""
+        if self.availability is None:
+            return self.virtual_now
+        ex = {int(c) for c in (exclude or ())}
+        return min((self.availability.next_available(int(c), self.virtual_now)
+                    for c in self.population.ids_array()
+                    if int(c) not in ex), default=float("inf"))
+
+    def _next_availability_change(self, exclude: Optional[Any] = None
+                                  ) -> float:
+        """Earliest FUTURE instant any selectable client's availability
+        flips: window start for offline clients, window *end* for online
+        ones.  The fast-forward target when a round made zero progress even
+        though clients are nominally online — every dropped client was
+        predicted to expire mid-chunk, and within its current window that
+        prediction can only get worse."""
+        if self.availability is None:
+            return float("inf")
+        t = self.virtual_now
+        best = float("inf")
+        ex = {int(c) for c in (exclude or ())}
+        for c in self.population.ids_array():
+            c = int(c)
+            if c in ex:
+                continue
+            if self.availability.available(c, t):
+                r = self.availability.remaining(c, t)
+                if math.isfinite(r) and r > 0:
+                    best = min(best, t + r)
+            else:
+                nxt = self.availability.next_available(c, t)
+                if nxt > t:
+                    best = min(best, nxt)
+        return best
 
     def _commit_metrics(self, metrics: RoundMetrics, t0: float) -> None:
         """Round-boundary commit: every engine routes its finished

@@ -69,7 +69,8 @@ def _np_params():
             "b1": np.zeros(CLASSES, np.float32)}
 
 
-def _build(engine, ckpt_dir=None, compressor=None, pkg=T, n_exec=3):
+def _build(engine, ckpt_dir=None, compressor=None, pkg=T, n_exec=3,
+           **knobs):
     """tests/test_engine_checkpoint.py's ``_build`` in either package."""
     jax_side = pkg is J
     data = (jclients if jax_side else tclients)(
@@ -91,7 +92,7 @@ def _build(engine, ckpt_dir=None, compressor=None, pkg=T, n_exec=3):
                             data_by_client=data, clients_per_round=8,
                             round_engine=engine, engine_opts=opts,
                             checkpoint_manager=cm, compressor=compressor,
-                            seed=0, **dev)
+                            seed=0, **knobs, **dev)
 
 
 def _bits_equal(a, b):
@@ -282,7 +283,7 @@ def test_bsp_engine_state_is_none_and_restores():
 # ---------------------------------------------------------------------------
 # crash-consistent auto-resume: kill the process mid-round, then
 # ``run(N, auto_resume=True)`` on a fresh server must land on the
-# uninterrupted run's exact params (no fault plan: ROADMAP item 13 adds it)
+# uninterrupted run's exact params, without and under a fault plan
 # ---------------------------------------------------------------------------
 
 def _lin_loss(params, batch):
@@ -295,7 +296,7 @@ def _lin_loss(params, batch):
 LIN_GRAD = T.value_and_grad(_lin_loss)
 
 
-def _kill_build(engine, ckpt_dir):
+def _kill_build(engine, ckpt_dir, **knobs):
     data = tclients(30, dim=8, n_classes=4, mean_samples=30, batch_size=10,
                     seed=1)
     algo = T.make_algorithm("fedavg", grad_fn=LIN_GRAD, lr=0.1,
@@ -310,15 +311,17 @@ def _kill_build(engine, ckpt_dir):
                           algorithm=algo, executors=execs,
                           data_by_client=data, clients_per_round=8, seed=7,
                           round_engine=engine, engine_opts=opts,
-                          device="cpu",
+                          device="cpu", **knobs,
                           checkpoint_manager=CheckpointManager(
                               ckpt_dir, every_rounds=1, keep=10))
 
 
-@pytest.mark.parametrize("engine", ["bsp", "semi-sync", "async"])
-def test_kill_mid_round_then_auto_resume_is_bit_exact(engine, tmp_path):
-    N = 8
-    ref = _kill_build(engine, str(tmp_path / "ref"))
+def _kill_and_resume(engine, tmp_path, N, knobs=dict):
+    """An uninterrupted N-round reference, the same run killed mid-round,
+    and a fresh server's ``run(N, auto_resume=True)``: (ref, resumed,
+    the resumed run's history).  ``knobs()`` builds each server's
+    network / fault kwargs afresh."""
+    ref = _kill_build(engine, str(tmp_path / "ref"), **knobs())
     ex0 = ref.executors[0]
     real, calls = ex0.run_queue, [0]
 
@@ -328,14 +331,13 @@ def test_kill_mid_round_then_auto_resume_is_bit_exact(engine, tmp_path):
 
     ex0.run_queue = counting
     ref.run(N)
-    want = params_digest(ref.params)
 
     # the same run, killed mid-round: executor 0's run_queue raises
     # KeyboardInterrupt at 5/8 of its calls, after some durable
     # checkpoints exist — a process kill between two saves
     kill_at = calls[0] * 5 // 8
     d = str(tmp_path / "ck")
-    victim = _kill_build(engine, d)
+    victim = _kill_build(engine, d, **knobs())
     ex0 = victim.executors[0]
     real, calls = ex0.run_queue, [0]
 
@@ -350,13 +352,82 @@ def test_kill_mid_round_then_auto_resume_is_bit_exact(engine, tmp_path):
         victim.run(N)
     assert 1 <= victim.round < N        # the kill landed mid-run
 
-    resumed = _kill_build(engine, d)
+    resumed = _kill_build(engine, d, **knobs())
     hist = resumed.run(N, auto_resume=True)
     assert resumed.round == N
-    assert params_digest(resumed.params) == want
+    assert params_digest(resumed.params) == params_digest(ref.params)
     assert len(hist) == N
     assert [m.makespan for m in hist] == [m.makespan for m in ref.history]
     assert [m.n_clients for m in hist] == [m.n_clients for m in ref.history]
+    return ref, resumed, hist
+
+
+@pytest.mark.parametrize("engine", ["bsp", "semi-sync", "async"])
+def test_kill_mid_round_then_auto_resume_is_bit_exact(engine, tmp_path):
+    _kill_and_resume(engine, tmp_path, 8)
+
+
+def _chaos_knobs(pkg=T):
+    """tests/test_engine_checkpoint.py:176's plan, a network and a retry
+    policy: every fault kind, and restarts that revive crashed executors."""
+    return {"faults": pkg.FaultPlan.random(
+                seed=3, horizon=80.0, executors=[0, 1, 2],
+                clients=list(range(30)), crash_rate=0.05, restart_delay=5.0,
+                dropout_rate=0.1, dropout_duration=4.0, corrupt_rate=0.05,
+                blackout_rate=0.03, blackout_duration=1.0,
+                slowdown_rate=0.03, slowdown_duration=6.0),
+            "retry": pkg.RetryPolicy(timeout_s=3.0, max_retries=2,
+                                     backoff_s=0.5),
+            "network": pkg.NetworkModel.uniform(8e6, 16e6, latency_s=0.05)}
+
+
+_FAULT_KEYS = ("retries", "corrupt_payloads", "dropped_clients",
+               "fault_crashes", "fault_restarts", "chunk_timeouts",
+               "comm_time_up", "comm_time_down", "comm_wire_bytes")
+
+
+@pytest.mark.parametrize("engine", ["bsp", "semi-sync", "async"])
+def test_kill_under_a_fault_plan_then_auto_resume_is_bit_exact(engine,
+                                                               tmp_path):
+    """The kill and auto-resume under a seeded chaos plan with a network:
+    params digest, makespans, cohorts, fault counters and comm keys equal
+    the uninterrupted run's, and the plan's restarts revived executors."""
+    ref, resumed, hist = _kill_and_resume(engine, tmp_path, 10,
+                                          _chaos_knobs)
+    assert [{k: m.extra.get(k) for k in _FAULT_KEYS} for m in hist] == \
+        [{k: m.extra.get(k) for k in _FAULT_KEYS} for m in ref.history]
+    assert resumed.faults.state_dict() == ref.faults.state_dict()
+    assert resumed.virtual_now == ref.virtual_now
+    assert sum(m.extra.get("fault_restarts", 0.0) for m in ref.history) >= 1
+    assert sum(m.extra.get("fault_crashes", 0.0) for m in ref.history) >= 1
+
+
+def test_blob_carries_the_fault_and_network_entries(tmp_path):
+    """The blob's ``faults`` (the injector's state), ``last_payload_nbytes``
+    and ``wire_ratio`` equal the JAX package's blob after the same rounds,
+    and restore onto a fresh server as the JAX package restores them."""
+    blobs, servers = [], []
+    for pkg in (J, T):
+        d = str(tmp_path / pkg.__name__)
+        srv = _build("async", d, "topk", pkg, **_chaos_knobs(pkg))
+        srv.run(4)
+        with open(os.path.join(_step(d, 4), "server.pkl"), "rb") as f:
+            blobs.append(pickle.load(f))
+        servers.append(srv)
+    (jb, tb), srv = blobs, servers[1]
+    for key in ("faults", "last_payload_nbytes", "wire_ratio",
+                "virtual_now"):
+        assert tb[key] == jb[key], key
+    assert tb["faults"] == srv.faults.state_dict() and tb["faults"]["fired"]
+    assert tb["last_payload_nbytes"] > 0 and tb["wire_ratio"] < 1.0
+    d = str(tmp_path / T.__name__)
+    fresh = _build("async", None, "topk", T, **_chaos_knobs(T))
+    CheckpointManager(d).restore(fresh, _step(d, 4))
+    assert fresh.faults.state_dict() == srv.faults.state_dict()
+    assert fresh._last_payload_nbytes == srv._last_payload_nbytes
+    assert fresh._wire_ratio == srv._wire_ratio
+    state = fresh.engine.state_dict()
+    assert state["counters"] == srv.engine.state_dict()["counters"]
 
 
 def test_auto_resume_needs_a_checkpoint_manager():

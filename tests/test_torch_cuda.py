@@ -25,7 +25,8 @@ from repro_torch.checkpoint import (CheckpointManager, params_digest,
 from repro_torch.configs.registry import ARCHS
 from repro_torch.core import tree
 from repro_torch.data import (make_classification_clients,
-                              make_classification_population)
+                              make_classification_population,
+                              synthesize_capacity_trace)
 from repro_torch.kernels import ops
 from repro_torch.kernels import rmsnorm as rms_kernel
 from repro_torch.kernels.agg_weighted_sum import agg_weighted_sum_plain
@@ -470,7 +471,8 @@ def test_cuda_des_engine_matches_cpu_and_folds_by_leaves(cuda, engine):
 # checkpoints, auto-resume and the streamed population on the card
 # ---------------------------------------------------------------------------
 
-def _ckpt_server(device, ckpt_dir, engine, compressor=None, data=None):
+def _ckpt_server(device, ckpt_dir, engine, compressor=None, data=None,
+                 **knobs):
     """The quickstart's model under SCAFFOLD, 4 executors, a state manager
     holding 4 client states (the rest spill), a TickTimer, a checkpoint
     every round."""
@@ -488,7 +490,7 @@ def _ckpt_server(device, ckpt_dir, engine, compressor=None, data=None):
         data_by_client=data or make_classification_clients(
             100, dim=32, n_classes=10, partition="natural", seed=0),
         clients_per_round=20, seed=0, device=device, compressor=compressor,
-        round_engine=engine, engine_opts=opts,
+        round_engine=engine, engine_opts=opts, **knobs,
         checkpoint_manager=CheckpointManager(
             os.path.join(ckpt_dir, "ck"), every_rounds=1, keep=10))
 
@@ -640,6 +642,174 @@ def test_cuda_lazy_population_equals_its_eager_twin(cuda, tmp_path):
         [m.makespan for m in lazy.history]
     assert lp.cache_bytes <= lp.fetch_cache_bytes
     assert lp.stats["evictions"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the network, availability and fault model on the card
+# ---------------------------------------------------------------------------
+
+def _lognormal_net():
+    """benchmarks/bench_network.py's constrained uplink over the
+    quickstart's 100 clients."""
+    return T.NetworkModel.from_trace(synthesize_capacity_trace(
+        100, seed=13, dist="lognormal", median_uplink_kbps=40.0))
+
+
+def _chaos():
+    """A dense seeded plan over the quickstart's first ~15 virtual
+    seconds: seed 2 crashes, restarts, corrupts and retries under every
+    engine in 3 rounds."""
+    return T.FaultPlan.random(
+        seed=2, horizon=15.0, executors=[0, 1, 2, 3],
+        clients=list(range(100)), crash_rate=0.2, restart_delay=3.0,
+        dropout_rate=0.5, dropout_duration=4.0, corrupt_rate=0.4,
+        blackout_rate=0.2, blackout_duration=1.0, slowdown_rate=0.1,
+        slowdown_duration=6.0)
+
+
+def test_cuda_comm_priced_async_topk_launches_equal_spans_shipped(
+        cuda, monkeypatch):
+    """Async windows under a lognormal uplink trace with top-k 0.1 and
+    corrupt payloads on the card: one top-k launch for each span shipped,
+    the re-runs of discarded partials included, and each window's
+    ``comm_wire_bytes`` the bytes of the kernel outputs it shipped."""
+    from repro_torch.core import engine as eng
+    plan = T.FaultPlan([T.FaultEvent(time=0.0, kind="corrupt", executor=k)
+                        for k in range(4)])
+    billed = {}
+    inner = eng._NetSim.ship
+
+    def ship(self, executor, partial):
+        out = inner(self, executor, partial)
+        rnd = self.srv.round          # a window's tail bills the next one
+        billed[rnd] = billed.get(rnd, 0) + out[1]
+        return out
+
+    monkeypatch.setattr(eng._NetSim, "ship", ship)
+    ops.reset_topk_counts()
+    srv = _quickstart(T.make_compressor("topk", 0.1), 0, cuda,
+                      round_engine="async", engine_opts={"chunk_size": 2},
+                      network=_lognormal_net(), faults=plan)
+    spans = _count_spans(srv)
+    srv.run(3)
+    torch.cuda.synchronize()
+    assert spans[0] > 0 and ops.topk_launches == spans[0]
+    hist = srv.history
+    assert sum(m.extra["corrupt_payloads"] for m in hist) == 4
+    assert all(m.extra["comm_time_up"] > 0 for m in hist)
+    assert [m.extra["comm_wire_bytes"] for m in hist] == \
+        [float(billed[r]) for r in range(3)]
+
+
+def test_cuda_corrupt_payload_never_reaches_the_global_fold(cuda,
+                                                            monkeypatch):
+    """BSP on the card with executor 1's first partial corrupt: the
+    shipped corrupt wire never enters the global fold, its clients re-run
+    and re-ship (through the top-k kernel again), and the round equals its
+    CPU twin."""
+    from repro_torch.core import engine as eng
+    plan = T.FaultPlan([T.FaultEvent(time=0.0, kind="corrupt", executor=1)])
+
+    def run(device):
+        shipped, folded = [], []
+        inner = eng._NetSim.ship
+
+        def ship(self, executor, partial):
+            out = inner(self, executor, partial)
+            shipped.append((executor, out[0]))
+            return out
+
+        monkeypatch.setattr(eng._NetSim, "ship", ship)
+        ops.reset_topk_counts()
+        ops.reset_agg_counts()
+        srv = _quickstart(T.make_compressor("topk", 0.1), 0, device,
+                          network=T.NetworkModel.uniform(2e5, 1e6, 0.01),
+                          faults=plan, retry=T.RetryPolicy(max_retries=2))
+        gf = srv.global_fold
+        srv.global_fold = lambda parts: folded.extend(parts) or gf(parts)
+        srv.run(2)
+        monkeypatch.setattr(eng._NetSim, "ship", inner)
+        return srv, shipped, folded, ops.topk_launches
+
+    on_card, shipped, folded, launches = run(cuda)
+    torch.cuda.synchronize()
+    assert ops.agg_launches > 0 and ops.agg_leaves_launches == \
+        ops.agg_launches
+    m0 = on_card.history[0]
+    assert m0.extra["corrupt_payloads"] == 1 and m0.extra["retries"] > 0
+    corrupt = next(w for k, w in shipped if k == 1)
+    assert all(p is not corrupt for p in folded)
+    assert len(folded) == len(shipped) - 1
+    assert launches == len(shipped)              # one span a partial
+    on_cpu, _, _, _ = run("cpu")
+    assert [(m.makespan, m.extra) for m in on_card.history] == \
+        [(m.makespan, m.extra) for m in on_cpu.history]
+    for k in on_cpu.params:
+        torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_inflight_upload_saved_from_the_card_restores_onto_it(
+        cuda, tmp_path):
+    """An async checkpoint under a network holds in-flight ``chunk_arrived``
+    partials as CPU tensors; restoring puts them back on the card, and the
+    resumed windows equal the uninterrupted ones bit for bit."""
+    net = T.NetworkModel.uniform(2_000.0, 1e8, 0.01)
+    srv = _ckpt_server(cuda, str(tmp_path / "a"), "async",
+                       T.make_compressor("topk", 0.1), network=net)
+    srv.run(4)
+    step = os.path.join(str(tmp_path / "a"), "ck", "step_00000002")
+    with open(os.path.join(step, "server.pkl"), "rb") as f:
+        blob = pickle.load(f)
+    arrived = [d for _, _, kind, d in blob["engine"]["clock"]["events"]
+               if kind == "chunk_arrived"]
+    assert arrived
+    for ce in arrived:
+        assert all(t.device.type == "cpu" for t in tree.leaves(ce.partial)
+                   if isinstance(t, torch.Tensor))
+    back = _ckpt_server(cuda, str(tmp_path / "b"), "async",
+                        T.make_compressor("topk", 0.1), network=net)
+    CheckpointManager(os.path.join(str(tmp_path / "a"), "ck")).restore(
+        back, step)
+    moved = [d for _, _, kind, d in back.engine._clock.state_dict()["events"]
+             if kind == "chunk_arrived"]
+    assert len(moved) == len(arrived)
+    assert all(t.device.type == cuda.type for ce in moved
+               for t in tree.leaves(ce.partial)
+               if isinstance(t, torch.Tensor))
+    back.run_round()
+    back.run_round()
+    assert params_digest(back.params) == params_digest(srv.params)
+    assert [m.makespan for m in back.history[2:]] == \
+        [m.makespan for m in srv.history[2:]]
+
+
+@pytest.mark.parametrize("engine", ["bsp", "semi-sync", "async"])
+def test_cuda_fault_plan_run_equals_its_cpu_twin(cuda, engine):
+    """Three rounds under a seeded chaos plan with a network and a retry
+    policy, on the card and on the CPU under a TickTimer: the same
+    makespans and every fault and comm counter, params within 1e-5."""
+    opts = {} if engine == "bsp" else {"chunk_size": 2}
+
+    def run(device):
+        return _quickstart(
+            T.make_compressor("topk", 0.1), 3, device,
+            round_engine=engine, engine_opts=opts, faults=_chaos(),
+            retry=T.RetryPolicy(timeout_s=1.0, max_retries=2, backoff_s=0.5),
+            network=T.NetworkModel.uniform(12e6, 24e6, latency_s=0.03))
+
+    on_card = run(cuda)
+    on_cpu = run("cpu")
+    for key in ("fault_crashes", "corrupt_payloads", "retries"):
+        assert sum(m.extra.get(key, 0.0) for m in on_card.history) > 0, key
+    assert [(m.makespan, m.n_clients, m.failures, m.extra)
+            for m in on_card.history] == \
+        [(m.makespan, m.n_clients, m.failures, m.extra)
+         for m in on_cpu.history]
+    assert on_card.faults.state_dict() == on_cpu.faults.state_dict()
+    for k in on_cpu.params:
+        torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_executor_defaults_to_the_card(cuda):

@@ -226,14 +226,20 @@ def test_entry_points_default_to_the_card():
     "placement", "parallel_dispatch", "control", "telemetry"])
 def test_later_slice_knobs_raise(knob):
     """Each knob of a later slice raises naming its ROADMAP item; the
-    checkpoint manager (item 11) is ported and is taken as it is."""
+    checkpoint manager (item 11) and the network, availability, fault plan
+    and retry policy (item 13) are ported and are taken as they are."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
     kw = dict(params={"w": torch.zeros(2)}, algorithm=algo, executors=[],
               data_by_client={}, clients_per_round=1, device="cpu")
-    if knob == "checkpoint_manager":
-        cm = object()
-        assert T.ParrotServer(**kw, checkpoint_manager=cm)\
-            .checkpoint_manager is cm
+    ported = {"checkpoint_manager": (object(), lambda s: s.checkpoint_manager),
+              "network": (T.NetworkModel({}), lambda s: s.network),
+              "availability": (T.ClientAvailability.always(),
+                               lambda s: s.availability),
+              "faults": (T.FaultPlan(()), lambda s: s.faults.plan),
+              "retry": (T.RetryPolicy(), lambda s: s.faults.retry)}
+    if knob in ported:
+        val, read = ported[knob]
+        assert read(T.ParrotServer(**kw, **{knob: val})) is val
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         T.ParrotServer(**kw, **{knob: object()})
@@ -274,11 +280,19 @@ def test_bsp_only_knobs_rejected_by_des_engines(engine, knob):
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
 def test_des_engines_refuse_the_left_out_knobs(engine):
     """Under a DES engine the knobs of later slices still raise, naming
-    their item; the engines' checkpoint state (item 11) round-trips and a
-    state of another engine is refused."""
+    their item (the network and fault plan, item 13, are taken); the
+    engines' checkpoint state (item 11) round-trips and a state of another
+    engine is refused."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
-    items = {"network": "item 13", "faults": "item 13",
-             "control": "item 16", "telemetry": "item 16"}
+    items = {"placement": "item 15", "control": "item 16",
+             "telemetry": "item 16"}
+    for knob, val in (("network", T.NetworkModel({})),
+                      ("faults", T.FaultPlan(()))):
+        srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                             executors=[], data_by_client={},
+                             clients_per_round=1, device="cpu",
+                             round_engine=engine, **{knob: val})
+        assert srv.engine.mode == engine
     for knob, item in items.items():
         with pytest.raises(NotImplementedError, match=item):
             T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
