@@ -134,9 +134,30 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    phase 9a's kill and auto-resume
    on async with top-k 0.01 under a fault plan: ``params_digest``,
    makespans, cohorts and fault counters equal the uninterrupted run's.
+11. Placement, gang dispatch and collective comm on phase 4's model under
+   a ``TickTimer`` (each executor one block of 4 a round), 1 warm-up and
+   3 timed rounds a variant, every number printed beside the card's name
+   and power limit: (a) serial against a one-device
+   ``DevicePlacement`` with the gang: schedules and makespans equal,
+   params within 1e-5, one client-step dispatch a wave in every timed
+   round (a round that fell back to serial fails the phase), walls,
+   client-steps/s and a device-only profiled round each (launches, busy,
+   idle share); (b) nonblocking executors (synchronize calls a round,
+   params equal serial's bit for bit); (c) ``parallel_dispatch`` on
+   per-executor streams (params within 1e-5); (d) the placement's global
+   fold on a round's four real partials: one fold launch a weight group,
+   bit for bit the host left fold, timed beside K-1 ``torch.add``s; (e)
+   ``CollectiveComm``: ``comm_bytes`` a round == the broadcast once + 2x
+   each partial's sums, params equal the ``LocalComm`` run; (f) 10(c)'s
+   first cell whose plan restarts an executor, under the placement: the
+   restart re-pinned, card == CPU window by window; (g) serial, gang
+   and parallel dispatch under the default timer (``perf_counter``), as a
+   user runs them: rounds ganged, makespans and per-client record times,
+   printed and held to nothing.  Cases that need several cards print
+   that they were not run on one.
 
 Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run),
-9(b) and 10(a)-(d) are the main path: kernel
+9(b), 10(a)-(d) and 11(a)'s gang rounds are the main path: kernel
 launch counters are set to 0 just before each and read just after, and
 every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -3125,6 +3146,424 @@ def phase_net_faults(T, ops, plain):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: placement, gang dispatch and collective comm
+# ---------------------------------------------------------------------------
+
+GANG_TIMED = 3        # timed rounds a variant, after one warm-up round
+
+
+def gang_server(T, device, placement=True, nonblocking=False, tick=True,
+                **kw):
+    """Phase 4's model, data and FedProx with 4 executors under a
+    TickTimer (``tick=False``: the default timer, ``time.perf_counter``),
+    pinned to ``device`` by a one-device placement (``placement=False``:
+    none).  The TickTimer measures every block alike, so LPT hands each
+    executor 4 of the 16 equal clients: one block of 4 a round, aligned
+    waves for the gang."""
+    algo = T.make_algorithm("fedprox", T.value_and_grad(mlp_loss), 0.05,
+                            local_epochs=1)
+    timer = T.TickTimer(1.0) if tick else None
+    execs = [T.SequentialExecutor(k, algo, client_block=8, device=device,
+                                  timer=timer, nonblocking=nonblocking)
+             for k in range(4)]
+    pl = (T.DevicePlacement(range(4), devices=[device]) if placement
+          else None)
+    return T.ParrotServer(params=mlp_params(), algorithm=algo,
+                          executors=execs, data_by_client=mlp_clients(T),
+                          clients_per_round=16, seed=0, device=device,
+                          placement=pl, **kw)
+
+
+class SyncCount:
+    """While active, counts the executors' (and the gang's) synchronize
+    calls."""
+
+    def __enter__(self):
+        from repro_torch.core import executor
+        self.mod, self.inner, self.n = executor, executor.synchronize, 0
+
+        def sync(device):
+            self.n += 1
+            return self.inner(device)
+
+        executor.synchronize = sync
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.synchronize = self.inner
+
+
+def record_queues(srv):
+    """Keep every (round, queues) the scheduler hands out."""
+    seen, inner = [], srv.scheduler.schedule
+
+    def schedule(rnd, tasks, executors, **kw):
+        s = inner(rnd, tasks, executors, **kw)
+        seen.append((rnd, {k: [t.client for t in q]
+                           for k, q in s.assignment.items()}))
+        return s
+
+    srv.scheduler.schedule = schedule
+    return seen
+
+
+def gang_rounds(T, srv, rounds):
+    """``rounds`` rounds, each timed on the host around work that ends in a
+    synchronise: wall, client-steps/s, makespan, client-step dispatches
+    (``ClientStepEngine.n_dispatches``) and synchronize calls."""
+    eng = T.engine_for(srv.algorithm, torch.device("cuda", 0))
+    rows = []
+    with SyncCount() as sc:
+        for _ in range(rounds):
+            d0, s0 = eng.n_dispatches, sc.n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = srv.run_round()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rows.append({"round": m.round, "makespan_s": m.makespan,
+                         "wall_s": wall,
+                         "client_steps_per_s": m.n_clients * NB / wall,
+                         "dispatches": eng.n_dispatches - d0,
+                         "synchronize_calls": sc.n - s0,
+                         "comm_bytes": m.comm_bytes})
+    return rows
+
+
+def gang_variant(T, ops, label, card, prepare=None, **kw):
+    """One phase-11 variant on the card: the warm-up and timed rounds
+    (the fold counters set to 0 just before them and read just after), the
+    params after them, then one device-only profiled round."""
+    srv = gang_server(T, "cuda", **kw)
+    if prepare is not None:
+        prepare(srv)
+    queues = record_queues(srv)
+    ops.reset_agg_counts()
+    rows = gang_rounds(T, srv, 1 + GANG_TIMED)
+    launches = {"fold": ops.agg_launches, "leaves": ops.agg_leaves_launches}
+    params = {k: v.detach().clone() for k, v in srv.params.items()}
+    prof = profile_round(srv)
+    timed = rows[1:]
+    walls = [r["wall_s"] for r in timed]
+    log(f"phase 11 {label} [{card}]: timed round walls "
+        f"{[round(w, 4) for w in walls]} s, client-steps/s "
+        f"{[round(r['client_steps_per_s'], 1) for r in timed]}, "
+        f"client-step dispatches {[r['dispatches'] for r in rows]} and "
+        f"synchronize calls {[r['synchronize_calls'] for r in rows]} a "
+        f"round (warm-up first), makespans "
+        f"{[r['makespan_s'] for r in rows]}, fold launches "
+        f"{launches['fold']} ({launches['leaves']} of the leaves form)")
+    if prof is None:
+        log(f"phase 11 {label} profile: the trace holds no device time "
+            f"(not measured)")
+    else:
+        log(f"phase 11 {label} profile (one more round) [{card}]: wall "
+            f"{prof['wall_s']:.3f} s, device busy "
+            f"{prof['device_busy_s']:.4f} s, idle share "
+            f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
+            f"kernel launches, fold {prof['fold_kernels']} kernels "
+            f"{prof['fold_device_s'] * 1e3:.4f} ms")
+    return {"queues": queues, "rows": rows, "params": params,
+            "profile": prof, "fold_launches": launches,
+            "median_wall_s": float(np.median(walls)),
+            "median_client_steps_per_s": float(np.median(
+                [r["client_steps_per_s"] for r in timed]))}
+
+
+def bits_equal(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
+def phase_gang_fold(T, ops, parts, card):
+    """11(d): the placement's global fold on a round's four real partials:
+    bit for bit the host left fold, one launch a fp32 weight group, and
+    its device time beside K-1 ``torch.add``s."""
+    from repro_torch.core import tree
+    from repro_torch.core.placement import rank_ordered_reduce
+    ops_ = {"delta": T.Op.WEIGHTED_AVG}
+    groups = sorted(parts[0]["sums"]["buffers"])
+    ref = T.global_aggregate(parts, ops_)
+    pl = T.DevicePlacement(range(4), devices=["cuda"])
+    ops.reset_agg_counts()
+    got = pl.global_fold(parts, ops_)
+    torch.cuda.synchronize()
+    launches = ops.agg_launches
+    if launches != len(groups):
+        raise AssertionError(f"11d: {launches} fold launches for "
+                             f"{len(groups)} weight groups")
+    leaves_g, leaves_r = tree.leaves(got), tree.leaves(ref)
+    if len(leaves_g) != len(leaves_r) or not all(
+            bits_equal(a, b) for a, b in zip(leaves_g, leaves_r)):
+        raise AssertionError("11d: the placement's fold differs from the "
+                             "host left fold")
+    bufs = [p["sums"]["buffers"][groups[0]] for p in parts]
+    n = bufs[0].numel()
+    timer = Timer()
+
+    def adds():
+        t = bufs[0]
+        for b in bufs[1:]:
+            t = t + b
+        return t
+
+    fold_ms = timer.ms(lambda: rank_ordered_reduce(bufs, bufs[0].device))
+    add_ms = timer.ms(adds)
+    bound, by = fold_bound_ms(n, len(bufs) - 1, 4)
+    ops.reset_agg_counts()         # the timing's launches do not count
+    log(f"phase 11d [{card}]: global fold of the 4 partials (n={n}): "
+        f"{launches} launch for {len(groups)} weight group, bit for bit the "
+        f"host left fold over {len(leaves_g)} leaves; kernel {fold_ms:.4f} "
+        f"ms vs {len(bufs) - 1} torch.add {add_ms:.4f} ms, bound "
+        f"{bound:.4f} ms ({by})")
+    return {"launches": launches, "groups": len(groups), "n": n,
+            "ms": fold_ms, "adds_ms": add_ms, "bound_ms": bound,
+            "bound_by": by}
+
+
+def phase_gang_comm(T, ops, serial_params, card):
+    """11(e): BSP under ``CollectiveComm``: a round bills the broadcast
+    once plus twice each partial's sums; params equal the ``LocalComm``
+    run (11a's serial variant) bit for bit."""
+    from repro_torch.comm import CollectiveComm
+    from repro_torch.core.aggregation import payload_bytes
+    comm = CollectiveComm()
+    expect = {"b": 0}
+    inner_b, inner_s = comm.broadcast, comm.executor_send
+
+    def broadcast(payload, executors, tag):
+        expect["b"] += payload_bytes(payload)
+        return inner_b(payload, executors, tag)
+
+    def executor_send(executor, payload, tag):
+        expect["b"] += 2 * payload_bytes(payload["sums"])
+        return inner_s(executor, payload, tag)
+
+    comm.broadcast, comm.executor_send = broadcast, executor_send
+    srv = gang_server(T, "cuda", placement=False, comm=comm)
+    billed = []
+    for _ in range(1 + GANG_TIMED):
+        expect["b"] = 0
+        m = srv.run_round()
+        billed.append((m.comm_bytes, expect["b"]))
+    if any(a != b for a, b in billed):
+        raise AssertionError(f"11e: comm_bytes vs broadcast + 2 x partials: "
+                             f"{billed}")
+    if not all(bits_equal(srv.params[k], serial_params[k])
+               for k in serial_params):
+        raise AssertionError("11e: CollectiveComm params differ from the "
+                             "LocalComm run")
+    log(f"phase 11e [{card}]: CollectiveComm comm_bytes a round "
+        f"{[a for a, _ in billed]} == the broadcast once + 2 x each "
+        f"partial's sums; params equal the LocalComm run bit for bit")
+    return {"comm_bytes": [a for a, _ in billed]}
+
+
+def phase_gang_faults(T, ops, faults, card):
+    """11(f): 10(c)'s first cell whose plan restarted an executor, under a
+    one-device placement: the crash releases the pin, the restart re-pins
+    through ``placement.pin``; card == CPU window by window under the
+    TickTimer, and == 10(c)'s placement-free run."""
+    cell = next(c for c in FAULT_CELLS
+                if sum(r["fault_restarts"] for r in faults[
+                    c[0] if c[1] is None else f"{c[0]} q{c[1]}"][
+                        "fault_counters"]) > 0)
+    engine, quorum = cell
+    label = engine if quorum is None else f"{engine} q{quorum}"
+    ref = faults[label]
+    out = {}
+    for device in ("cuda", "cpu"):
+        pins, windows = [], []
+
+        def prepare(srv, pins=pins):
+            inner = srv.placement.pin
+
+            def pin(k):
+                d = inner(k)
+                pins.append((srv.round, k, str(d)))
+                return d
+
+            srv.placement.pin = pin
+
+        srv = fault_run(T, device, engine, quorum, FAULT_ROUNDS,
+                        fault_plan(T, FAULT_SEED, ref["horizon_s"]),
+                        placement=T.DevicePlacement(range(4),
+                                                    devices=[device]),
+                        prepare=prepare,
+                        on_round=lambda r, m, w, win=windows: win.append(
+                            window_key(m)))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out[device] = {"windows": windows, "pins": pins,
+                       "devices": {k: str(srv.placement.device(k))
+                                   for k in srv.placement.executors()},
+                       "executor_devices": {k: str(ex.device) for k, ex in
+                                            srv.executors.items()}}
+    got = out["cuda"]
+    if not got["pins"]:
+        raise AssertionError(f"11f {label}: no restart re-pinned")
+    if got["windows"] != out["cpu"]["windows"]:
+        raise AssertionError(f"11f {label}: card and CPU windows differ: "
+                             f"{got['windows']} vs {out['cpu']['windows']}")
+    if [w[1] for w in got["windows"]] != ref["makespans"]:
+        raise AssertionError(f"11f {label}: makespans differ from 10(c)'s "
+                             f"placement-free run")
+    if any(got["devices"][k] != got["executor_devices"][k]
+           for k in got["executor_devices"]):
+        raise AssertionError(f"11f {label}: an executor is not on its pin")
+    log(f"phase 11f {label} [{card}]: restarts re-pinned (round, executor,"
+        f" device) {got['pins']}; placement.device(k) {got['devices']}; "
+        f"card == CPU window by window over {FAULT_ROUNDS} rounds and == "
+        f"10(c)'s placement-free makespans {ref['makespans']}")
+    return {"cell": label, **got}
+
+
+def rounds_ganged(rows, queues):
+    """Per round: did it gang (one client-step dispatch a wave, a wave
+    being every executor's i-th block of 8)?"""
+    return [r["dispatches"] == max(-(-len(q) // 8) for q in qs.values())
+            for r, (_, qs) in zip(rows, queues)]
+
+
+def phase_gang_real_timer(T, card):
+    """11(g): serial, gang and parallel dispatch under the default timer
+    (``time.perf_counter``), as a user runs them: how many timed rounds
+    ganged, each round's queue lengths, the makespans, and the per-client
+    record times (``RunRecord.time``, what the estimator fits).  A
+    measurement: nothing here is held to a bound."""
+    out = {}
+    for label, kw in (("serial", {"placement": False}), ("gang", {}),
+                      ("parallel", {"placement": False,
+                                    "parallel_dispatch": True})):
+        srv = gang_server(T, "cuda", tick=False, **kw)
+        queues = record_queues(srv)
+        rows = gang_rounds(T, srv, 1 + GANG_TIMED)
+        timed = {r["round"] for r in rows[1:]}
+        recs = [rec.time for rs in srv.estimator._records.values()
+                for rec in rs if rec.round in timed]
+        ganged = rounds_ganged(rows, queues)[1:]
+        v = {"walls_s": [r["wall_s"] for r in rows[1:]],
+             "makespans_s": [r["makespan_s"] for r in rows[1:]],
+             "dispatches": [r["dispatches"] for r in rows],
+             "queue_lengths": [sorted(len(q) for q in qs.values())
+                               for _, qs in queues],
+             "rounds_ganged": int(sum(ganged)),
+             "record_time_median_s": float(np.median(recs)),
+             "record_time_range_s": [float(min(recs)), float(max(recs))]}
+        out[label] = v
+        log(f"phase 11g {label}, default timer [{card}]: timed round walls "
+            f"{[round(w, 4) for w in v['walls_s']]} s, makespans "
+            f"{[round(m, 4) for m in v['makespans_s']]} s, queue lengths "
+            f"{v['queue_lengths']} (warm-up first), client-step dispatches "
+            f"{v['dispatches']}, {v['rounds_ganged']} of {GANG_TIMED} "
+            f"timed rounds ganged, per-client record time median "
+            f"{v['record_time_median_s'] * 1e3:.3f} ms (range "
+            f"{v['record_time_range_s'][0] * 1e3:.3f}-"
+            f"{v['record_time_range_s'][1] * 1e3:.3f} ms)")
+    s, g = out["serial"], out["gang"]
+    log(f"phase 11g [{card}]: gang / serial under the default timer: "
+        f"median makespan {np.median(g['makespans_s']):.4f} / "
+        f"{np.median(s['makespans_s']):.4f} s, median record time "
+        f"{g['record_time_median_s'] * 1e3:.3f} / "
+        f"{s['record_time_median_s'] * 1e3:.3f} ms (the gang charges each "
+        f"lane the whole wave)")
+    return out
+
+
+def phase_gang(T, ops, card, faults):
+    """Phase 11: (a) serial vs gang, (b) nonblocking, (c) parallel
+    dispatch on streams, (d) the global fold on the fold kernel, (e)
+    CollectiveComm, (f) a fault-plan restart re-pinned, (g) serial, gang
+    and parallel under the default timer."""
+    t_phase = time.perf_counter()
+    ndev = torch.cuda.device_count()
+    if ndev < 2:
+        log(f"phase 11: {ndev} CUDA device: K-device cases not run")
+    serial = gang_variant(T, ops, "(a) serial", card, placement=False)
+    parts_box = []
+
+    def capture(srv):
+        """Keep the last round's partials, as the global fold gets them."""
+        inner = srv.placement.global_fold
+
+        def fold(partials, ops_):
+            parts_box[:] = [partials]
+            return inner(partials, ops_)
+
+        srv.placement.global_fold = fold
+
+    # 11a's gang rounds are the main path: gang_variant sets the fold
+    # counters to 0 just before them and reads them just after
+    gang = gang_variant(T, ops, "(a) gang", card, prepare=capture)
+    # every timed round ganged: one client-step dispatch a wave (each
+    # executor's queue is one block of 4: one wave a round); the warm-up
+    # round under the serial count too
+    waves = [max(-(-len(q) // 8) for q in qs.values())
+             for _, qs in gang["queues"][1:1 + GANG_TIMED]]
+    dispatches = [r["dispatches"] for r in gang["rows"]]
+    if dispatches[1:] != waves or \
+            dispatches[0] >= serial["rows"][0]["dispatches"]:
+        raise AssertionError(f"11a: gang dispatches {dispatches} (warm-up "
+                             f"first) vs waves {waves}: a round fell back "
+                             f"to serial")
+    if gang["fold_launches"]["fold"] <= 0 or \
+            gang["fold_launches"]["leaves"] >= gang["fold_launches"]["fold"]:
+        raise AssertionError(f"11a: fold launches {gang['fold_launches']}: "
+                             f"expected the leaves form's and the global "
+                             f"fold's rows form")
+    if gang["queues"] != serial["queues"][:len(gang["queues"])] or \
+            [r["makespan_s"] for r in gang["rows"]] != \
+            [r["makespan_s"] for r in serial["rows"]]:
+        raise AssertionError("11a: gang and serial schedules or makespans "
+                             "differ under the TickTimer")
+    err = max(float((gang["params"][k] - serial["params"][k]).abs().max())
+              for k in serial["params"])
+    for k in serial["params"]:
+        torch.testing.assert_close(gang["params"][k], serial["params"][k],
+                                   atol=1e-5, rtol=1e-5,
+                                   msg=f"11a gang vs serial {k}")
+    log(f"phase 11 (a) [{card}]: gang == serial schedules and makespans "
+        f"exactly over {1 + GANG_TIMED} rounds; params max |gang - serial| "
+        f"{err:.3g} <= 1e-5; median wall {gang['median_wall_s']:.4f} vs "
+        f"{serial['median_wall_s']:.4f} s")
+    nonblocking = gang_variant(T, ops, "(b) nonblocking", card,
+                               nonblocking=True, gang_dispatch=False)
+    if not all(bits_equal(nonblocking["params"][k], serial["params"][k])
+               for k in serial["params"]):
+        raise AssertionError("11b: nonblocking params differ from serial")
+    parallel = gang_variant(T, ops, "(c) parallel", card, placement=False,
+                            parallel_dispatch=True)
+    perr = max(float((parallel["params"][k] - serial["params"][k])
+                     .abs().max()) for k in serial["params"])
+    for k in serial["params"]:
+        torch.testing.assert_close(parallel["params"][k],
+                                   serial["params"][k], atol=1e-5,
+                                   rtol=1e-5, msg=f"11c parallel {k}")
+    log(f"phase 11 (b), (c) [{card}]: nonblocking params == serial bit for "
+        f"bit; parallel params max |diff| {perr:.3g} <= 1e-5")
+    fold = phase_gang_fold(T, ops, parts_box[0], card)
+    comm = phase_gang_comm(T, ops, serial["params"], card)
+    fault = phase_gang_faults(T, ops, faults, card)
+    real_timer = phase_gang_real_timer(T, card)
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 11: {seconds:.1f} s")
+
+    def summary(v):
+        return {k: v[k] for k in ("rows", "profile", "fold_launches",
+                                  "median_wall_s",
+                                  "median_client_steps_per_s")}
+
+    return {"card": card, "devices": ndev,
+            "serial": summary(serial), "gang": summary(gang),
+            "nonblocking": summary(nonblocking),
+            "parallel": summary(parallel), "gang_params_max_err": err,
+            "parallel_params_max_err": perr,
+            "gang_fold_launches": gang["fold_launches"]["fold"],
+            "global_fold": fold, "collective": comm, "fault_repin": fault,
+            "real_timer": real_timer, "seconds": seconds}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -3149,7 +3588,7 @@ def main() -> int:
     from repro_torch.models import lm
 
     t_start = time.perf_counter()
-    phase_card()
+    card = phase_card()
     t0 = time.perf_counter()
     paths = _build.build(["agg_weighted_sum", "topk_compress",
                           "flash_attention", "ssm_scan", "rmsnorm"])
@@ -3193,6 +3632,7 @@ def main() -> int:
                  for e in CKPT_ENGINES}
     nf = phase_net_faults(T, ops, topk_with_residual_plain)
     nf_runs = nf["network"]["runs"]
+    gang = phase_gang(T, ops, card, nf["faults"])
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -3246,6 +3686,9 @@ def main() -> int:
                            if k != "totals"},
         "fault_resume_launches": nf["resume"]["fold_launches"],
         "network_faults": nf,
+        "gang_launches": gang["gang_fold_launches"],
+        "global_fold": gang["global_fold"],
+        "placement": gang,
     }, {
         "name": "topk_compress",
         "route": "cuda",

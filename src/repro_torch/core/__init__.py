@@ -18,6 +18,8 @@
                                simulation (comm-priced virtual time)
   faults.py                  — fault injection & recovery (seeded chaos
                                plans, retries, crashes and restarts)
+  placement.py               — executor→device pinning + the rank-ordered
+                               global fold on the fold kernel
   tree.py                    — nested-container helpers in jax.tree order
 """
 from repro_torch.core.aggregation import (ClientResult, LocalAggregator, Op,
@@ -40,6 +42,7 @@ from repro_torch.core.faults import (FaultEvent, FaultInjector, FaultPlan,
 from repro_torch.core.flat import FlatLayout
 from repro_torch.core.network import (ClientAvailability, CommEvent,
                                       LinkProfile, NetworkModel)
+from repro_torch.core.placement import DevicePlacement
 from repro_torch.core.population import (ClientPopulation, EagerPopulation,
                                          LazyPopulation, as_population)
 from repro_torch.core.round import (ParrotServer, RoundMetrics,
@@ -55,7 +58,8 @@ __all__ = [
     "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientAvailability",
     "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
-    "CommEvent", "CompressedTensor", "EagerPopulation", "ExecutorFailure",
+    "CommEvent", "CompressedTensor", "DevicePlacement", "EagerPopulation",
+    "ExecutorFailure",
     "FLAlgorithm", "FaultEvent", "FaultInjector", "FaultPlan",
     "FlatLayout", "Int8Compressor", "LazyPopulation", "LinkProfile",
     "LocalAggregator", "NetworkModel", "Op",

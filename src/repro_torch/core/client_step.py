@@ -19,10 +19,23 @@ counts the first sight of each ``(signature, padded B)`` block shape per
 engine instead — where the JAX engine compiles — so the executor's
 first-block re-measure keeps its meaning (the first run of a shape pays
 one-off costs: the vmap set-up, library handles, the allocator's growth).
+
+Gang dispatch (DESIGN.md §8): :meth:`ClientStepEngine.run_blocks_ganged`
+runs the aligned blocks of K executors as one wave.  On one device the K
+stacks concatenate into one ``(K·B_pad, …)`` vmap of the same body
+``run_block`` vmaps, so the host dispatches the client step once a wave
+instead of K times; on K distinct devices the K blocks are launched back to
+back with no synchronize between them.  ``n_dispatches`` counts the
+client-step calls an engine makes (one a gang wave).
+
+The shape counter, the dispatch counts and the engine cache are shared by
+executors that run in threads (``ParrotServer(parallel_dispatch=True)``), so
+their updates take a lock.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +49,7 @@ Pytree = Any
 
 # Process-wide count of first-seen block shapes (see the module docstring).
 _compile_events = 0
+_lock = threading.Lock()
 
 
 def compile_events() -> int:
@@ -96,20 +110,61 @@ def place_prep(prep: Tuple[Any, Any], device: torch.device
             as_tensor(mask, device))
 
 
+class PlacedCache:
+    """Single-slot identity-keyed memo of 'host object(s) -> placed copy'.
+
+    The same object identity gives the same placed copy; another object
+    replaces the slot."""
+
+    __slots__ = ("_key", "_val")
+
+    def __init__(self):
+        self._key = None
+        self._val = None
+
+    def get(self, key_objs: Tuple, place: Callable[[], Any]) -> Any:
+        if self._key is None or len(self._key) != len(key_objs) or \
+                any(a is not b for a, b in zip(self._key, key_objs)):
+            self._val = place()
+            self._key = tuple(key_objs)
+        return self._val
+
+    def clear(self) -> None:
+        self._key = self._val = None
+
+
+def place_tree(tree_: Any, device: torch.device) -> Any:
+    """Every tensor of ``tree_`` on ``device`` (tensors already there are
+    kept as they are)."""
+    return tree.map(lambda t: t.to(device) if hasattr(t, "to") else t,
+                    tree_)
+
+
 class ClientStepEngine:
     """The local-SGD loop of one algorithm on one device, for one client
-    (:meth:`run_client`) or a vmapped block (:meth:`run_block`)."""
+    (:meth:`run_client`), a vmapped block (:meth:`run_block`) or a gang
+    wave of K blocks (:meth:`run_blocks_ganged`)."""
 
     def __init__(self, algorithm: FLAlgorithm, device: torch.device):
         self.algorithm = algorithm
         self.device = device
+        self.n_dispatches = 0       # client-step calls made
         self._seen: set = set()     # first-seen shapes (compile_events)
+        self._payload_cache = PlacedCache()
 
     def _note_shape(self, key: Tuple) -> None:
         global _compile_events
-        if key not in self._seen:
-            self._seen.add(key)
-            _compile_events += 1
+        with _lock:
+            self.n_dispatches += 1
+            if key not in self._seen:
+                self._seen.add(key)
+                _compile_events += 1
+
+    def _commit_payload(self, payload: Dict) -> Dict:
+        """The broadcast payload on the engine's device, placed once per
+        payload object."""
+        return self._payload_cache.get(
+            (payload,), lambda: place_tree(payload, self.device))
 
     # ------------------------------------------------------------------
     def _run_one(self, payload: Dict, state: Optional[Pytree], batches: Any,
@@ -177,17 +232,8 @@ class ClientStepEngine:
         if states is not None:
             padded = list(states) + [states[0]] * (B_pad - B)
             sstates = tree.map(lambda *xs: torch.stack(xs), *padded)
-        self._note_shape(("block", B_pad, tuple(
-            _leaf_sig(l) for l in tree.leaves(batches))))
-        if sstates is None:
-            out_payload = torch.func.vmap(
-                lambda p, b, m: self._run_one(p, None, b, m)[0],
-                in_dims=(None, 0, 0))(payload, batches, mask)
-            new_states = None
-        else:
-            out_payload, new_states = torch.func.vmap(
-                self._run_one, in_dims=(None, 0, 0, 0))(
-                    payload, sstates, batches, mask)
+        out_payload, new_states = self._run_stacked(payload, sstates,
+                                                    batches, mask)
         if B_pad > B:
             out_payload = tree.map(lambda x: x[:B], out_payload)
         if states is None:
@@ -197,6 +243,67 @@ class ClientStepEngine:
         return out_payload, [tree.map(lambda x: x[i].clone(), new_states)
                              for i in range(B)]
 
+    def _run_stacked(self, payload: Dict, sstates: Optional[Pytree],
+                     batches: Any, mask: torch.Tensor, kind: str = "block"
+                     ) -> Tuple[Dict[str, Any], Optional[Pytree]]:
+        """One vmapped loop over stacked ``(B, …)`` batches, masks and
+        states: the body of :meth:`run_block` and of a gang wave."""
+        self._note_shape((kind, mask.shape[0], tuple(
+            _leaf_sig(l) for l in tree.leaves(batches))))
+        if sstates is None:
+            out_payload = torch.func.vmap(
+                lambda p, b, m: self._run_one(p, None, b, m)[0],
+                in_dims=(None, 0, 0))(payload, batches, mask)
+            return out_payload, None
+        return torch.func.vmap(self._run_one, in_dims=(None, 0, 0, 0))(
+            payload, sstates, batches, mask)
+
+    def run_blocks_ganged(self, payload: Dict,
+                          preps: Sequence[Tuple[Any, torch.Tensor]],
+                          states: Optional[Sequence[Pytree]] = None
+                          ) -> List[Tuple[Dict[str, Any], Optional[Pytree]]]:
+        """One gang wave: K same-bucket client blocks (DESIGN.md §8).
+
+        ``preps``: K ``(stacked batches (B_pad, …), mask (B_pad, n))``
+        pairs, all with equal shapes, the k-th on lane k's device;
+        ``states``: K stacked ``(B_pad, …)`` state trees, or None.  On one
+        device (this engine's) the K stacks concatenate into one
+        ``(K·B_pad, …)`` vmap — one dispatch for the wave; on K distinct
+        devices each lane's engine runs its block, launched back to back with
+        no synchronize.  Any other mix raises.
+
+        Returns K ``(stacked result payload, stacked new states)`` pairs of
+        ``(B_pad, …)`` tensors, each on its lane's device."""
+        K = len(preps)
+        devs = [p[1].device for p in preps]
+        if all(d == self.device for d in devs):
+            B_pad = preps[0][1].shape[0]
+            batches = tree.map(lambda *xs: torch.cat(xs),
+                               *[p[0] for p in preps])
+            mask = torch.cat([p[1] for p in preps])
+            sstates = (None if states is None else
+                       tree.map(lambda *xs: torch.cat(xs), *states))
+            out_payload, new_states = self._run_stacked(
+                self._commit_payload(payload), sstates, batches, mask,
+                kind="gang")
+
+            def lane(t, j):
+                return (None if t is None else
+                        tree.map(lambda x: x[j * B_pad:(j + 1) * B_pad], t))
+
+            return [(lane(out_payload, j), lane(new_states, j))
+                    for j in range(K)]
+        if len(set(devs)) != K:
+            raise ValueError("a gang wave runs on one device or on K "
+                             "distinct devices, not on a mix")
+        out = []
+        for j, (batches, mask) in enumerate(preps):
+            eng = engine_for(self.algorithm, devs[j])
+            out.append(eng._run_stacked(
+                eng._commit_payload(payload),
+                None if states is None else states[j], batches, mask))
+        return out
+
 
 def engine_for(algorithm: FLAlgorithm,
                device: torch.device) -> ClientStepEngine:
@@ -204,8 +311,9 @@ def engine_for(algorithm: FLAlgorithm,
     the algorithm *and* the device share one engine)."""
     cache = getattr(algorithm, "_step_engines", None)
     if cache is None:
-        cache = algorithm._step_engines = {}
+        cache = algorithm.__dict__.setdefault("_step_engines", {})
     eng = cache.get(device)
     if eng is None:
-        eng = cache[device] = ClientStepEngine(algorithm, device=device)
+        eng = cache.setdefault(device,
+                               ClientStepEngine(algorithm, device=device))
     return eng

@@ -34,6 +34,7 @@ sequences are identical.
 from __future__ import annotations
 
 import heapq
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Tuple
@@ -46,16 +47,19 @@ class TickTimer:
 
     Durations measured with a TickTimer depend only on how many timer calls
     the measured span contains — i.e. on the exact code path taken — which is
-    what the engine-equivalence tests want to pin down.
+    what the engine-equivalence tests want to pin down.  A call is atomic:
+    executors that run in threads (``parallel_dispatch``) may share one.
     """
 
     def __init__(self, dt: float = 1.0):
         self.dt = float(dt)
         self.now = 0.0
+        self._lock = threading.Lock()
 
     def __call__(self) -> float:
-        self.now += self.dt
-        return self.now
+        with self._lock:
+            self.now += self.dt
+            return self.now
 
 
 @dataclass(frozen=True)

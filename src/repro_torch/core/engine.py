@@ -46,15 +46,20 @@ crashes, restarts, dropouts, corrupt payloads, blackouts and slowdowns are
 virtual-time events routed through each engine's re-run path.  With
 neither (the defaults) every engine keeps its comm-free, fault-free path.
 
-The branches of the JAX engines that read the control plane, telemetry or
-a device placement are left out, each with a comment naming the ROADMAP.md
-item (modules queue) that ports it; ``ParrotServer`` refuses those knobs,
-so none of them can be reached.  A checkpoint manager saves at each
-engine's commit point; the engines' cross-round state round-trips through
-``state_dict`` / ``load_state_dict``.
+Under a device placement a BSP round whose queues plan into aligned block
+waves runs each wave as one gang dispatch
+(``executor.run_queues_ganged``); ``parallel_dispatch`` runs the BSP
+executors in threads, each on its own CUDA stream.  The branches of the
+JAX engines that read the control plane or telemetry (the DES engines'
+gang waves among them) are left out, each with a comment naming the
+ROADMAP.md item (modules queue) that ports it; ``ParrotServer`` refuses
+those knobs, so none of them can be reached.  A checkpoint manager saves at
+each engine's commit point; the engines' cross-round state round-trips
+through ``state_dict`` / ``load_state_dict``.
 """
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
 import math
 import time
@@ -68,7 +73,8 @@ from repro_torch.core.aggregation import (merge_partials, payload_bytes,
                                           scale_partial, staleness_weight,
                                           wire_bytes)
 from repro_torch.core.clock import VirtualClock
-from repro_torch.core.executor import ExecutorFailure, ExecutorReport
+from repro_torch.core.executor import (ExecutorFailure, ExecutorReport,
+                                       run_queues_ganged)
 from repro_torch.core.faults import FaultCounters, scale_report
 from repro_torch.core.network import CommEvent
 from repro_torch.core.scheduler import (ClientTask, Schedule,
@@ -89,6 +95,51 @@ def _ship_partial(srv, executor: int, compressed: Dict) -> Dict:
     if wire is None:
         wire = srv.comm.recv_from_executor(executor, tag="partial")
     return srv._maybe_decompress(wire)
+
+
+def _run_parallel(srv, live: List[int], run) -> List[Tuple[str, Any]]:
+    """BSP's parallel dispatch: ``run(k)`` for every live executor in a
+    thread of its own, outcomes in completion order as ``("queue_done",
+    report)`` or ``("executor_failed", k)``.
+
+    An executor on a CUDA device runs on a stream of its own, which first
+    waits for the server's stream (the round's payload); its timed spans
+    wait for that stream alone (``device.synchronize``), so the threads'
+    blocks can overlap on the card and a span holds no other thread's
+    device work (its host issue still shares the GIL).  After the threads
+    the server's stream waits for each executor stream, and every partial
+    tensor is marked as used on the server's stream (``record_stream``), so
+    the caching allocator cannot hand its memory out again while the
+    global fold still reads it."""
+    streams = {}
+    for k in live:
+        dev = srv.executors[k].device
+        if dev.type == "cuda":
+            streams[k] = torch.cuda.Stream(dev)
+            streams[k].wait_stream(torch.cuda.current_stream(dev))
+
+    def on_stream(k: int) -> ExecutorReport:
+        if k not in streams:
+            return run(k)
+        with torch.cuda.stream(streams[k]):
+            return run(k)
+
+    out: List[Tuple[str, Any]] = []
+    with cf.ThreadPoolExecutor(max_workers=len(live)) as pool:
+        futs = {pool.submit(on_stream, k): k for k in live}
+        for fut in cf.as_completed(futs):
+            try:
+                out.append(("queue_done", fut.result()))
+            except ExecutorFailure:
+                out.append(("executor_failed", futs[fut]))
+    for s in streams.values():
+        torch.cuda.current_stream(s.device).wait_stream(s)
+    for kind, rep in out:
+        if kind == "queue_done" and rep.executor in streams:
+            for t in tree.leaves(rep.partial):
+                if isinstance(t, torch.Tensor) and t.is_cuda:
+                    t.record_stream(torch.cuda.current_stream(t.device))
+    return out
 
 
 def _tasks_of(srv, clients) -> List[ClientTask]:
@@ -709,15 +760,34 @@ class BSPEngine(RoundEngine):
         failed: List[int] = []
         done_clients: set = set()
 
+        def run(k: int) -> ExecutorReport:
+            return srv.executors[k].run_queue(
+                rnd, schedule.queue(k), payload, srv.data_by_client,
+                skip_clients=(skip_map or {}).get(k))
+
+        # gang dispatch (DESIGN.md §8): under a placement, a round whose
+        # queues plan into aligned block waves runs each wave as one
+        # client-step dispatch; the reports come back in executor order
+        # with the content the serial path gives them
+        ganged = None
+        if srv.gang_dispatch and not srv.parallel_dispatch:
+            ganged = run_queues_ganged(
+                srv.executors, rnd, {k: schedule.queue(k) for k in live},
+                payload, srv.data_by_client, srv.placement, skip_map)
         # barrier semantics: every outcome lands at t=0; seq order keeps the
-        # executor order.  The gang and parallel dispatches: item 15
-        for k in live:
-            try:
-                clock.push(0.0, "queue_done", srv.executors[k].run_queue(
-                    rnd, schedule.queue(k), payload, srv.data_by_client,
-                    skip_clients=(skip_map or {}).get(k)))
-            except ExecutorFailure:
-                clock.push(0.0, "executor_failed", k)
+        # executor order (completion order under parallel dispatch)
+        if ganged is not None:
+            for k in live:
+                clock.push(0.0, "queue_done", ganged[k])
+        elif srv.parallel_dispatch:
+            for kind, data in _run_parallel(srv, live, run):
+                clock.push(0.0, kind, data)
+        else:
+            for k in live:
+                try:
+                    clock.push(0.0, "queue_done", run(k))
+                except ExecutorFailure:
+                    clock.push(0.0, "executor_failed", k)
         for ev in clock.drain():
             if ev.kind == "queue_done":
                 reports.append(ev.data)

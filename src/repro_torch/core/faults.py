@@ -15,8 +15,8 @@ path is exercised — and testable — inside the deterministic simulation:
                    K shrinks until a matching ``restart``).
   - ``restart``  — a previously crashed executor rejoins at ``time``
                    through ``ParrotServer._revive_executor`` and picks up
-                   work at the next schedule (re-pinning it through a
-                   device placement: ROADMAP item 15).
+                   work at the next schedule, re-pinned through the
+                   server's device placement when it has one.
   - ``dropout``  — client ``client`` goes offline for ``duration`` seconds
                    starting at ``time``.  A chunk *dispatched* into the
                    window loses the client up front (mid-compute dropout);

@@ -20,8 +20,15 @@ clients, and a ``faults`` plan with its ``retry`` policy injects crashes,
 restarts, dropouts, corrupt payloads, blackouts and slowdowns
 (``core/network.py``, ``core/faults.py``, DESIGN.md §9–§10).
 
-The knobs still to port — ``placement`` and ``parallel_dispatch`` (item
-15), ``control`` and ``telemetry`` (item 16) — raise
+A ``placement`` (``core/placement.py``, DESIGN.md §8) pins the executors
+to devices, routes the global fold through its rank-ordered reduce on the
+fold kernel, and lets a BSP round gang its aligned block waves
+(``gang_dispatch``); ``parallel_dispatch`` runs the BSP executors in
+threads instead, each on its own CUDA stream.  Unlike the JAX package, no
+placement is derived from the executors' pins: every port executor carries
+a device, so a derived placement would gang every run.
+
+The knobs still to port — ``control`` and ``telemetry`` (item 16) — raise
 ``NotImplementedError`` naming their ROADMAP item rather than being
 ignored.
 """
@@ -45,6 +52,7 @@ from repro_torch.core.engine import make_engine
 from repro_torch.core.executor import SequentialExecutor
 from repro_torch.core.faults import FaultInjector, FaultPlan, RetryPolicy
 from repro_torch.core.network import ClientAvailability, NetworkModel
+from repro_torch.core.placement import DevicePlacement
 from repro_torch.core.population import ClientPopulation, as_population
 from repro_torch.core.scheduler import ClientTask, ParrotScheduler, Schedule
 from repro_torch.core.workload import WorkloadEstimator
@@ -52,8 +60,6 @@ from repro_torch.device import resolve_device
 
 # knob -> the ROADMAP.md item (modules queue) that ports it
 _LATER_KNOBS = {
-    "placement": "item 15 (placement and gang dispatch)",
-    "parallel_dispatch": "item 15 (placement and gang dispatch)",
     "control": "item 16 (control and telemetry)",
     "telemetry": "item 16 (control and telemetry)",
 }
@@ -92,7 +98,9 @@ class ParrotServer:
                  fold_fan_in: int = 16,
                  compressor: Optional[Any] = None,
                  mode: str = "parrot",
+                 placement: Optional[DevicePlacement] = None,
                  gang_dispatch: bool = True,
+                 parallel_dispatch: bool = False,
                  seed: int = 0,
                  device: Optional[Any] = None,
                  checkpoint_manager: Optional[Any] = None,
@@ -112,6 +120,15 @@ class ParrotServer:
         self.params = tree.map(lambda t: t.to(self.device), params)
         self.algorithm = algorithm
         self.executors: Dict[int, SequentialExecutor] = {e.id: e for e in executors}
+        # device placement (DESIGN.md §8): pins the executors here; the
+        # aggregate lands on its server device, which must be the server's
+        if placement is not None:
+            if placement.server_device != self.device:
+                raise ValueError(
+                    f"the placement folds onto {placement.server_device} "
+                    f"but the server runs on {self.device}")
+            placement.assign(executors)
+        self.placement = placement
         # dead executors parked for a restart or a restore to revive
         self._retired: Dict[int, SequentialExecutor] = {}
         self.population: ClientPopulation = as_population(data_by_client)
@@ -134,10 +151,17 @@ class ParrotServer:
             compressor = make_compressor(compressor)
         self.compressor = compressor
         self.mode = mode
-        # SPMD gang dispatch of gangable BSP rounds: a no-op until the
-        # multi-device placement is ported (ROADMAP.md, modules queue item
-        # 15), as it is in the JAX package without a placement
+        # gang dispatch of gangable BSP rounds (a no-op without a
+        # placement; see engine.BSPEngine._dispatch)
         self.gang_dispatch = bool(gang_dispatch)
+        if parallel_dispatch and any(
+                ex.nonblocking and ex.device.type == "cuda"
+                for ex in executors):
+            # each thread runs on its own stream: a block left in flight
+            # could read client state another stream has freed
+            raise ValueError("parallel_dispatch needs nonblocking=False "
+                             "executors on CUDA devices")
+        self.parallel_dispatch = bool(parallel_dispatch)
         # trace-driven network & availability simulation (DESIGN.md §9):
         # None for both keeps every engine on its comm-free code path
         self.network = network
@@ -165,9 +189,10 @@ class ParrotServer:
         self.checkpoint_manager = checkpoint_manager
         if self.engine.mode != "bsp":
             # BSP-specific knobs would silently no-op under the DES engines
-            # (which mitigate tails by deadline carry-over and work stealing
-            # instead); parallel_dispatch already raised above (item 15)
+            # (which serialize execution and mitigate tails by deadline
+            # carry-over and work stealing instead)
             for knob, val in (("backup_fraction", backup_fraction),
+                              ("parallel_dispatch", parallel_dispatch),
                               ("overlap_scheduling", overlap_scheduling)):
                 if val:
                     raise ValueError(
@@ -230,11 +255,15 @@ class ParrotServer:
     def global_fold(self, partials: List[Dict]) -> Dict[str, Any]:
         """``GlobalAggregate``: partial lists wider than ``fold_fan_in``
         first reduce through the hierarchical fan-in tree; at or below the
-        fan-in this is the flat left-fold."""
+        fan-in this is the flat left-fold.  Under a placement the final
+        reduce is its rank-ordered fold on the fold kernel (bit for bit the
+        same sum), landing on the server device."""
         ops = self.algorithm.ops()
         if (self.fold_fan_in > 1 and len(partials) > self.fold_fan_in
                 and all(is_flat_partial(p) for p in partials)):
             partials = tree_reduce_partials(partials, self.fold_fan_in)
+        if self.placement is not None:
+            return self.placement.global_fold(partials, ops)
         return global_aggregate(partials, ops)
 
     def _state_manager_extra(self) -> Optional[Dict[str, Any]]:
@@ -277,22 +306,25 @@ class ParrotServer:
         return self.compressor.decompress_partial(partial)
 
     def _drop_executor(self, k: int) -> None:
-        """Elastic K shrink: retire a dead executor.  The object parks in
-        ``_retired`` so a restart or a restore can rejoin it later — its
-        measured block costs survive the outage.  (Releasing its device pin
-        comes with the placement, ROADMAP.md item 15.)"""
+        """Elastic K shrink: retire a dead executor and release its device
+        pin.  The object parks in ``_retired`` so a restart or a restore can
+        rejoin it later — its measured block costs survive the outage."""
         ex = self.executors.pop(k, None)
         if ex is not None:
             self._retired[k] = ex
+        if self.placement is not None:
+            self.placement.release(k)
 
     def _revive_executor(self, k: int) -> bool:
         """A retired executor rejoins (a fault plan's restart event, or a
-        restore of a pre-crash topology) and subsequent schedules see K
-        grow again; re-pinning it through a device placement comes with
-        ROADMAP item 15.  False if ``k`` is not revivable."""
+        restore of a pre-crash topology): it is re-pinned through the
+        placement's deterministic least-loaded choice and subsequent
+        schedules see K grow again.  False if ``k`` is not revivable."""
         ex = self._retired.pop(k, None)
         if ex is None or k in self.executors:
             return False
+        if self.placement is not None:
+            ex.set_device(self.placement.pin(k))
         self.executors[k] = ex
         # canonical live order: plain insertion would park the revived k at
         # the dict's tail, making round iteration (dispatch and fold order)

@@ -27,10 +27,13 @@ def resolve_device(device: Optional[Any] = None) -> torch.device:
 
 
 def synchronize(device: torch.device) -> None:
-    """Wait for the device's queued work (the counterpart of
-    ``jax.block_until_ready`` around a timed span); no-op on the CPU."""
+    """Wait for the work queued on the device's current stream (the
+    counterpart of ``jax.block_until_ready`` around a timed span); no-op on
+    the CPU.  Only the calling thread's stream: under BSP's parallel
+    dispatch each executor thread runs on a stream of its own, and a
+    device-wide wait would put the other threads' work into its span."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def as_tensor(x: Any, device: Optional[torch.device] = None) -> torch.Tensor:

@@ -25,10 +25,14 @@ counterparts):
 
 :data:`flash_route_launches` splits the flash launches by the kernel the
 dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
+
+The fold and top-k counters are updated under a lock: executors that run
+in threads (``ParrotServer(parallel_dispatch=True)``) fold concurrently.
 """
 from __future__ import annotations
 
 import contextlib
+import threading
 from array import array
 from typing import Sequence, Tuple, Union
 
@@ -58,6 +62,7 @@ ssm_scan_dispatches = 0
 ssm_scan_launches = 0
 rmsnorm_dispatches = 0
 rmsnorm_launches = 0
+_count_lock = threading.Lock()
 
 
 def reset_agg_counts() -> None:
@@ -140,7 +145,8 @@ def agg_weighted_sum(acc: torch.Tensor,
     accumulator); only pass it when no other reference to ``acc`` must keep
     its value."""
     global agg_dispatches, agg_launches
-    agg_dispatches += 1
+    with _count_lock:
+        agg_dispatches += 1
     w = _weights(weights)
     if not isinstance(deltas, torch.Tensor):
         deltas = list(deltas)
@@ -161,7 +167,8 @@ def agg_weighted_sum(acc: torch.Tensor,
         return out
     with _on_device(acc):
         _agg.agg_weighted_sum_cuda(acc, deltas, w, out)
-    agg_launches += 1
+    with _count_lock:
+        agg_launches += 1
     return out
 
 
@@ -174,8 +181,9 @@ def _launch_leaves(acc: torch.Tensor, table: array, w: array,
         return
     with _on_device(acc):
         n = _agg.agg_fold_leaves_cuda(acc, table, w, out)
-    agg_launches += n
-    agg_leaves_launches += n
+    with _count_lock:
+        agg_launches += n
+        agg_leaves_launches += n
 
 
 def agg_fold_leaves(acc: torch.Tensor,
@@ -194,7 +202,8 @@ def agg_fold_leaves(acc: torch.Tensor,
     with a unit inner stride is made contiguous first (and counted in
     :data:`agg_leaf_copies`).  ``inplace`` as for :func:`agg_weighted_sum`."""
     global agg_dispatches, agg_leaf_copies
-    agg_dispatches += 1
+    with _count_lock:
+        agg_dispatches += 1
     w = _weights(weights)
     kind = acc.device.type
     if kind not in ("cpu", "cuda"):
@@ -209,7 +218,8 @@ def agg_fold_leaves(acc: torch.Tensor,
             acc.copy_(res)
             return acc
         return res
-    agg_leaf_copies += copies
+    with _count_lock:
+        agg_leaf_copies += copies
     out = acc if inplace else torch.empty_like(acc)
     _launch_leaves(acc, table, w, out)
     return out
@@ -261,7 +271,8 @@ def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
     residual buffer; never pass the partial).  ``x`` and ``res`` may be
     views into larger buffers (a span of a group buffer)."""
     global topk_dispatches, topk_launches
-    topk_dispatches += 1
+    with _count_lock:
+        topk_dispatches += 1
     k = int(k)
     if x.device.type == "cpu":
         idx, vals, new_res = _tkc.topk_with_residual_plain(x, res, k)
@@ -279,7 +290,8 @@ def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
         words = _tkc.scratch_words(x.numel())
     scratch = torch.empty(words, dtype=torch.int32, device=x.device)
     _tkc.topk_with_residual_cuda(x, res, k, idx, vals, new_res, scratch)
-    topk_launches += 1
+    with _count_lock:
+        topk_launches += 1
     return idx, vals, new_res
 
 

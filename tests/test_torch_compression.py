@@ -513,7 +513,7 @@ def test_server_builds_the_compiled_topk_codec_from_a_string():
                           executors=[], data_by_client={},
                           clients_per_round=1, device="cpu",
                           compressor="none").compressor is None
-    for knob in ("placement", "control", "telemetry"):
+    for knob in ("control", "telemetry"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
                            executors=[], data_by_client={},

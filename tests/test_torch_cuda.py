@@ -812,6 +812,119 @@ def test_cuda_fault_plan_run_equals_its_cpu_twin(cuda, engine):
                                    atol=1e-5, rtol=1e-5)
 
 
+def _equal_clients(n=24, samples=40, batch=20, dim=16):
+    """Equal-size clients: every executor's queue plans into aligned
+    block waves (the gang's gate)."""
+    rng = np.random.default_rng(0)
+    out = {}
+    for c in range(n):
+        ys = rng.integers(0, 4, size=samples).astype(np.int32)
+        xs = rng.normal(size=(samples, dim)).astype(np.float32)
+        out[c] = T.ClientData(
+            batches=[{"x": xs[i:i + batch], "y": ys[i:i + batch]}
+                     for i in range(0, samples, batch)], n_samples=samples)
+    return out
+
+
+def _placed(device, name="fedprox", rounds=4, **server_kw):
+    """Four executors ganged on one device, two waves of two clients an
+    executor a round, under a TickTimer."""
+    algo = T.make_algorithm(name, T.value_and_grad(_loss), lr=0.05)
+    sm = T.ClientStateManager(tempfile.mkdtemp())
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, state_manager=sm, timer=timer,
+                                  client_block=2, device=device)
+             for k in range(4)]
+    srv = T.ParrotServer(
+        params={"w": torch.zeros(16, 4), "b": torch.zeros(4)},
+        algorithm=algo, executors=execs, data_by_client=_equal_clients(),
+        clients_per_round=16, scheduler_policy="uniform", seed=0,
+        device=device, placement=T.DevicePlacement(range(4),
+                                                   devices=[device]),
+        **server_kw)
+    eng = T.engine_for(algo, torch.device(device))
+    srv.run(rounds)
+    return srv, eng
+
+
+@pytest.mark.parametrize("name", ["fedprox", "scaffold"])
+def test_cuda_gang_on_one_card_matches_serial_and_cpu(cuda, name):
+    """Four executors on cuda:0 ganged into one vmap a wave: one dispatch
+    a wave (no first-seen re-run on the card), the serial dispatch's and
+    the CPU gang's makespans, params within 1e-5 of both."""
+    gang, eng = _placed(cuda, name)
+    assert eng.n_dispatches == 4 * 2            # rounds x waves
+    serial, eng_s = _placed(cuda, name, gang_dispatch=False)
+    assert eng_s.n_dispatches > eng.n_dispatches
+    on_cpu, _ = _placed("cpu", name)
+    for other in (serial, on_cpu):
+        assert [m.makespan for m in gang.history] == \
+            [m.makespan for m in other.history]
+        for k in other.params:
+            torch.testing.assert_close(gang.params[k].cpu(),
+                                       other.params[k].cpu(),
+                                       atol=1e-5, rtol=1e-5)
+
+
+def test_cuda_parallel_dispatch_on_streams_matches_serial(cuda):
+    """Executors in threads, each on its own stream, give the serial
+    round within 1e-5."""
+    par, _ = _placed(cuda, "fedavg", rounds=3, parallel_dispatch=True)
+    serial, _ = _placed(cuda, "fedavg", rounds=3, gang_dispatch=False)
+    for k in serial.params:
+        torch.testing.assert_close(par.params[k], serial.params[k],
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("K", [4, 70])
+def test_cuda_global_fold_is_one_kernel_a_group_and_the_left_fold(cuda, K):
+    """The placement's global fold on the card: one rows-form launch a
+    fp32 weight group for every 64 rows past the first, equal bit for bit
+    to the host left fold ``b0 + b1 + …`` (a -0.0 of ``b0`` kept)."""
+    n = 1_207_440 if K == 4 else 10_001
+    ops_ = {"delta": T.Op.WEIGHTED_AVG, "count": T.Op.SUM}
+    layout = T.FlatLayout.build(ops_, {"delta": {"w": torch.zeros(n)},
+                                       "count": torch.zeros(())})
+    g = torch.Generator(device="cuda").manual_seed(7)
+    parts = []
+    for i in range(K):
+        w = torch.randn(n, device=cuda, generator=g) * 11
+        w[:5] = -0.0
+        parts.append({"sums": {"__flat__": True, "buffers": {
+            "weighted": w, "unit": torch.randn(1, device=cuda,
+                                               generator=g)}},
+            "layout": layout, "weights": {"delta": 2.0 + i},
+            "counts": {"delta": 2, "count": 1}, "collected": {},
+            "n_clients": 2})
+    pl = T.DevicePlacement(range(K), devices=[cuda])
+    ops.reset_agg_counts()
+    folded = pl.global_fold(parts, ops_)
+    torch.cuda.synchronize()
+    assert ops.agg_launches == 2 * -(-(K - 1) // ops.MAX_FOLD_ROWS)
+    ref = T.global_aggregate(parts, ops_)
+    for got, want in ((folded["delta"]["w"], ref["delta"]["w"]),
+                      (folded["count"], ref["count"])):
+        assert got.device == cuda
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_cuda_collective_comm_round_equals_local_comm(cuda):
+    """``CollectiveComm`` moves the card's partials by reference: params
+    equal the ``LocalComm`` run bit for bit, and a round bills the
+    broadcast once plus twice each partial's sums."""
+    from repro_torch.comm import CollectiveComm, LocalComm
+    from repro_torch.core.aggregation import payload_bytes
+    coll, _ = _placed(cuda, "fedavg", rounds=2, comm=CollectiveComm())
+    local, _ = _placed(cuda, "fedavg", rounds=2, comm=LocalComm())
+    for k in local.params:
+        assert torch.equal(coll.params[k], local.params[k])
+    algo = coll.algorithm
+    payload = algo.broadcast_payload(coll.params, coll.server_state)
+    assert coll.history[-1].comm_bytes > payload_bytes(payload)
+    assert [m.comm_bytes for m in coll.history] != \
+        [m.comm_bytes for m in local.history]
+
+
 def test_executor_defaults_to_the_card(cuda):
     algo = T.make_algorithm("fedavg", lambda p, b: (None, p), lr=0.1)
     assert T.SequentialExecutor(0, algo).device == cuda

@@ -226,8 +226,9 @@ def test_entry_points_default_to_the_card():
     "placement", "parallel_dispatch", "control", "telemetry"])
 def test_later_slice_knobs_raise(knob):
     """Each knob of a later slice raises naming its ROADMAP item; the
-    checkpoint manager (item 11) and the network, availability, fault plan
-    and retry policy (item 13) are ported and are taken as they are."""
+    checkpoint manager (item 11), the network, availability, fault plan
+    and retry policy (item 13), and the placement and parallel dispatch
+    (item 15) are ported and are taken as they are."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
     kw = dict(params={"w": torch.zeros(2)}, algorithm=algo, executors=[],
               data_by_client={}, clients_per_round=1, device="cpu")
@@ -236,7 +237,10 @@ def test_later_slice_knobs_raise(knob):
               "availability": (T.ClientAvailability.always(),
                                lambda s: s.availability),
               "faults": (T.FaultPlan(()), lambda s: s.faults.plan),
-              "retry": (T.RetryPolicy(), lambda s: s.faults.retry)}
+              "retry": (T.RetryPolicy(), lambda s: s.faults.retry),
+              "placement": (T.DevicePlacement([], devices=["cpu"]),
+                            lambda s: s.placement),
+              "parallel_dispatch": (True, lambda s: s.parallel_dispatch)}
     if knob in ported:
         val, read = ported[knob]
         assert read(T.ParrotServer(**kw, **{knob: val})) is val
@@ -262,11 +266,13 @@ def test_mode_and_gang_dispatch_stored_like_jax(kw):
 
 
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
-@pytest.mark.parametrize("knob", ["backup_fraction", "overlap_scheduling"])
+@pytest.mark.parametrize("knob", ["backup_fraction", "overlap_scheduling",
+                                  "parallel_dispatch"])
 def test_bsp_only_knobs_rejected_by_des_engines(engine, knob):
     """Both packages refuse a BSP-only knob under a DES engine."""
     kw = {"round_engine": engine,
-          knob: {"backup_fraction": 0.2, "overlap_scheduling": True}[knob]}
+          knob: {"backup_fraction": 0.2, "overlap_scheduling": True,
+                 "parallel_dispatch": True}[knob]}
     with pytest.raises(ValueError, match=knob):
         _servers("fedavg", n_clients=8, per_round=2, K=2, server_kw=kw,
                  jax_too=False)
@@ -280,14 +286,14 @@ def test_bsp_only_knobs_rejected_by_des_engines(engine, knob):
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
 def test_des_engines_refuse_the_left_out_knobs(engine):
     """Under a DES engine the knobs of later slices still raise, naming
-    their item (the network and fault plan, item 13, are taken); the
-    engines' checkpoint state (item 11) round-trips and a state of another
-    engine is refused."""
+    their item (the network and fault plan, item 13, and the placement,
+    item 15, are taken); the engines' checkpoint state (item 11)
+    round-trips and a state of another engine is refused."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
-    items = {"placement": "item 15", "control": "item 16",
-             "telemetry": "item 16"}
+    items = {"control": "item 16", "telemetry": "item 16"}
     for knob, val in (("network", T.NetworkModel({})),
-                      ("faults", T.FaultPlan(()))):
+                      ("faults", T.FaultPlan(())),
+                      ("placement", T.DevicePlacement([], devices=["cpu"]))):
         srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
                              executors=[], data_by_client={},
                              clients_per_round=1, device="cpu",
@@ -392,3 +398,83 @@ def test_state_manager_keeps_bf16_through_disk(tmp_path):
     assert sm.stats["skipped_rewrites"] > 0
     snap = sm.stats_snapshot()
     assert {"mem_bytes", "shard_ram_bytes", "disk_bytes"} <= set(snap)
+
+
+@pytest.mark.parametrize("fail", [False, True])
+def test_parallel_dispatch_matches_serial(fail):
+    """Executors in threads (each on its own stream on a card) give the
+    serial dispatch's round within 1e-5 (the JAX package's bar,
+    ``tests/test_system.py``), an executor failure included."""
+    kw = dict(n_clients=40, per_round=12, jax_too=False,
+              fail_at=(1, (0, 2)) if fail else None)
+    (par, _), = _servers("fedavg", server_kw={"parallel_dispatch": True},
+                         **kw)
+    (ser, _), = _servers("fedavg", **kw)
+    hp, hs = par.run(3), ser.run(3)
+    assert [m.n_clients for m in hp] == [m.n_clients for m in hs]
+    assert [m.failures for m in hp] == [m.failures for m in hs]
+    assert sorted(par.executors) == sorted(ser.executors)
+    _assert_params_close(par.params, ser.params)
+
+
+def test_parallel_dispatch_refuses_nonblocking_cuda_executors():
+    algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
+    ex = T.SequentialExecutor(0, algo, device="cpu", nonblocking=True)
+    srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                         executors=[ex], data_by_client={},
+                         clients_per_round=1, device="cpu",
+                         parallel_dispatch=True)
+    assert srv.parallel_dispatch            # CPU executors: no streams
+    ex.device = torch.device("cuda", 0)     # as a card's executor carries
+    with pytest.raises(ValueError, match="nonblocking"):
+        T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                       executors=[ex], data_by_client={},
+                       clients_per_round=1, device="cpu",
+                       parallel_dispatch=True)
+
+
+def test_fault_plan_restart_repins_through_the_placement():
+    """A fault plan's crash releases executor 2's pin and its restart
+    re-pins it through the placement, on the device index the JAX
+    package's placement picks; the windows equal JAX's."""
+    def plan(pkg):
+        from importlib import import_module
+        F = import_module(pkg.__name__ + ".faults")
+        return F.FaultPlan([F.FaultEvent(time=0.5, kind=F.CRASH, executor=2),
+                            F.FaultEvent(time=6.0, kind=F.RESTART,
+                                         executor=2)])
+
+    (js, _), (ts, _) = _servers(
+        "fedavg", n_clients=40, per_round=8, K=3,
+        server_kw={"faults": None})
+    builds = []
+    for pkg, srv, devs in ((J, js, jax.devices()), (T, ts, ["cpu"])):
+        execs = [srv.executors[k] for k in sorted(srv.executors)]
+        pl = pkg.DevicePlacement(range(3), devices=devs)
+        new = pkg.ParrotServer(
+            params=srv.params, algorithm=srv.algorithm, executors=execs,
+            data_by_client=srv.data_by_client, clients_per_round=8, seed=0,
+            faults=plan(pkg), placement=pl,
+            **({} if pkg is J else {"device": "cpu"}))
+        pins, inner = [], pl.pin
+
+        def pin(k, _inner=inner, _pins=pins, _devs=pl.devices()):
+            d = _inner(k)
+            _pins.append((k, _devs.index(d)))
+            return d
+
+        pl.pin = pin
+        released, rel = [], pl.release
+        pl.release = lambda k, _rel=rel, _r=released: (_r.append(k),
+                                                       _rel(k))[1]
+        builds.append((new, pins, released))
+    (jn, jpins, jrel), (tn, tpins, trel) = builds
+    for _ in range(6):
+        jm, tm = jn.run_round(), tn.run_round()
+        assert (tm.makespan, tm.n_executors, tm.failures, tm.extra) == \
+            (jm.makespan, jm.n_executors, jm.failures, jm.extra)
+    assert trel == jrel == [2]
+    assert tpins == jpins == [(2, 0)]
+    assert tn.executors[2].device == tn.placement.device(2)
+    assert tn.placement.executors() == [0, 1, 2]
+    _assert_params_close(tn.params, jn.params)
