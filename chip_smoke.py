@@ -90,7 +90,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    params allclose, every fold a launch of the leaves form, and tasks
    carried, chunks stolen and stale chunks folded; (b) phase 4's model
    under ``dynamic_env(4, 5)`` with ``benchmarks/bench_round_modes.py``'s
-   engine options: 5 timed windows of each engine, every fold a launch of
+   engine options: 3 timed windows of each engine, every fold a launch of
    the leaves form and one launch for each group the chunks folded; a
    profiled window of each; one async window with top-k 0.01 (one launch
    for each span shipped, the kernel equal to its plain version on a real
@@ -117,7 +117,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    ``dynamic_env(4, 5)`` with phase 8b's options: (a) BSP, semi-sync and
    async under ``benchmarks/bench_network.py``'s constrained lognormal
    uplink (median 40 kbps, trace seed 13), each without a codec and with
-   top-k 0.01, 4 rounds: per round the virtual makespan, the comm keys,
+   top-k 0.01, 3 rounds: per round the virtual makespan, the comm keys,
    the wall and the launches; one top-k launch for each span shipped,
    every fold of the leaves form and one launch a folded group,
    ``comm_wire_bytes`` equal to the bytes shipped, the kernel equal to
@@ -136,7 +136,8 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    makespans, cohorts and fault counters equal the uninterrupted run's.
 11. Placement, gang dispatch and collective comm on phase 4's model under
    a ``TickTimer`` (each executor one block of 4 a round), 1 warm-up and
-   3 timed rounds a variant, every number printed beside the card's name
+   3 timed rounds a variant (1 for (b) and (c), each held to serial's
+   params after as many rounds), every number printed beside the card's name
    and power limit: (a) serial against a one-device
    ``DevicePlacement`` with the gang: schedules and makespans equal,
    params within 1e-5, one client-step dispatch a wave in every timed
@@ -153,13 +154,32 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    restart re-pinned, card == CPU window by window; (g) serial, gang
    and parallel dispatch under the default timer (``perf_counter``), as a
    user runs them: rounds ganged, makespans and per-client record times,
-   printed and held to nothing.  Cases that need several cards print
-   that they were not run on one.
+   printed and held to nothing (parallel dispatch 1 timed round).  Cases
+   that need several cards print that they were not run on one.
+12. The control plane and telemetry on phase 4's model, data and
+   executors: (a) ``examples/trace_round.py``'s setting at full width
+   (``dynamic_env(4, 3)``, the uniform 2e5 / 1e6 B/s link with 0.05 s
+   latency, ``telemetry=True``, ``ControlPlane.adaptive()``) under BSP,
+   semi-sync (deadline 0.7, over-selection 1.2, chunks of 4) and async
+   (λ 0.5, chunks of 4), 2 rounds each on the card and on the CPU under a
+   ``TickTimer``: traces, registries without ``host/`` and the λ and
+   deadline trajectories identical, params after each round within 1e-4,
+   each exported trace valid, every fold of the leaves form; (b) the same
+   engines, 3 rounds each under the default ``perf_counter`` timer on the
+   card: per round the per-executor busy/comm/idle fractions, λ and
+   deadline_frac, the host ms of ``Telemetry.on_round`` and the spans and
+   instants emitted; (c) semi-sync and async with ``gang_waves`` off and
+   on, a one-device placement, phase 8b's options, no network, a
+   ``TickTimer``, 3 windows each: gang == serial makespans exactly,
+   params within 1e-6, every ganged wave one client-step dispatch, per
+   window the dispatches and fold launches, and a profiled semi-sync gang
+   window.
 
-Phases 3, 4, 5, 6(c), 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run),
-9(b), 10(a)-(d) and 11(a)'s gang rounds are the main path: kernel
-launch counters are set to 0 just before each and read just after, and
-every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
+Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
+7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
+gang rounds, 12(a)'s card runs and 12(c)'s gang runs are the main path:
+kernel launch counters are set to 0 just before each and read just after,
+and every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -1444,11 +1464,12 @@ def kernel_split(fn, symbols):
 def profile_generate(generate, params, prompt, cfg, gen):
     """Device busy time and kernel time by name over one ``generate``,
     from torch.profiler (CUPTI); None where the trace holds no device
-    time."""
+    time.  The device activity alone, as ``profile_round``: every number
+    read here is a device number, and tracing the host ops too (a
+    hymba decode launches 138,043 kernels) only added processing time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         generate(params, prompt, cfg, gen, "cuda")
         torch.cuda.synchronize()
@@ -2002,7 +2023,8 @@ DES_FULL = {
                   "chunk_size": 4},
     "async": {"staleness_lambda": 0.5, "chunk_size": 8},
 }
-DES_WINDOWS = 5
+DES_WINDOWS = 5        # the dynamic_env horizon of phases 8-10
+DES_TIMED = 3          # timed windows an engine in 8b
 DES_KEYS = ("carried_tasks", "landed_clients", "steals", "stale_folds",
             "mean_staleness", "in_system")
 
@@ -2137,7 +2159,7 @@ def phase_des_full_width(T, ops, plain):
 
         ops.reset_agg_counts()
         with FoldGroups(T) as groups:
-            srv = des_full_width(T, "cuda", engine, DES_WINDOWS,
+            srv = des_full_width(T, "cuda", engine, DES_TIMED,
                                  on_round=on_window)
             torch.cuda.synchronize()
         launches, leaves = ops.agg_launches, ops.agg_leaves_launches
@@ -2168,7 +2190,7 @@ def phase_des_full_width(T, ops, plain):
         out[engine] = {"windows": rows, "fold_launches": launches,
                        "fold_block_groups": groups.n, "profile": prof}
         log(f"phase 8b {engine}: {launches} fold launches in "
-            f"{DES_WINDOWS} windows, all of the leaves form, one for each "
+            f"{DES_TIMED} windows, all of the leaves form, one for each "
             f"of the {groups.n} groups the chunks folded")
 
     # one async window with top-k 0.01: one launch for each span shipped,
@@ -2678,7 +2700,7 @@ def phase_ckpt(T, ops, plain, make_population):
 # phase 10: the network, availability and fault model
 # ---------------------------------------------------------------------------
 
-NET_ROUNDS = 4
+NET_ROUNDS = 3
 # engine -> engine_opts: phase 8b's options (BSP takes none)
 NET_ENGINES = {"bsp": None, "semi-sync": DES_FULL["semi-sync"],
                "async": DES_FULL["async"]}
@@ -3151,6 +3173,7 @@ def phase_net_faults(T, ops, plain):
 # ---------------------------------------------------------------------------
 
 GANG_TIMED = 3        # timed rounds a variant, after one warm-up round
+SHORT_TIMED = 1       # timed rounds of the nonblocking and parallel variants
 
 
 def gang_server(T, device, placement=True, nonblocking=False, tick=True,
@@ -3208,10 +3231,11 @@ def record_queues(srv):
     return seen
 
 
-def gang_rounds(T, srv, rounds):
+def gang_rounds(T, srv, rounds, keep=None):
     """``rounds`` rounds, each timed on the host around work that ends in a
     synchronise: wall, client-steps/s, makespan, client-step dispatches
-    (``ClientStepEngine.n_dispatches``) and synchronize calls."""
+    (``ClientStepEngine.n_dispatches``) and synchronize calls; ``keep``
+    (a list) receives a copy of the params after each round."""
     eng = T.engine_for(srv.algorithm, torch.device("cuda", 0))
     rows = []
     with SyncCount() as sc:
@@ -3228,11 +3252,15 @@ def gang_rounds(T, srv, rounds):
                          "dispatches": eng.n_dispatches - d0,
                          "synchronize_calls": sc.n - s0,
                          "comm_bytes": m.comm_bytes})
+            if keep is not None:
+                keep.append({k: v.detach().clone()
+                             for k, v in srv.params.items()})
     return rows
 
 
-def gang_variant(T, ops, label, card, prepare=None, **kw):
-    """One phase-11 variant on the card: the warm-up and timed rounds
+def gang_variant(T, ops, label, card, prepare=None, timed=GANG_TIMED,
+                 **kw):
+    """One phase-11 variant on the card: the warm-up and ``timed`` rounds
     (the fold counters set to 0 just before them and read just after), the
     params after them, then one device-only profiled round."""
     srv = gang_server(T, "cuda", **kw)
@@ -3240,9 +3268,10 @@ def gang_variant(T, ops, label, card, prepare=None, **kw):
         prepare(srv)
     queues = record_queues(srv)
     ops.reset_agg_counts()
-    rows = gang_rounds(T, srv, 1 + GANG_TIMED)
+    params_at = []
+    rows = gang_rounds(T, srv, 1 + timed, keep=params_at)
     launches = {"fold": ops.agg_launches, "leaves": ops.agg_leaves_launches}
-    params = {k: v.detach().clone() for k, v in srv.params.items()}
+    params = params_at[-1]
     prof = profile_round(srv)
     timed = rows[1:]
     walls = [r["wall_s"] for r in timed]
@@ -3265,7 +3294,8 @@ def gang_variant(T, ops, label, card, prepare=None, **kw):
             f"kernel launches, fold {prof['fold_kernels']} kernels "
             f"{prof['fold_device_s'] * 1e3:.4f} ms")
     return {"queues": queues, "rows": rows, "params": params,
-            "profile": prof, "fold_launches": launches,
+            "params_at": params_at, "profile": prof,
+            "fold_launches": launches,
             "median_wall_s": float(np.median(walls)),
             "median_client_steps_per_s": float(np.median(
                 [r["client_steps_per_s"] for r in timed]))}
@@ -3433,12 +3463,14 @@ def phase_gang_real_timer(T, card):
     record times (``RunRecord.time``, what the estimator fits).  A
     measurement: nothing here is held to a bound."""
     out = {}
-    for label, kw in (("serial", {"placement": False}), ("gang", {}),
-                      ("parallel", {"placement": False,
-                                    "parallel_dispatch": True})):
+    for label, n_timed, kw in (
+            ("serial", GANG_TIMED, {"placement": False}),
+            ("gang", GANG_TIMED, {}),
+            ("parallel", SHORT_TIMED, {"placement": False,
+                                          "parallel_dispatch": True})):
         srv = gang_server(T, "cuda", tick=False, **kw)
         queues = record_queues(srv)
-        rows = gang_rounds(T, srv, 1 + GANG_TIMED)
+        rows = gang_rounds(T, srv, 1 + n_timed)
         timed = {r["round"] for r in rows[1:]}
         recs = [rec.time for rs in srv.estimator._records.values()
                 for rec in rs if rec.round in timed]
@@ -3456,7 +3488,7 @@ def phase_gang_real_timer(T, card):
             f"{[round(w, 4) for w in v['walls_s']]} s, makespans "
             f"{[round(m, 4) for m in v['makespans_s']]} s, queue lengths "
             f"{v['queue_lengths']} (warm-up first), client-step dispatches "
-            f"{v['dispatches']}, {v['rounds_ganged']} of {GANG_TIMED} "
+            f"{v['dispatches']}, {v['rounds_ganged']} of {n_timed} "
             f"timed rounds ganged, per-client record time median "
             f"{v['record_time_median_s'] * 1e3:.3f} ms (range "
             f"{v['record_time_range_s'][0] * 1e3:.3f}-"
@@ -3528,17 +3560,19 @@ def phase_gang(T, ops, card, faults):
         f"{err:.3g} <= 1e-5; median wall {gang['median_wall_s']:.4f} vs "
         f"{serial['median_wall_s']:.4f} s")
     nonblocking = gang_variant(T, ops, "(b) nonblocking", card,
-                               nonblocking=True, gang_dispatch=False)
-    if not all(bits_equal(nonblocking["params"][k], serial["params"][k])
-               for k in serial["params"]):
+                               nonblocking=True, gang_dispatch=False,
+                               timed=SHORT_TIMED)
+    # (b) and (c) run 1 + SHORT_TIMED rounds: each is held to serial's
+    # params after as many
+    ref = serial["params_at"][SHORT_TIMED]
+    if not all(bits_equal(nonblocking["params"][k], ref[k]) for k in ref):
         raise AssertionError("11b: nonblocking params differ from serial")
     parallel = gang_variant(T, ops, "(c) parallel", card, placement=False,
-                            parallel_dispatch=True)
-    perr = max(float((parallel["params"][k] - serial["params"][k])
-                     .abs().max()) for k in serial["params"])
-    for k in serial["params"]:
-        torch.testing.assert_close(parallel["params"][k],
-                                   serial["params"][k], atol=1e-5,
+                            parallel_dispatch=True, timed=SHORT_TIMED)
+    perr = max(float((parallel["params"][k] - ref[k]).abs().max())
+               for k in ref)
+    for k in ref:
+        torch.testing.assert_close(parallel["params"][k], ref[k], atol=1e-5,
                                    rtol=1e-5, msg=f"11c parallel {k}")
     log(f"phase 11 (b), (c) [{card}]: nonblocking params == serial bit for "
         f"bit; parallel params max |diff| {perr:.3g} <= 1e-5")
@@ -3562,6 +3596,302 @@ def phase_gang(T, ops, card, faults):
             "gang_fold_launches": gang["fold_launches"]["fold"],
             "global_fold": fold, "collective": comm, "fault_repin": fault,
             "real_timer": real_timer, "seconds": seconds}
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the control plane and telemetry
+# ---------------------------------------------------------------------------
+
+# examples/trace_round.py's engines and options
+CTRL_ENGINES = {
+    "bsp": {},
+    "semi-sync": {"deadline_frac": 0.7, "over_select": 1.2, "chunk_size": 4},
+    "async": {"staleness_lambda": 0.5, "chunk_size": 4},
+}
+CTRL_ROUNDS = 3        # the perf_counter rounds (12b); dynamic_env(4, 3)
+CTRL_CHECKED = 2       # rounds card vs CPU under a TickTimer (12a)
+GANG_DES_WINDOWS = 3   # windows a (engine, gang on/off) cell (12c)
+
+
+def ctrl_run(T, device, engine, rounds, **kw):
+    """``examples/trace_round.py``'s setting at full width: phase 4's model,
+    data and executors under ``dynamic_env(4, 3)``, the uniform 2e5 / 1e6
+    B/s link with 0.05 s latency, ``telemetry=True`` and
+    ``ControlPlane.adaptive()``."""
+    return full_width(T, device, rounds,
+                      speed_model=T.dynamic_env(4, CTRL_ROUNDS),
+                      round_engine=engine, engine_opts=CTRL_ENGINES[engine],
+                      network=T.NetworkModel.uniform(
+                          uplink_bps=2e5, downlink_bps=1e6, latency_s=0.05),
+                      telemetry=True, control=T.ControlPlane.adaptive(),
+                      **kw)
+
+
+def ctrl_state(srv):
+    """What a card run must reproduce on the CPU: the trace, the registry
+    without ``host/`` and the controller trajectories."""
+    tele = srv.telemetry
+    return {"spans": list(tele.tracer.spans),
+            "instants": list(tele.tracer.instants),
+            "registry": tele.registry.snapshot(exclude=("host/",)),
+            "trajectory": [(m.extra.get("staleness_lambda"),
+                            m.extra.get("deadline_frac"))
+                           for m in srv.history],
+            "control": srv.control.state_dict()}
+
+
+def phase_ctrl_check(T, ops, card, work):
+    """12(a): each engine 2 rounds on the card and on the CPU under a
+    TickTimer: traces, registries (without ``host/``) and controller
+    trajectories identical; params after each round within 1e-4; each
+    exported trace validates; every fold of the card run a leaves-form
+    launch."""
+    out = {}
+    for engine in CTRL_ENGINES:
+        runs, params = {}, {}
+        for dev in ("cuda", "cpu"):
+            got, box = [], {}
+
+            def keep(r, m, wall, got=got, box=box):
+                got.append({q: v.detach().cpu().clone()
+                            for q, v in box["srv"].params.items()})
+
+            if dev == "cuda":
+                ops.reset_agg_counts()
+            srv = ctrl_run(T, dev, engine, CTRL_CHECKED,
+                           timer=T.TickTimer(1.0), on_round=keep,
+                           prepare=lambda s, box=box: box.update(srv=s))
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                launches = ops.agg_launches
+                leaves = ops.agg_leaves_launches
+            runs[dev], params[dev] = ctrl_state(srv), got
+            if dev == "cuda":
+                path = srv.telemetry.tracer.export(
+                    os.path.join(work, f"trace_{engine}.json"))
+                problems = T.validate_trace(path)
+                if problems:
+                    raise AssertionError(f"12a {engine}: exported trace "
+                                         f"fails validation: {problems}")
+        g, c = runs["cuda"], runs["cpu"]
+        for key in g:
+            if g[key] != c[key]:
+                raise AssertionError(f"12a {engine}: card and CPU {key} "
+                                     f"differ")
+        if launches <= 0 or leaves != launches or ops.agg_leaf_copies:
+            raise AssertionError(f"12a {engine}: {launches} fold launches, "
+                                 f"{leaves} of the leaves form")
+        for r in range(CTRL_CHECKED):
+            for q, pc in params["cpu"][r].items():
+                torch.testing.assert_close(params["cuda"][r][q], pc,
+                                           atol=1e-4, rtol=1e-4,
+                                           msg=f"12a {engine} round {r} {q}")
+        errs = [max(float((params["cuda"][r][q] - pc).abs().max())
+                    for q, pc in params["cpu"][r].items())
+                for r in range(CTRL_CHECKED)]
+        out[engine] = {"fold_launches": launches,
+                       "spans": len(g["spans"]),
+                       "instants": len(g["instants"]),
+                       "trajectory": g["trajectory"],
+                       "params_max_err": errs}
+        log(f"phase 12a {engine} [{card}]: card == CPU under the TickTimer "
+            f"over {CTRL_CHECKED} rounds: {len(g['spans'])} spans, "
+            f"{len(g['instants'])} instants, the registry without host/ "
+            f"and the (λ, deadline_frac) trajectory {g['trajectory']} "
+            f"identical; the exported trace validates; params within 1e-4 "
+            f"after each round (max |diff| {[float(f'{e:.3g}') for e in errs]}"
+            f"); {launches} fold launches, all of the leaves form")
+    return out
+
+
+def phase_ctrl_timed(T, ops, card):
+    """12(b): each engine 3 rounds on the card under the default timer
+    (``perf_counter``): per round the per-executor busy/comm/idle
+    fractions, λ and deadline_frac, the host ms of ``Telemetry.on_round``
+    and the spans and instants it emitted."""
+    out = {}
+    for engine in CTRL_ENGINES:
+        rows = []
+        seen = {"spans": 0, "instants": 0, "on_round_ms": []}
+
+        def prepare(srv, seen=seen):
+            inner = srv.telemetry.on_round
+
+            def on_round(s, metrics, t0):
+                h0 = time.perf_counter()
+                inner(s, metrics, t0)
+                seen["on_round_ms"].append(
+                    (time.perf_counter() - h0) * 1e3)
+
+            srv.telemetry.on_round = on_round
+            seen["srv"] = srv
+
+        def on_round(r, m, wall, rows=rows, seen=seen):
+            tr = seen["srv"].telemetry.tracer
+            util = {k: {f: round(v, 4) for f, v in u.items()}
+                    for k, u in m.extra["utilization"].items()}
+            rows.append({"round": r, "wall_s": wall, "makespan_s": m.makespan,
+                         "utilization": m.extra["utilization"],
+                         "staleness_lambda": m.extra.get("staleness_lambda"),
+                         "deadline_frac": m.extra.get("deadline_frac"),
+                         "on_round_ms": seen["on_round_ms"][-1],
+                         "spans": len(tr.spans) - seen["spans"],
+                         "instants": len(tr.instants) - seen["instants"]})
+            seen["spans"], seen["instants"] = len(tr.spans), len(tr.instants)
+            log(f"phase 12b {engine} round {r} [{card}]: wall {wall:.3f} s, "
+                f"virtual makespan {m.makespan:.4f} s, λ "
+                f"{rows[-1]['staleness_lambda']}, deadline_frac "
+                f"{rows[-1]['deadline_frac']}, on_round "
+                f"{rows[-1]['on_round_ms']:.3f} ms, {rows[-1]['spans']} "
+                f"spans and {rows[-1]['instants']} instants emitted; "
+                f"busy/comm/idle by executor {util}")
+
+        ctrl_run(T, "cuda", engine, CTRL_ROUNDS, on_round=on_round,
+                 prepare=prepare)
+        torch.cuda.synchronize()
+        ms = [r["on_round_ms"] for r in rows]
+        out[engine] = {"rows": rows, "on_round_ms_first": ms[0],
+                       "on_round_ms_last": ms[-1]}
+        log(f"phase 12b {engine} [{card}]: Telemetry.on_round host "
+            f"{ms[0]:.3f} ms at round 1, {ms[-1]:.3f} ms at round "
+            f"{len(ms)} (utilization walks every span of the run)")
+    return out
+
+
+class GangWaves:
+    """While active, records every DES gang wave the engines try: (round,
+    lanes, ganged, client-step dispatches it made)."""
+
+    def __init__(self):
+        from repro_torch.core import engine as eng_mod
+        self.mod, self.eng, self.waves = eng_mod, None, []
+
+    def __enter__(self):
+        inner = self.inner = self.mod.run_queues_ganged
+
+        def gang(executors, rnd, queues, *a, **kw):
+            d0 = self.eng.n_dispatches
+            reps = inner(executors, rnd, queues, *a, **kw)
+            self.waves.append({"round": rnd, "lanes": len(queues),
+                               "ganged": reps is not None,
+                               "dispatches": self.eng.n_dispatches - d0})
+            return reps
+
+        self.mod.run_queues_ganged = gang
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.run_queues_ganged = self.inner
+
+
+def phase_ctrl_gang(T, ops, card):
+    """12(c): semi-sync and async with ``gang_waves`` off and on, under a
+    one-device placement, no network and a TickTimer: gang == serial in
+    makespans exactly, params within 1e-6; per window the client-step
+    dispatches and fold launches; every ganged wave one dispatch; one
+    profiled window of the semi-sync gang."""
+    out = {}
+    for engine in ("semi-sync", "async"):
+        cell = {}
+        for gang in (False, True):
+            rows, box, waves = [], {}, GangWaves()
+
+            def prepare(srv, box=box, waves=waves):
+                # the executors' client-step engine on the card
+                box["eng"] = waves.eng = T.engine_for(
+                    srv.algorithm, torch.device("cuda", 0))
+                box["d"], box["f"] = 0, 0
+
+            def on_window(w, m, wall, rows=rows, box=box):
+                torch.cuda.synchronize()
+                d = box["eng"].n_dispatches
+                rows.append({"window": w, "wall_s": wall,
+                             "makespan_s": m.makespan,
+                             "dispatches": d - box["d"],
+                             "fold_launches": ops.agg_launches - box["f"]})
+                box["d"], box["f"] = d, ops.agg_launches
+
+            ops.reset_agg_counts()
+            with waves:
+                srv = des_full_width(
+                    T, "cuda", engine, GANG_DES_WINDOWS, on_round=on_window,
+                    timer=T.TickTimer(1.0), prepare=prepare,
+                    placement=T.DevicePlacement(range(4), devices=["cuda"]),
+                    control=T.ControlPlane(gang_waves=gang))
+                torch.cuda.synchronize()
+            launches = ops.agg_launches
+            params = {q: v.detach().clone() for q, v in srv.params.items()}
+            # one profiled window: the semi-sync gang's
+            prof = (profile_round(srv) if gang and engine == "semi-sync"
+                    else None)
+            ops.reset_agg_counts()     # the profile's launches do not count
+            cell["on" if gang else "off"] = {
+                "rows": rows, "waves": waves.waves, "params": params,
+                "fold_launches": launches, "profile": prof}
+            label = "gang" if gang else "serial"
+            log(f"phase 12c {engine} {label} [{card}]: per window "
+                f"client-step dispatches {[r['dispatches'] for r in rows]}, "
+                f"fold launches {[r['fold_launches'] for r in rows]}, walls "
+                f"{[round(r['wall_s'], 4) for r in rows]} s, makespans "
+                f"{[r['makespan_s'] for r in rows]}; gang waves tried "
+                f"{len(waves.waves)}, ganged "
+                f"{sum(w['ganged'] for w in waves.waves)}")
+            if prof is not None:
+                log(f"phase 12c {engine} gang profile (one more window) "
+                    f"[{card}]: wall {prof['wall_s']:.3f} s, device busy "
+                    f"{prof['device_busy_s']:.4f} s, idle share "
+                    f"{prof['device_idle_share']:.3f}, "
+                    f"{prof['kernel_launches']} kernel launches")
+        on, off = cell["on"], cell["off"]
+        ganged = [w for w in on["waves"] if w["ganged"]]
+        if not ganged or any(w["dispatches"] != 1 for w in ganged):
+            raise AssertionError(f"12c {engine}: ganged waves {on['waves']}:"
+                                 f" expected at least one, each exactly one "
+                                 f"client-step dispatch")
+        if off["waves"]:
+            raise AssertionError(f"12c {engine}: gang_waves off tried "
+                                 f"{off['waves']}")
+        if [r["makespan_s"] for r in on["rows"]] != \
+                [r["makespan_s"] for r in off["rows"]]:
+            raise AssertionError(f"12c {engine}: gang and serial makespans "
+                                 f"differ")
+        if on["fold_launches"] <= 0:
+            raise AssertionError(f"12c {engine}: no fold launch")
+        err = max(float((on["params"][q] - p).abs().max())
+                  for q, p in off["params"].items())
+        for q, p in off["params"].items():
+            torch.testing.assert_close(on["params"][q], p, atol=1e-6,
+                                       rtol=1e-6, msg=f"12c {engine} {q}")
+        for v in (on, off):
+            del v["params"]
+        out[engine] = {**cell, "params_max_err": err,
+                       "ganged_waves": len(ganged)}
+        log(f"phase 12c {engine} [{card}]: gang == serial makespans "
+            f"exactly over {GANG_DES_WINDOWS} windows, params max |diff| "
+            f"{err:.3g} <= 1e-6; {len(ganged)} ganged waves, each one "
+            f"client-step dispatch")
+    return out
+
+
+def phase_ctrl(T, ops, card):
+    """Phase 12: (a) telemetry and adaptive control card == CPU, (b) the
+    same engines under the default timer, (c) the DES gang wave."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_traces_") as work:
+        check = phase_ctrl_check(T, ops, card, work)
+    timed = phase_ctrl_timed(T, ops, card)
+    gang = phase_ctrl_gang(T, ops, card)
+    seconds = time.perf_counter() - t0
+    log(f"phase 12: {seconds:.1f} s")
+    return {"check": check, "timed": timed, "gang": gang,
+            "seconds": seconds}
+
+
+def phase_seconds(n, t0):
+    """Log phase ``n``'s seconds since ``t0``; return the time now."""
+    t = time.perf_counter()
+    log(f"phase {n}: {t - t0:.1f} s")
+    return t
 
 
 def main() -> int:
@@ -3588,7 +3918,9 @@ def main() -> int:
     from repro_torch.models import lm
 
     t_start = time.perf_counter()
+    t_ph = time.perf_counter()
     card = phase_card()
+    t_ph = phase_seconds(1, t_ph)
     t0 = time.perf_counter()
     paths = _build.build(["agg_weighted_sum", "topk_compress",
                           "flash_attention", "ssm_scan", "rmsnorm"])
@@ -3601,20 +3933,25 @@ def main() -> int:
     timings = phase_kernel_timing(T, ops, agg_weighted_sum_plain)
     topk_err = phase_topk_grid(ops, topk_with_residual_plain)
     topk_t = phase_topk_timing(ops, topk_with_residual_plain, topk_blocks)
+    t_ph = phase_seconds(2, t_ph)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         qs_launches = phase_quickstart(T, make_classification_clients, ops,
                                        work)
     qs_topk_launches = phase_quickstart_topk(T, make_classification_clients,
                                              ops)
+    t_ph = phase_seconds(3, t_ph)
     fw_launches, fw_leaves, fw_rows, fw_prof, fw_block = \
         phase_full_width(T, ops)
+    t_ph = phase_seconds(4, t_ph)
     c_launches, c_rows, c_prof, c_check = phase_full_width_topk(
         T, ops, topk_with_residual_plain)
+    t_ph = phase_seconds(5, t_ph)
     flash_err = phase_flash_grid(ops, flash_attention_plain)
     flash_t = phase_flash_timing(ops, flash_attention_plain)
     serve = phase_serve(ops, lm, tree, generate, make_prompt,
                         get_arch("qwen2-0.5b"))
     q_launch = serve["launches"]
+    t_ph = phase_seconds(6, t_ph)
     scan_err = phase_scan_grid(ops, ssm_scan_plain)
     rms_err = phase_rms_grid(ops, rmsnorm_plain, rms_route, RMS_ROUTES)
     rec_t = phase_recurrent_timing(ops, ssm_scan_plain, rmsnorm_plain,
@@ -3623,6 +3960,7 @@ def main() -> int:
         ops, lm, tree, generate, make_prompt, get_arch("hymba-1.5b"),
         get_arch("xlstm-125m"))
     h_launch, x_launch = h_serve["launches"], x_serve["launches"]
+    phase_seconds(7, t_ph)
     des = phase_des(T, make_classification_clients, ops,
                     topk_with_residual_plain)
     des_fold = {e: des["full_width"][e]["fold_launches"] for e in DES_FULL}
@@ -3633,6 +3971,7 @@ def main() -> int:
     nf = phase_net_faults(T, ops, topk_with_residual_plain)
     nf_runs = nf["network"]["runs"]
     gang = phase_gang(T, ops, card, nf["faults"])
+    ctrl = phase_ctrl(T, ops, card)
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -3689,6 +4028,11 @@ def main() -> int:
         "gang_launches": gang["gang_fold_launches"],
         "global_fold": gang["global_fold"],
         "placement": gang,
+        "control_telemetry_launches": {
+            e: v["fold_launches"] for e, v in ctrl["check"].items()},
+        "des_gang_launches": {e: v["on"]["fold_launches"]
+                              for e, v in ctrl["gang"].items()},
+        "control_telemetry": ctrl,
     }, {
         "name": "topk_compress",
         "route": "cuda",

@@ -119,8 +119,10 @@ class CheckpointManager:
                 # budgets: a resumed run replays the remaining faults
                 "faults": (server.faults.state_dict()
                            if server.faults is not None else None),
-                # the control plane and telemetry come with item 16
-                "control": None,
+                # the control plane's λ / deadline values and EWMAs: a
+                # resumed run replays the same controller trajectory
+                "control": (server.control.state_dict()
+                            if server.control is not None else None),
                 # compressor state (top-k error-feedback residuals, PowerSGD
                 # P/Q warm starts): without it a resume under compression
                 # silently diverges from the uninterrupted run.  hasattr-
@@ -130,7 +132,10 @@ class CheckpointManager:
                                if server.compressor is not None
                                and hasattr(server.compressor, "state_dict")
                                else None),
-                "telemetry": None,
+                # tracer spans + metrics registry: auto_resume reproduces
+                # the uninterrupted run's trace
+                "telemetry": (server.telemetry.state_dict()
+                              if server.telemetry is not None else None),
                 "time": time.time(),
             }
             digest = params_digest(blob["params"])
@@ -206,9 +211,16 @@ class CheckpointManager:
         server.engine.load_state_dict(blob.get("engine"), device=dev)
         if server.faults is not None:
             server.faults.load_state_dict(blob.get("faults"))
+        if server.control is not None:
+            server.control.load_state_dict(blob.get("control"))
         if server.compressor is not None \
                 and hasattr(server.compressor, "load_state_dict"):
             server.compressor.load_state_dict(blob.get("compressor"))
+        if server.telemetry is not None:
+            # wholesale replace (construction-time plan spans included), so
+            # a resumed trace equals the uninterrupted run's; the host/
+            # compile counter re-anchors to this process
+            server.telemetry.load_state_dict(blob.get("telemetry"))
         # reconcile the executor topology with the checkpointed one: a
         # fresh server is constructed with the FULL executor set, but the
         # saved run may have had some crashed — retire those so the resumed

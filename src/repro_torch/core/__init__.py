@@ -20,6 +20,12 @@
                                plans, retries, crashes and restarts)
   placement.py               — executor→device pinning + the rank-ordered
                                global fold on the fold kernel
+  control.py                 — adaptive control plane (self-tuning λ /
+                               deadline controllers, comm overlap, gang
+                               waves, oracle-gap tracking)
+  telemetry.py               — virtual-time telemetry (span tracer with
+                               Chrome-trace export, typed metrics
+                               registry, utilization accounting)
   tree.py                    — nested-container helpers in jax.tree order
 """
 from repro_torch.core.aggregation import (ClientResult, LocalAggregator, Op,
@@ -30,6 +36,8 @@ from repro_torch.core.algorithms import (ALGORITHMS, ClientData, FLAlgorithm,
                                          make_algorithm, value_and_grad)
 from repro_torch.core.client_step import ClientStepEngine, engine_for
 from repro_torch.core.clock import TickTimer, VirtualClock
+from repro_torch.core.control import (AsyncLambdaController, ControlPlane,
+                                      DeadlineController)
 from repro_torch.core.compression import (CompressedTensor, Int8Compressor,
                                           PowerSGDCompressor, TopKCompressor,
                                           make_compressor)
@@ -51,26 +59,31 @@ from repro_torch.core.scheduler import (ClientTask, ParrotScheduler, Schedule,
                                         oracle_makespan, predict_span,
                                         rebalance_queues, split_chunks)
 from repro_torch.core.state_manager import ClientStateManager, owner_host
+from repro_torch.core.telemetry import (MetricsRegistry, Telemetry, Tracer,
+                                        validate_trace)
 from repro_torch.core.workload import (RunRecord, WorkloadEstimator,
                                        WorkloadModel, fleet_average)
 
 __all__ = [
-    "ALGORITHMS", "AsyncEngine", "BSPEngine", "ClientAvailability",
+    "ALGORITHMS", "AsyncEngine", "AsyncLambdaController", "BSPEngine",
+    "ClientAvailability",
     "ClientData", "ClientPopulation",
     "ClientResult", "ClientStateManager", "ClientStepEngine", "ClientTask",
-    "CommEvent", "CompressedTensor", "DevicePlacement", "EagerPopulation",
+    "CommEvent", "CompressedTensor", "ControlPlane", "DeadlineController",
+    "DevicePlacement", "EagerPopulation",
     "ExecutorFailure",
     "FLAlgorithm", "FaultEvent", "FaultInjector", "FaultPlan",
     "FlatLayout", "Int8Compressor", "LazyPopulation", "LinkProfile",
-    "LocalAggregator", "NetworkModel", "Op",
+    "LocalAggregator", "MetricsRegistry", "NetworkModel", "Op",
     "ParrotScheduler", "ParrotServer", "PowerSGDCompressor", "RoundEngine",
     "RetryPolicy", "RoundMetrics", "RunRecord", "Schedule", "SemiSyncEngine",
     "SequentialExecutor",
-    "TickTimer", "TopKCompressor", "VirtualClock", "WorkloadEstimator",
+    "Telemetry", "TickTimer", "TopKCompressor", "Tracer", "VirtualClock",
+    "WorkloadEstimator",
     "WorkloadModel", "as_population", "dynamic_env", "engine_for",
     "flat_aggregate", "fleet_average", "global_aggregate", "hetero_gpus",
     "homogeneous", "make_algorithm", "make_compressor", "make_engine",
     "merge_partials", "oracle_makespan", "owner_host", "predict_span",
     "rebalance_queues", "run_flat_reference", "scale_partial", "split_chunks",
-    "staleness_weight", "value_and_grad", "wire_bytes",
+    "staleness_weight", "validate_trace", "value_and_grad", "wire_bytes",
 ]

@@ -49,13 +49,18 @@ neither (the defaults) every engine keeps its comm-free, fault-free path.
 Under a device placement a BSP round whose queues plan into aligned block
 waves runs each wave as one gang dispatch
 (``executor.run_queues_ganged``); ``parallel_dispatch`` runs the BSP
-executors in threads, each on its own CUDA stream.  The branches of the
-JAX engines that read the control plane or telemetry (the DES engines'
-gang waves among them) are left out, each with a comment naming the
-ROADMAP.md item (modules queue) that ports it; ``ParrotServer`` refuses
-those knobs, so none of them can be reached.  A checkpoint manager saves at
-each engine's commit point; the engines' cross-round state round-trips
-through ``state_dict`` / ``load_state_dict``.
+executors in threads, each on its own CUDA stream.  With a control plane
+(DESIGN.md §12) the DES engines gang their aligned chunk waves too
+(``gang_waves``), semi-sync's deadline fraction and async's λ follow their
+controllers, semi-sync steals into drained lanes and async re-packs its
+queues at each commit (``rebalance``), downloads overlap earlier compute
+(``overlap_comm``), and every engine reports the hindsight
+``oracle_makespan``.  With telemetry (DESIGN.md §13) every engine records
+its busy and upload spans and its fold, commit, steal and fault instants
+on the virtual axis; recording reads values already computed, so it moves
+no param and no makespan.  A checkpoint manager saves at each engine's
+commit point; the engines' cross-round state round-trips through
+``state_dict`` / ``load_state_dict``.
 """
 from __future__ import annotations
 
@@ -78,8 +83,9 @@ from repro_torch.core.executor import (ExecutorFailure, ExecutorReport,
 from repro_torch.core.faults import FaultCounters, scale_report
 from repro_torch.core.network import CommEvent
 from repro_torch.core.scheduler import (ClientTask, Schedule,
-                                        pick_steal_victim, predict_remaining,
-                                        predict_span, prefetch_ids)
+                                        oracle_makespan, pick_steal_victim,
+                                        predict_remaining, predict_span,
+                                        prefetch_ids, rebalance_queues)
 from repro_torch.core.state_manager import _host_tree
 from repro_torch.core.workload import RunRecord
 
@@ -166,6 +172,34 @@ def _on(state: Any, device: Optional[torch.device]) -> Any:
                     else t, state)
 
 
+def _trace_chunk(tele, k: int, t0: float, t1: float, rnd: int,
+                 rep: ExecutorReport, down_s: float, **args) -> None:
+    """Telemetry of one executor chunk (DESIGN.md §13): a busy span on
+    ``exec:{k}`` covering the executor's whole occupancy ``[t0, t1]`` on the
+    absolute virtual axis (``down_s``: its non-compute share, download and
+    in-span wait), and the first-seen shapes it paid under ``host/``.
+    Pure recording; a no-op without telemetry."""
+    if tele is None:
+        return
+    if rep.n_tasks:
+        tele.tracer.span(f"exec:{k}", "chunk", t0, t1, cat="busy",
+                         args={"round": rnd, "n_tasks": rep.n_tasks,
+                               "down_s": down_s, **args})
+    if rep.compiles:
+        tele.registry.counter(f"host/exec{k}/compiles").inc(rep.compiles)
+
+
+def _trace_upload(tele, k: int, t0: float, t1: float, rnd: int,
+                  wire_bytes: int, billed: float, **args) -> None:
+    """One upload span on ``exec:{k}:up`` (uploads may overlap each other
+    and the lane's next chunk); ``billed``: the bytes billed for it,
+    timeout re-sends included."""
+    if tele is not None:
+        tele.tracer.span(f"exec:{k}:up", "upload", t0, t1, cat="comm",
+                         args={"round": rnd, "wire_bytes": wire_bytes,
+                               "billed_bytes": float(billed), **args})
+
+
 @dataclass
 class _ExecState:
     """Per-executor bookkeeping inside the discrete-event simulation."""
@@ -248,8 +282,8 @@ class _NetSim:
 
     def push_chunk(self, clock: VirtualClock, rep: ExecutorReport,
                    start: float, done_data, record, version: int,
-                   fi=None, counters: Optional[FaultCounters] = None
-                   ) -> float:
+                   fi=None, counters: Optional[FaultCounters] = None,
+                   overlap_from: Optional[float] = None) -> float:
         """Push one completed chunk's comm-priced event pair: ``chunk_done``
         at download+compute (the executor frees; ``done_data`` is the
         engine's handler payload) and — when the chunk did work — a
@@ -264,16 +298,27 @@ class _NetSim:
         ``upload_lost`` event so each engine routes the clients into its
         own re-run pool.
 
-        The download is priced serially; overlapping it with the lane's
-        earlier compute (the control plane's ``overlap_comm``) comes with
-        ROADMAP item 16."""
+        ``overlap_from`` (DESIGN.md §12, the control plane's
+        ``overlap_comm``): the virtual time the chunk's payload version was
+        broadcast.  The clients' download then overlaps whatever the
+        executor computed since — the chunk starts at ``max(start,
+        overlap_from + download)`` instead of serializing the download into
+        its span.  ``None`` prices the download serially (the ``down`` read
+        is accounted identically either way).  With telemetry, the chunk's
+        busy span and its upload span (or lost upload) are recorded."""
         down_s = self.down(rep.completed_clients)
-        t_c = start + down_s + rep.virtual_time
+        if overlap_from is None:
+            t_c = start + down_s + rep.virtual_time
+        else:
+            t_c = max(start, overlap_from + down_s) + rep.virtual_time
         clock.push(t_c, "chunk_done", done_data)
-        # the executor's busy span and compile counter: item 16
+        tele = self.srv.telemetry
+        _trace_chunk(tele, rep.executor, self.t0 + start, self.t0 + t_c,
+                     version, rep, max(t_c - rep.virtual_time - start, 0.0))
         if rep.n_tasks:
             wirep, nb = self.ship(rep.executor, rep.partial)
             rep.wire_bytes = nb
+            b_up0 = self.bytes_up
             up_s = self.up(rep.completed_clients, nb)
             if fi is None:
                 t_arr = t_c + up_s
@@ -287,13 +332,16 @@ class _NetSim:
                         rep.completed_clients, self.t0 + t_c, t_abs):
                     t_abs = None
                 if t_abs is None:
-                    # the lost upload's span: item 16
+                    _trace_upload(tele, rep.executor, self.t0 + t_c,
+                                  self.t0 + t_c + up_s, version, nb,
+                                  self.bytes_up - b_up0, lost=True)
                     clock.push(t_c, "upload_lost",
                                (rep.executor,
                                 tuple(rep.completed_clients)))
                     return t_c
                 t_arr = t_abs - self.t0
-            # the upload span (billed bytes include re-sends): item 16
+            _trace_upload(tele, rep.executor, self.t0 + t_c, self.t0 + t_arr,
+                          version, nb, self.bytes_up - b_up0)
             clock.push(t_arr, "chunk_arrived", CommEvent(
                 executor=rep.executor, partial=wirep, record=record,
                 n_tasks=rep.n_tasks,
@@ -424,6 +472,62 @@ class RoundEngine:
                          executor=rep.executor, n_samples=n,
                          time=rep.virtual_time, n_tasks=rep.n_tasks)
 
+    @staticmethod
+    def _ctrl(srv):
+        """The server's control plane (DESIGN.md §12), or None — in which
+        case every controller hook below is skipped."""
+        return srv.control
+
+    def _gang_wave(self, srv, rnd: int, states: Dict[int, _ExecState],
+                   clock: VirtualClock, payload: Dict, chunk: int,
+                   candidates: List[int], mk_done,
+                   t_base: float = 0.0) -> Set[int]:
+        """Gang dispatch of one aligned DES chunk wave (DESIGN.md §12, the
+        control plane's ``gang_waves``): when every idle candidate owns a
+        head chunk and the wave gangs (``run_queues_ganged``'s gates: a
+        placement, one shared device or K distinct ones, aligned block
+        signatures), the wave runs as one client-step dispatch — on one
+        card one ``(K·B_pad, …)`` vmap — and each report is consumed
+        immediately: the chunk's ``chunk_done`` event is pushed here,
+        exactly as the serial ``_dispatch_next`` would, so later queue
+        mutations (steals, failures) can never orphan a pre-executed
+        report.  Returns the ganged ids — the caller's serial dispatch loop
+        skips them.  Gated to the comm-transparent fault-free
+        configuration; under a ``TickTimer`` the ganged reports equal the
+        serial path's.  On one shared device each lane is charged the
+        whole wave (``run_queues_ganged``), so its busy span is the
+        wave's."""
+        if not (srv.gang_dispatch and srv.placement is not None
+                and srv.faults is None):
+            return set()
+        ready = [k for k in candidates
+                 if not states[k].inflight and not states[k].dead
+                 and not states[k].stopped and states[k].queue]
+        if len(ready) < 2:
+            return set()
+        heads = {k: states[k].queue[:chunk] for k in ready}
+        reports = run_queues_ganged(srv.executors, rnd, heads, payload,
+                                    srv.data_by_client, srv.placement)
+        if reports is None:
+            return set()
+        ganged: Set[int] = set()
+        for k in ready:
+            es, rep = states[k], reports[k]
+            es.queue = es.queue[len(heads[k]):]
+            start = max(es.t, clock.now)
+            es.offset += len(heads[k])
+            es.inflight = True
+            if es.queue and srv.algorithm.stateful:
+                sm = srv.executors[k].state_manager
+                if sm is not None:
+                    sm.prefetch(prefetch_ids(es.queue, chunk))
+            es.busy_until = start + rep.virtual_time
+            clock.push(es.busy_until, "chunk_done", mk_done(k, rep))
+            _trace_chunk(srv.telemetry, k, t_base + start,
+                         t_base + es.busy_until, rnd, rep, 0.0, ganged=True)
+            ganged.add(k)
+        return ganged
+
     def _fail_over(self, srv, states: Dict[int, _ExecState], dead: int,
                    remaining: List[ClientTask]) -> List[int]:
         """Elastic failure as an engine event: drop the dead executor
@@ -457,7 +561,9 @@ class RoundEngine:
         for k in fi.restarts_due(t):
             if srv._revive_executor(k):
                 counters.restarts += 1
-                # the restart instant: item 16
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(f"exec:{k}", "restart", t,
+                                                 cat="fault")
         if not srv.executors:
             raise RuntimeError("all executors failed")
 
@@ -580,23 +686,40 @@ class BSPEngine(RoundEngine):
         # round span — computed before the overlap selection below, which
         # must see the server's virtual clock at this round's END
         fi = srv.faults
+        ctrl = self._ctrl(srv)
+        tele = srv.telemetry
         base = srv.virtual_now        # the barrier's absolute start
         kept = reports
-        # the executors' busy and upload spans in every branch: item 16
         if netsim is None:
             makespan = max((r.virtual_time for r in reports), default=0.0)
-        elif fi is None:
-            # the barrier waits on comm events: each executor's span is
-            # broadcast-download + compute + partial-upload (the upload at
-            # the achieved wire size measured when the partial shipped);
-            # the control plane's overlapped download (_overlap_span):
-            # item 16
-            makespan = 0.0
             for r in reports:
-                d = netsim.down(r.completed_clients)
-                u = netsim.up(r.completed_clients, r.wire_bytes)
-                end = d + r.virtual_time + u
-                makespan = max(makespan, end)
+                _trace_chunk(tele, r.executor, base, base + r.virtual_time,
+                             rnd, r, 0.0)
+        elif fi is None:
+            if ctrl is not None and ctrl.overlap_comm:
+                # comm/compute overlap (DESIGN.md §12): each client's
+                # download runs concurrently with the lane's earlier
+                # compute — task j starts at max(t_{j-1}, down_j)
+                makespan = self._overlap_span(netsim, reports, tele=tele,
+                                              base=base, rnd=rnd)
+            else:
+                # the barrier waits on comm events: each executor's span is
+                # broadcast-download + compute + partial-upload (the upload
+                # at the achieved wire size measured when the partial
+                # shipped), in the JAX package's (d + vt) + u grouping
+                makespan = 0.0
+                for r in reports:
+                    d = netsim.down(r.completed_clients)
+                    u = netsim.up(r.completed_clients, r.wire_bytes)
+                    end = d + r.virtual_time + u
+                    _trace_chunk(tele, r.executor, base,
+                                 base + (d + r.virtual_time), rnd, r, d)
+                    if r.n_tasks:
+                        _trace_upload(tele, r.executor,
+                                      base + (d + r.virtual_time),
+                                      base + end, rnd, r.wire_bytes,
+                                      r.wire_bytes)
+                    makespan = max(makespan, end)
         else:
             # fault-priced upload leg: blackout pauses + chunk timeout with
             # backed-off re-sends, then mid-upload dropout.  A payload that
@@ -607,7 +730,10 @@ class BSPEngine(RoundEngine):
             for i, r in enumerate(reports):
                 t_c = (netsim.t0 + netsim.down(r.completed_clients)
                        + r.virtual_time)
+                b_up0 = netsim.bytes_up
                 up_s = netsim.up(r.completed_clients, r.wire_bytes)
+                _trace_chunk(tele, r.executor, base, t_c, rnd, r,
+                             max(t_c - base - r.virtual_time, 0.0))
                 if not r.n_tasks:
                     spans.append(t_c + up_s - netsim.t0)
                     continue
@@ -621,8 +747,13 @@ class BSPEngine(RoundEngine):
                     lost.add(i)
                     counters.dropped_clients += len(r.completed_clients)
                     spans.append(t_c - netsim.t0)
+                    _trace_upload(tele, r.executor, t_c, t_c + up_s, rnd,
+                                  r.wire_bytes, netsim.bytes_up - b_up0,
+                                  lost=True)
                 else:
                     spans.append(t_abs - netsim.t0)
+                    _trace_upload(tele, r.executor, t_c, t_abs, rnd,
+                                  r.wire_bytes, netsim.bytes_up - b_up0)
             makespan = max(spans, default=0.0)
             if lost:
                 kept = [r for i, r in enumerate(reports) if i not in lost]
@@ -642,6 +773,10 @@ class BSPEngine(RoundEngine):
 
         partials = [r.partial for r in kept]      # already the wire copies
         if partials:   # every report lost in transit -> no update this round
+            if tele is not None:
+                tele.tracer.instant(
+                    "server", "global_fold", base + makespan, cat="server",
+                    args={"round": rnd, "n_partials": len(partials)})
             agg = srv.global_fold(partials)
             agg["_n_selected"] = sum(r.n_tasks for r in kept)
             srv.params, srv.server_state = srv.algorithm.server_update(
@@ -656,7 +791,20 @@ class BSPEngine(RoundEngine):
             srv.estimator.record_many(records)
         stats = srv.comm.stats.reset()
         extra = {"backup_tasks": float(n_backups)}
-        # the control plane's oracle makespan: item 16
+        if ctrl is not None:
+            # hindsight-optimal repack of the realized per-task spans; comm
+            # priced per client off the network model, unaccounted
+            jobs = []
+            for r in reports:
+                for rec in r.records:
+                    c = 0.0
+                    if netsim is not None and netsim.net is not None:
+                        c = netsim.net.client_comm_time(
+                            rec.client, netsim.payload_nbytes,
+                            int(netsim.payload_nbytes * srv._wire_ratio))
+                    jobs.append((rec.n_samples, rec.time, rec.executor, c))
+            extra["oracle_makespan"] = oracle_makespan(
+                jobs, list(srv.executors))
         if remapped:
             extra["remapped_tasks"] = float(remapped)
         if netsim is not None:
@@ -687,11 +835,11 @@ class BSPEngine(RoundEngine):
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _overlap_span(netsim: _NetSim, reports: List[ExecutorReport]
-                      ) -> float:
+    def _overlap_span(netsim: _NetSim, reports: List[ExecutorReport],
+                      tele=None, base: float = 0.0, rnd: int = 0) -> float:
         """Barrier span with per-client downloads overlapping the lane's
         earlier compute (DESIGN.md §12; the control plane's
-        ``overlap_comm``, ROADMAP item 16, selects it): task j starts at
+        ``overlap_comm`` selects it): task j starts at
         ``max(t_{j-1}, down_j)`` — the fold over the report's per-task
         records — then the partial's upload closes the lane.  The serial
         branch's accounted ``netsim.down`` call is preserved once per
@@ -710,6 +858,11 @@ class BSPEngine(RoundEngine):
             else:
                 t = d_acc + r.virtual_time
             u = netsim.up(r.completed_clients, r.wire_bytes)
+            _trace_chunk(tele, r.executor, base, base + t, rnd, r,
+                         max(t - r.virtual_time, 0.0))
+            if r.n_tasks:
+                _trace_upload(tele, r.executor, base + t, base + (t + u),
+                              rnd, r.wire_bytes, r.wire_bytes)
             span = max(span, t + u)
         return span
 
@@ -793,6 +946,10 @@ class BSPEngine(RoundEngine):
                 reports.append(ev.data)
             else:
                 failed.append(ev.data)
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        f"exec:{ev.data}", "executor_failed",
+                        srv.virtual_now, cat="fault")
 
         # ---- fault plan: slowdown windows + crashes inside the span ------
         fi = srv.faults
@@ -931,6 +1088,7 @@ class SemiSyncEngine(RoundEngine):
         self.chunk_size = chunk_size
         self.quorum_frac = float(quorum_frac)
         self._carry: List[ClientTask] = []
+        self._round_steals = 0      # within-round only (ctrl.rebalance)
 
     # -- checkpointing: the carry pool is the only cross-round state -------
     def state_dict(self) -> Dict:
@@ -992,28 +1150,44 @@ class SemiSyncEngine(RoundEngine):
         # the deadline lives in the units the executors accrue: the
         # chunk-granular predicted makespan of this schedule, comm delay
         # included when priced.  No models yet (warmup) -> ∞ -> a full BSP
-        # round.  The deadline controller's fraction: item 16.
+        # round.
         comm_pred = netsim.comm_pred if netsim is not None else None
         pm = max((predict_remaining(
                       models.get(k) if fi is None
                       else fi.scaled_model(models.get(k), k, abs0),
                       schedule.queue(k), chunk, comm_pred)
                   for k in live), default=0.0)
-        deadline = self.deadline_frac * pm if pm > 0.0 else float("inf")
+        ctrl = self._ctrl(srv)
+        frac = self.deadline_frac
+        if ctrl is not None and ctrl.deadline is not None:
+            # self-tuned deadline fraction (DESIGN.md §12): the controller
+            # converges the landed/selected ratio to its target quantile
+            frac = ctrl.deadline.current(self.deadline_frac)
+        deadline = frac * pm if pm > 0.0 else float("inf")
 
         clock = VirtualClock()
         states = {k: _ExecState(queue=list(schedule.queue(k))) for k in live}
         partials: List[Dict] = []
         records: List[RunRecord] = []
+        oracle_jobs: List[Tuple[float, float, int, float]] = []
         n_landed = 0
         n_failed = 0
+        self._round_steals = 0
         committed = False       # quorum reached: queues drained to carry
         quorum_t = 0.0
         t_hi = 0.0              # latest processed event (network makespan)
-        # the first wave's gang dispatch (ctrl.gang_waves): items 15 and 16
+        ganged: Set[int] = set()
+        if ctrl is not None and ctrl.gang_waves and netsim is None:
+            # first-wave gang: at round start every first chunk is exempt
+            # from the deadline check, matching the serial dispatch exactly
+            ganged = self._gang_wave(srv, rnd, states, clock, payload,
+                                     chunk, live, lambda k, rep: (k, rep),
+                                     t_base=abs0)
         for k in live:
-            self._dispatch_next(srv, rnd, k, states, clock, payload, models,
-                                deadline, chunk, netsim, counters)
+            if k not in ganged:
+                self._dispatch_next(srv, rnd, k, states, clock, payload,
+                                    models, deadline, chunk, netsim,
+                                    counters)
         while clock:
             ev = clock.pop()
             t_hi = max(t_hi, ev.time)
@@ -1036,6 +1210,12 @@ class SemiSyncEngine(RoundEngine):
                         counters.dropped_clients += len(give_up)
                         self._carry.extend(_tasks_of(srv, retryc))
                     else:
+                        if srv.telemetry is not None:
+                            srv.telemetry.tracer.instant(
+                                "server", "fold", abs0 + ev.time,
+                                cat="server",
+                                args={"round": rnd, "executor": k,
+                                      "n_tasks": rep.n_tasks})
                         partials.append(self._wire(srv, k, rep.partial))
                         rec = self._chunk_record(srv, rnd, rep)
                         if rec is not None:
@@ -1059,9 +1239,25 @@ class SemiSyncEngine(RoundEngine):
                     counters.dropped_clients += len(give_up)
                     self._carry.extend(_tasks_of(srv, retryc))
                 else:
+                    if srv.telemetry is not None:
+                        srv.telemetry.tracer.instant(
+                            "server", "fold", abs0 + ev.time, cat="server",
+                            args={"round": rnd, "executor": ce.executor,
+                                  "n_tasks": ce.n_tasks})
+                        srv.telemetry.registry.histogram(
+                            "hist/upload_delay").observe(
+                                max(ev.time - ce.t_sent, 0.0))
                     partials.append(ce.partial)
                     if ce.record is not None:
                         records.append(ce.record)
+                        if ctrl is not None:
+                            oracle_jobs.append((
+                                ce.record.n_samples, ce.record.time,
+                                ce.record.executor,
+                                netsim.net.chunk_comm_time(
+                                    list(ce.completed_clients),
+                                    netsim.payload_nbytes, ce.wire_bytes)
+                                if netsim.net is not None else 0.0))
                     n_landed += ce.n_tasks
                     if fi is not None:
                         fi.clear_retries(ce.completed_clients)
@@ -1077,6 +1273,10 @@ class SemiSyncEngine(RoundEngine):
             else:  # executor_failed
                 dead, remaining = ev.data
                 n_failed += 1
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        f"exec:{dead}", "executor_failed", abs0 + ev.time,
+                        cat="fault")
                 survivors = self._fail_over(srv, states, dead, remaining)
                 for j in survivors:
                     if states[j].stopped:
@@ -1095,6 +1295,11 @@ class SemiSyncEngine(RoundEngine):
                 # (or landing later) re-enters through the carry pool
                 committed, quorum_t = True, ev.time
                 counters.quorum_commits += 1
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        "server", "quorum_commit", abs0 + ev.time,
+                        cat="server",
+                        args={"round": rnd, "n_landed": n_landed})
                 for es in states.values():
                     if es.queue:
                         self._carry.extend(es.queue)
@@ -1124,7 +1329,26 @@ class SemiSyncEngine(RoundEngine):
         extra = {"landed_clients": float(n_landed),
                  "carried_tasks": float(len(self._carry)),
                  "deadline": deadline}
-        # controller and oracle keys: item 16
+        if ctrl is not None:
+            extra["deadline_frac"] = frac
+            if netsim is None:
+                # comm-transparent folds all land at chunk_done: the round's
+                # records ARE the realized jobs (comm = 0)
+                oracle_jobs = [(r.n_samples, r.time, r.executor, 0.0)
+                               for r in records]
+            extra["oracle_makespan"] = oracle_makespan(
+                oracle_jobs, list(srv.executors))
+            if ctrl.rebalance:
+                extra["rebalanced_tasks"] = float(self._round_steals)
+            if ctrl.deadline is not None and deadline != float("inf"):
+                # one controller step per round from this round's observed
+                # landed/selected ratio (applies from the NEXT round);
+                # warmup rounds (deadline ∞, everything lands) carry no
+                # signal and are skipped
+                new_frac = ctrl.deadline.update(n_landed, len(tasks),
+                                                self.deadline_frac,
+                                                1.0 / self.over_select)
+                ctrl.note("deadline_frac", new_frac, abs0 + makespan)
         if netsim is not None:
             extra.update(netsim.extra())
             if makespan <= 0.0 and n_landed == 0:
@@ -1159,8 +1383,16 @@ class SemiSyncEngine(RoundEngine):
         fi = srv.faults
         abs0 = netsim.t0 if netsim is not None else srv.virtual_now
         es = states[k]
+        ctrl = self._ctrl(srv)
         while True:
-            # deadline-aware work stealing (ctrl.rebalance): item 16
+            if not es.queue and not es.stopped and not es.dead \
+                    and ctrl is not None and ctrl.rebalance:
+                # deadline-aware work stealing (DESIGN.md §12): a drained
+                # lane takes the predicted-straggler's tail chunk instead
+                # of idling out the deadline; the stolen chunk still faces
+                # the per-chunk deadline check below on the thief's clock
+                self._steal_next(srv, k, states, models, chunk, netsim,
+                                 clock, abs0)
             if not es.queue or es.stopped or es.dead:
                 return
             next_chunk = es.queue[:chunk]
@@ -1257,6 +1489,8 @@ class SemiSyncEngine(RoundEngine):
             if netsim is None:
                 es.busy_until = start + rep.virtual_time
                 clock.push(es.busy_until, "chunk_done", (k, rep))
+                _trace_chunk(srv.telemetry, k, abs0 + start,
+                             abs0 + es.busy_until, rnd, rep, 0.0)
                 return
             # comm-priced chunk: the executor is busy for download +
             # compute, then free — the upload overlaps its next chunk and
@@ -1264,8 +1498,37 @@ class SemiSyncEngine(RoundEngine):
             es.busy_until = netsim.push_chunk(
                 clock, rep, start, (k, rep),
                 self._chunk_record(srv, rnd, rep), version=rnd,
-                fi=fi, counters=counters)
+                fi=fi, counters=counters,
+                # the round's payload was broadcast at local t=0: with
+                # overlap_comm on, the download runs concurrently with the
+                # lane's earlier chunks instead of serializing into this one
+                overlap_from=(0.0 if ctrl is not None and ctrl.overlap_comm
+                              else None))
             return
+
+    def _steal_next(self, srv, k, states, models, chunk, netsim,
+                    clock, abs0) -> None:
+        """Move the predicted-straggler's tail chunk onto drained lane
+        ``k`` (``ctrl.rebalance``; the async engine's victim policy).
+        Deterministic: victim choice and the moved slice depend only on the
+        queues and fitted models."""
+        queues = {j: es.queue for j, es in states.items()
+                  if not es.stopped and not es.dead}
+        avail = {j: max(states[j].t, states[j].busy_until) for j in queues}
+        victim = pick_steal_victim(
+            queues, avail, models, k, chunk,
+            netsim.comm_pred if netsim is not None else None)
+        if victim is None:
+            return
+        vq = states[victim].queue
+        take = max(1, min(chunk, len(vq)))
+        states[k].queue = vq[-take:]
+        states[victim].queue = vq[:-take]
+        self._round_steals += 1
+        if srv.telemetry is not None:
+            srv.telemetry.tracer.instant(
+                f"exec:{k}", "steal", abs0 + clock.now, cat="sched",
+                args={"victim": victim, "n_tasks": take})
 
 
 # ---------------------------------------------------------------------------
@@ -1304,12 +1567,13 @@ class AsyncEngine(RoundEngine):
         self._last_update_t = 0.0
         self._last_sched: Optional[Schedule] = None
         self._payload: Optional[Dict] = None
+        # virtual time the live payload version was broadcast (the comm
+        # overlap anchor: a chunk's download can start no earlier)
+        self._payload_t = 0.0
         self._reset_window()
 
     def _reset_window(self) -> None:
-        """Clear the per-update accumulators (one 'round' = one window).
-        The control plane's oracle jobs and rebalance count join with item
-        16."""
+        """Clear the per-update accumulators (one 'round' = one window)."""
         self._buffer: Optional[Dict] = None
         self._n_folded = 0
         self._records: List[RunRecord] = []
@@ -1318,6 +1582,11 @@ class AsyncEngine(RoundEngine):
         self._stale_folds = 0
         self._stale_sum = 0.0
         self._counters = FaultCounters()
+        # control-plane accumulators (inert without a control plane): the
+        # window's realized (n, t, executor, comm) jobs for the oracle, and
+        # tasks moved by the commit-tail queue rebalance
+        self._oracle_jobs: List[Tuple[float, float, int, float]] = []
+        self._rebalance_moved = 0
 
     # -- checkpointing of the in-flight pipeline ---------------------------
     # The engine persists across rounds, so a checkpoint taken at an update
@@ -1330,8 +1599,7 @@ class AsyncEngine(RoundEngine):
     # with the exact (time, seq) ordering, so the resumed run pops the same
     # events in the same order and stays bit-deterministic.  (Client states
     # and the server blob ride the normal checkpoint path; the executor
-    # topology must match on restore.)  The control plane's payload anchor,
-    # oracle jobs and rebalance count join with item 16.
+    # topology must match on restore.)
     # Known gap (as in JAX): params/makespans are bit-exact, but the first
     # resumed round's comm_bytes metric omits the round-end broadcast that
     # the original process sent just before the checkpoint (comm stats are
@@ -1371,6 +1639,9 @@ class AsyncEngine(RoundEngine):
             "stale_sum": self._stale_sum,
             "counters": vars(self._counters).copy(),
             "last_sched": self._last_sched,
+            "payload_t": self._payload_t,
+            "oracle_jobs": [tuple(j) for j in self._oracle_jobs],
+            "rebalance_moved": self._rebalance_moved,
         }
 
     def load_state_dict(self, state: Optional[Dict],
@@ -1408,6 +1679,10 @@ class AsyncEngine(RoundEngine):
         self._stale_sum = state["stale_sum"]
         self._counters = FaultCounters(**state.get("counters", {}))
         self._last_sched = state["last_sched"]
+        # control-plane state (absent in checkpoints written without it)
+        self._payload_t = state.get("payload_t", 0.0)
+        self._oracle_jobs = [tuple(j) for j in state.get("oracle_jobs", [])]
+        self._rebalance_moved = state.get("rebalance_moved", 0)
 
     # ------------------------------------------------------------------
     def _ensure_init(self, srv, netsim: Optional[_NetSim] = None) -> None:
@@ -1420,6 +1695,7 @@ class AsyncEngine(RoundEngine):
             netsim.set_payload(self._payload)
         live = list(srv.executors)
         srv.comm.broadcast(self._payload, live, tag="broadcast")
+        self._payload_t = self._clock.now
         n0 = max(1, math.ceil(self.pipeline_depth * srv.clients_per_round))
         tasks = srv.select_clients(n=n0)
         schedule = srv.scheduler.schedule(srv.round, tasks, live,
@@ -1428,9 +1704,16 @@ class AsyncEngine(RoundEngine):
         self._states = {k: _ExecState(queue=list(schedule.queue(k)))
                         for k in live}
         self._in_system = {t.client for t in tasks}
-        # the first wave's gang dispatch (ctrl.gang_waves): items 15 and 16
+        ctrl = self._ctrl(srv)
+        ganged: Set[int] = set()
+        if ctrl is not None and ctrl.gang_waves and netsim is None:
+            chunk = self._chunk_size(srv, self.chunk_size)
+            ganged = self._gang_wave(
+                srv, srv.round, self._states, self._clock, self._payload,
+                chunk, live, lambda k, rep: (k, rep, srv.round))
         for k in live:
-            self._dispatch_next(srv, k, netsim)
+            if k not in ganged:
+                self._dispatch_next(srv, k, netsim)
 
     def _refill(self, srv) -> None:
         """Top the pool back up with a fresh selection, re-scheduled onto
@@ -1456,6 +1739,16 @@ class AsyncEngine(RoundEngine):
         self._in_system.update(t.client for t in fresh)
 
     # ------------------------------------------------------------------
+    def _lambda(self, srv) -> float:
+        """The staleness λ folds discount with: the controller's current
+        value when an :class:`AsyncLambdaController` is attached (DESIGN.md
+        §12), else the engine's static ``staleness_lambda`` — which is also
+        the controller's fallback before its first update."""
+        ctrl = self._ctrl(srv)
+        if ctrl is not None and ctrl.async_lambda is not None:
+            return ctrl.async_lambda.current(self.staleness_lambda)
+        return self.staleness_lambda
+
     def _dispatch_next(self, srv, k: int,
                        netsim: Optional[_NetSim] = None) -> None:
         es = self._states[k]
@@ -1480,6 +1773,10 @@ class AsyncEngine(RoundEngine):
                 es.queue, self._states[victim].queue = \
                     vq[-chunk:], vq[:-chunk]
                 self._steals += 1
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        f"exec:{k}", "steal", self._clock.now, cat="sched",
+                        args={"victim": victim, "n_tasks": len(es.queue)})
             tasks, es.queue = es.queue[:chunk], es.queue[chunk:]
             start = max(es.t, self._clock.now)
             if fi is not None and fi.crash_due(k, start) is not None:
@@ -1558,22 +1855,44 @@ class AsyncEngine(RoundEngine):
             if netsim is None:
                 es.busy_until = start + rep.virtual_time
                 self._clock.push(es.busy_until, "chunk_done", (k, rep, rnd))
+                _trace_chunk(srv.telemetry, k, start, es.busy_until, rnd,
+                             rep, 0.0)
                 return
             # comm-priced chunk: busy for download + compute; the upload
             # overlaps the next chunk and folds when its arrival event pops
             # (staleness then counts server updates across the comm delay)
+            ctrl = self._ctrl(srv)
             es.busy_until = netsim.push_chunk(
                 self._clock, rep, start, (k, rep, rnd),
                 self._chunk_record(srv, rnd, rep), version=rnd,
-                fi=fi, counters=self._counters)
+                fi=fi, counters=self._counters,
+                # the live payload was broadcast at _payload_t: with
+                # overlap_comm on, the download overlaps the lane's earlier
+                # compute instead of serializing into this chunk's span
+                overlap_from=(self._payload_t
+                              if ctrl is not None and ctrl.overlap_comm
+                              else None))
             return
 
-    def _fold(self, srv, wire: Dict, version: int) -> None:
-        """Fold one landed partial into the window's buffer, discounted by
-        the staleness accrued since its payload version (the controller's
-        λ, ctrl.async_lambda: item 16)."""
+    def _fold(self, srv, wire: Dict, version: int, t: float,
+              executor: int, n_tasks: int,
+              upload_delay: Optional[float] = None) -> None:
+        """Fold one landed partial into the window's buffer at virtual time
+        ``t``, discounted by the staleness accrued since its payload
+        version under the controller's λ (``_lambda``).  With telemetry:
+        the fold instant and the staleness (and upload-delay)
+        histograms."""
         s = srv.round - version
-        gamma = staleness_weight(s, self.staleness_lambda)
+        if srv.telemetry is not None:
+            srv.telemetry.tracer.instant(
+                "server", "fold", t, cat="server",
+                args={"round": srv.round, "executor": executor,
+                      "n_tasks": n_tasks, "staleness": s})
+            reg = srv.telemetry.registry
+            reg.histogram("hist/staleness").observe(s)
+            if upload_delay is not None:
+                reg.histogram("hist/upload_delay").observe(upload_delay)
+        gamma = staleness_weight(s, self._lambda(srv))
         self._buffer = merge_partials(self._buffer,
                                       scale_partial(wire, gamma))
         if s > 0:
@@ -1609,6 +1928,10 @@ class AsyncEngine(RoundEngine):
             for k in fi.restarts_due(self._clock.now):
                 if srv._revive_executor(k):
                     self._counters.restarts += 1
+                    if srv.telemetry is not None:
+                        srv.telemetry.tracer.instant(
+                            f"exec:{k}", "restart", self._clock.now,
+                            cat="fault")
                     if self._states is not None:
                         self._states[k] = _ExecState(t=self._clock.now)
         self._ensure_init(srv, netsim)
@@ -1662,11 +1985,15 @@ class AsyncEngine(RoundEngine):
                         self._discard_corrupt(fi, rep.completed_clients)
                     else:
                         self._fold(srv, self._wire(srv, k, rep.partial),
-                                   version)
+                                   version, ev.time, k, rep.n_tasks)
                         self._n_folded += rep.n_tasks
                         rec = self._chunk_record(srv, version, rep)
                         if rec is not None:
                             self._records.append(rec)
+                            if self._ctrl(srv) is not None:
+                                self._oracle_jobs.append(
+                                    (rec.n_samples, rec.time,
+                                     rec.executor, 0.0))
                         self._in_system.difference_update(
                             rep.completed_clients)
                         if fi is not None:
@@ -1679,10 +2006,20 @@ class AsyncEngine(RoundEngine):
                 if fi is not None and fi.take_corrupt(ce.executor, ev.time):
                     self._discard_corrupt(fi, ce.completed_clients)
                 else:
-                    self._fold(srv, ce.partial, ce.version)
+                    self._fold(srv, ce.partial, ce.version, ev.time,
+                               ce.executor, ce.n_tasks,
+                               upload_delay=max(ev.time - ce.t_sent, 0.0))
                     self._n_folded += ce.n_tasks
                     if ce.record is not None:
                         self._records.append(ce.record)
+                        if self._ctrl(srv) is not None:
+                            self._oracle_jobs.append((
+                                ce.record.n_samples, ce.record.time,
+                                ce.record.executor,
+                                netsim.net.chunk_comm_time(
+                                    list(ce.completed_clients),
+                                    netsim.payload_nbytes, ce.wire_bytes)
+                                if netsim.net is not None else 0.0))
                     self._in_system.difference_update(ce.completed_clients)
                     if fi is not None:
                         fi.clear_retries(ce.completed_clients)
@@ -1704,6 +2041,10 @@ class AsyncEngine(RoundEngine):
             else:  # executor_failed
                 dead, remaining = ev.data
                 self._n_failed += 1
+                if srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        f"exec:{dead}", "executor_failed", ev.time,
+                        cat="fault")
                 survivors = self._fail_over(srv, self._states, dead,
                                             remaining)
                 for j in survivors:
@@ -1732,7 +2073,19 @@ class AsyncEngine(RoundEngine):
                  "stale_folds": float(self._stale_folds),
                  "mean_staleness": self._stale_sum / n_folds,
                  "in_system": float(len(self._in_system))}
-        # controller and oracle keys: item 16
+        ctrl = self._ctrl(srv)
+        if ctrl is not None:
+            extra["oracle_makespan"] = oracle_makespan(
+                self._oracle_jobs, list(srv.executors))
+            extra["staleness_lambda"] = self._lambda(srv)
+            if self._rebalance_moved:
+                extra["rebalanced_tasks"] = float(self._rebalance_moved)
+            if ctrl.async_lambda is not None:
+                # one controller step per commit, from the closed window's
+                # mean observed staleness (applies from the next fold on)
+                new_lam = ctrl.async_lambda.update(
+                    self._stale_sum / n_folds)
+                ctrl.note("staleness_lambda", new_lam, self._clock.now)
         if netsim is not None:
             extra.update(netsim.extra())
             # tail dispatches below happen after this window's metrics were
@@ -1754,6 +2107,14 @@ class AsyncEngine(RoundEngine):
             n_clients=self._n_folded, n_executors=len(srv.executors),
             estimation_error=err, failures=self._n_failed,
             extra=extra)
+        if srv.telemetry is not None:
+            srv.telemetry.tracer.instant(
+                "server", "commit", self._clock.now, cat="server",
+                args={"round": rnd, "n_folded": self._n_folded,
+                      "mean_staleness": self._stale_sum / n_folds})
+            for k in sorted(self._states):
+                srv.telemetry.registry.histogram(
+                    "hist/queue_depth").observe(len(self._states[k].queue))
         srv._commit_metrics(metrics, win0)
         srv.round += 1
         self._reset_window()
@@ -1766,11 +2127,41 @@ class AsyncEngine(RoundEngine):
             netsim.set_payload(self._payload)
         srv.comm.broadcast(self._payload, list(srv.executors),
                            tag="broadcast")
+        self._payload_t = self._clock.now
         self._refill(srv)
-        # the commit-tail queue rebalance (ctrl.rebalance): item 16; the
-        # wave's gang dispatch (ctrl.gang_waves): items 15 and 16
+        if ctrl is not None and ctrl.rebalance and srv.estimator.last_fit:
+            # commit-tail rebalance (DESIGN.md §12): pool every
+            # undispatched task and re-pack LPT under the CURRENT models,
+            # seeding each lane with its busy horizon — in-flight chunks
+            # never move, so nothing double-executes
+            live_r = [k for k in srv.executors if not self._states[k].dead]
+            if len(live_r) >= 2:
+                horizons = {
+                    k: (self._states[k].busy_until
+                        if self._states[k].inflight
+                        else max(self._states[k].t, self._clock.now))
+                    for k in live_r}
+                reb = (srv.placement.rebalance if srv.placement is not None
+                       else rebalance_queues)
+                assignment, moved = reb(
+                    {k: self._states[k].queue for k in live_r}, horizons,
+                    srv.estimator.last_fit, srv._sched_comm_cost())
+                for k in live_r:
+                    self._states[k].queue = assignment[k]
+                self._rebalance_moved += moved
+                if moved and srv.telemetry is not None:
+                    srv.telemetry.tracer.instant(
+                        "server", "rebalance", self._clock.now,
+                        cat="sched", args={"moved": moved})
+        ganged: Set[int] = set()
+        if ctrl is not None and ctrl.gang_waves and netsim is None:
+            chunk = self._chunk_size(srv, self.chunk_size)
+            ganged = self._gang_wave(
+                srv, srv.round, self._states, self._clock, self._payload,
+                chunk, list(self._states),
+                lambda k, rep: (k, rep, srv.round))
         for k in list(self._states):
-            if not self._states[k].inflight:
+            if k not in ganged and not self._states[k].inflight:
                 self._dispatch_next(srv, k, netsim)
         if srv.checkpoint_manager is not None:
             srv.checkpoint_manager.maybe_save(srv)

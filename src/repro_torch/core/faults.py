@@ -237,7 +237,10 @@ class FaultInjector:
                  retry: Optional[RetryPolicy] = None):
         self.plan = plan if plan is not None else FaultPlan(())
         self.retry = retry or RetryPolicy()
-        # the crash / timeout / resend telemetry instants: ROADMAP item 16
+        # wired by ParrotServer when telemetry is attached: crash / timeout
+        # / resend instants land on the shared lanes (pure recording — not
+        # part of state_dict, never consulted for behaviour)
+        self.telemetry: Optional[Any] = None
         # one-shot events by index into plan.events
         self._fired: Set[int] = set()
         self._retry_count: Dict[int, int] = {}     # client -> failed runs
@@ -289,6 +292,9 @@ class FaultInjector:
                     and ev.time <= t:
                 self._fired.add(i)
                 fired = True
+                if self.telemetry is not None:
+                    self.telemetry.tracer.instant(
+                        f"exec:{executor}", "crash", ev.time, cat="fault")
         return fired
 
     def restarts_due(self, t: float) -> List[int]:
@@ -425,6 +431,7 @@ class FaultInjector:
         re-send bills comm time and bytes again — retries are not free).
         """
         timeout = self.retry.timeout_s
+        lane = f"exec:{executor}:up" if executor is not None else "net"
         t = t_send
         for attempt in range(self.retry.max_retries + 1):
             if attempt > 0:
@@ -435,11 +442,19 @@ class FaultInjector:
                              else attempt_s)
                 if counters is not None:
                     counters.retries += 1
+                if self.telemetry is not None:
+                    self.telemetry.tracer.instant(
+                        lane, "resend", t, cat="fault",
+                        args={"attempt": attempt})
             arrival = self.xfer_end(t, attempt_s, executor)
             if arrival - t <= timeout:
                 return arrival
             if counters is not None:
                 counters.timeouts += 1
+            if self.telemetry is not None:
+                self.telemetry.tracer.instant(
+                    lane, "timeout", t + timeout, cat="fault",
+                    args={"attempt": attempt})
             t = t + timeout + self.retry.backoff(attempt + 1)
         return None
 

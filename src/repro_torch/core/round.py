@@ -28,9 +28,17 @@ threads instead, each on its own CUDA stream.  Unlike the JAX package, no
 placement is derived from the executors' pins: every port executor carries
 a device, so a derived placement would gang every run.
 
-The knobs still to port — ``control`` and ``telemetry`` (item 16) — raise
-``NotImplementedError`` naming their ROADMAP item rather than being
-ignored.
+A ``control`` plane (``core/control.py``, DESIGN.md §12) tunes the async
+λ and the semi-sync deadline from what each round observed, filters the
+selection by availability-window fit, overlaps downloads with earlier
+compute, gangs the DES engines' aligned chunk waves and rebalances queues;
+any control plane reports the hindsight ``oracle_makespan``.
+``telemetry`` (``core/telemetry.py``, DESIGN.md §13; ``True`` builds a
+``Telemetry()``) records every executor's busy and upload spans, the
+engines', faults' and controllers' instants and a metrics registry on the
+virtual axis, and attaches each round's per-executor utilization to
+``metrics.extra["utilization"]``.  Neither changes a param or a makespan
+unless a lever is on.
 """
 from __future__ import annotations
 
@@ -48,6 +56,7 @@ from repro_torch.core.aggregation import (flat_aggregate, global_aggregate,
                                           tree_reduce_partials)
 from repro_torch.core.algorithms import ClientData, FLAlgorithm
 from repro_torch.core.compression import make_compressor
+from repro_torch.core.control import ControlPlane
 from repro_torch.core.engine import make_engine
 from repro_torch.core.executor import SequentialExecutor
 from repro_torch.core.faults import FaultInjector, FaultPlan, RetryPolicy
@@ -55,14 +64,9 @@ from repro_torch.core.network import ClientAvailability, NetworkModel
 from repro_torch.core.placement import DevicePlacement
 from repro_torch.core.population import ClientPopulation, as_population
 from repro_torch.core.scheduler import ClientTask, ParrotScheduler, Schedule
-from repro_torch.core.workload import WorkloadEstimator
+from repro_torch.core.telemetry import Telemetry
+from repro_torch.core.workload import WorkloadEstimator, fleet_average
 from repro_torch.device import resolve_device
-
-# knob -> the ROADMAP.md item (modules queue) that ports it
-_LATER_KNOBS = {
-    "control": "item 16 (control and telemetry)",
-    "telemetry": "item 16 (control and telemetry)",
-}
 
 
 @dataclass
@@ -108,14 +112,8 @@ class ParrotServer:
                  availability: Optional[ClientAvailability] = None,
                  faults: Optional[FaultPlan] = None,
                  retry: Optional[RetryPolicy] = None,
-                 **later_knobs: Any):
-        for knob, val in later_knobs.items():
-            if knob not in _LATER_KNOBS:
-                raise TypeError(f"unexpected keyword argument {knob!r}")
-            if val:
-                raise NotImplementedError(
-                    f"{knob} is not ported yet (ROADMAP.md, modules queue "
-                    f"{_LATER_KNOBS[knob]})")
+                 control: Optional[ControlPlane] = None,
+                 telemetry: Optional[Any] = None):
         self.device = resolve_device(device)
         self.params = tree.map(lambda t: t.to(self.device), params)
         self.algorithm = algorithm
@@ -171,6 +169,23 @@ class ParrotServer:
         self.faults: Optional[FaultInjector] = (
             FaultInjector(faults, retry) if faults is not None
             or retry is not None else None)
+        # adaptive control plane (DESIGN.md §12): None keeps every engine
+        # on its control-free path; ControlPlane.observer() only adds the
+        # oracle keys and behaves as None does
+        self.control = control
+        # virtual-time telemetry (DESIGN.md §13): None is consulted nowhere;
+        # True builds a default bundle.  The one object is shared with the
+        # fault injector and the control plane so their events land on the
+        # common lanes
+        if telemetry is True:
+            telemetry = Telemetry()
+        self.telemetry: Optional[Telemetry] = telemetry or None
+        if self.telemetry is not None:
+            if self.faults is not None:
+                self.faults.telemetry = self.telemetry
+                self.telemetry.trace_plan(self.faults.plan)
+            if control is not None:
+                control.telemetry = self.telemetry
         # cumulative simulated time across rounds — the availability axis
         # (BSP and semi-sync advance it by each round's makespan; async pins
         # it to its persistent clock)
@@ -212,7 +227,26 @@ class ParrotServer:
         if self.availability is not None:
             av, now = self.availability, self.virtual_now
             filters.append(lambda c: av.available(c, now))
-            # the control plane's window-fit filter: ROADMAP item 16
+            ctrl = self.control
+            if ctrl is not None and ctrl.window_fit:
+                # window-fit selection (DESIGN.md §12): skip clients whose
+                # availability window can't hold their predicted span (+
+                # comm round-trip), priced by the fleet-average model (the
+                # client is not scheduled yet); inert before the first fit
+                avg = fleet_average(self.estimator.last_fit)
+                if avg is not None:
+                    n_of = self.population.n_samples
+                    net, down = self.network, self._last_payload_nbytes
+                    up = int(down * self._wire_ratio)
+
+                    def _fits(c, av=av, now=now, avg=avg, n_of=n_of,
+                              net=net, down=down, up=up):
+                        dur = avg.predict(n_of(c))
+                        if net is not None:
+                            dur += net.client_comm_time(c, down, up)
+                        return av.fits(c, now, dur)
+
+                    filters.append(_fits)
         if self.faults is not None:
             fi, now = self.faults, self.virtual_now
             filters.append(lambda c: not fi.client_down(c, now))
@@ -390,8 +424,13 @@ class ParrotServer:
     def _commit_metrics(self, metrics: RoundMetrics, t0: float) -> None:
         """Round-boundary commit: every engine routes its finished
         RoundMetrics through here with the round window's virtual start
-        ``t0``.  Telemetry ingests them here once it is ported (item 16);
-        until then this is exactly ``history.append``."""
+        ``t0``.  With telemetry the round's extra is ingested into the
+        registry and per-executor busy/comm/idle fractions over ``[t0, t0 +
+        makespan]`` land in ``metrics.extra["utilization"]`` BEFORE the
+        metrics join history (so checkpointed history carries them);
+        without it this is exactly ``history.append``."""
+        if self.telemetry is not None:
+            self.telemetry.on_round(self, metrics, t0)
         self.history.append(metrics)
 
     # ------------------------------------------------------------------

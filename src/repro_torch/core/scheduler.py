@@ -302,8 +302,9 @@ def rebalance_queues(queues: Dict[int, List[ClientTask]],
     each executor's load with its busy ``horizon`` (completion time of the
     in-flight chunk) — a busy-slow executor starts deep and sheds work to
     idle-fast ones.  In-flight work never moves, so nothing
-    double-executes.  The control plane (ROADMAP.md, modules queue item 16)
-    is its caller.
+    double-executes.  The async engine calls it at each commit under the
+    control plane's ``rebalance`` lever (through ``DevicePlacement.rebalance``
+    when the server has a placement).
 
     Deterministic: pool order is (executor, queue position), LPT ties break
     on that order.  Returns the new assignment (same keys as ``queues``)

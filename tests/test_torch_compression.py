@@ -513,12 +513,14 @@ def test_server_builds_the_compiled_topk_codec_from_a_string():
                           executors=[], data_by_client={},
                           clients_per_round=1, device="cpu",
                           compressor="none").compressor is None
-    for knob in ("control", "telemetry"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
-                           executors=[], data_by_client={},
-                           clients_per_round=1, device="cpu",
-                           **{knob: object()})
+    # the control plane and telemetry ride beside a codec
+    srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                         executors=[], data_by_client={},
+                         clients_per_round=1, device="cpu",
+                         compressor="topk", control=T.ControlPlane(),
+                         telemetry=True)
+    assert isinstance(srv.compressor, T.TopKCompressor)
+    assert srv.control.telemetry is srv.telemetry
 
 
 @pytest.mark.parametrize("kind", ["topk", "int8", "powersgd"])

@@ -1371,3 +1371,167 @@ def test_cuda_hymba_prefill_state_seeds_the_decode(cuda):
         h, _, _ = lm.forward(params, torch.cat([prompt, nxt], dim=1), cfg)
         full = lm._head(params, h[:, -1:], cfg)
     torch.testing.assert_close(logits_d, full, atol=2e-4, rtol=0)
+
+
+def _ctrl_server(device, engine, ckpt=None, faults=False, **server_kw):
+    """The quickstart under ``ControlPlane.adaptive()``, telemetry and a
+    uniform link (with ``faults``: the chaos plan and a retry policy) under
+    a TickTimer."""
+    opts = {} if engine == "bsp" else {"chunk_size": 2}
+    if faults:
+        server_kw.update(faults=_chaos(), retry=T.RetryPolicy(
+            timeout_s=1.0, max_retries=2, backoff_s=0.5))
+    if ckpt is not None:
+        server_kw["checkpoint_manager"] = CheckpointManager(
+            ckpt, every_rounds=1, keep=10)
+    algo = T.make_algorithm("fedavg", T.value_and_grad(_loss), lr=0.05,
+                            local_epochs=2)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, timer=timer, device=device)
+             for k in range(4)]
+    return T.ParrotServer(
+        params={"w": torch.zeros(32, 10), "b": torch.zeros(10)},
+        algorithm=algo, executors=execs,
+        data_by_client=make_classification_clients(
+            100, dim=32, n_classes=10, partition="natural", seed=0),
+        clients_per_round=20, seed=0, device=device, round_engine=engine,
+        engine_opts=opts, control=T.ControlPlane.adaptive(), telemetry=True,
+        network=T.NetworkModel.uniform(2e5, 1e6, latency_s=0.05),
+        **server_kw)
+
+
+def _trace_state(srv):
+    tele = srv.telemetry
+    return (tele.tracer.state_dict(),
+            tele.registry.snapshot(exclude=("host/",)),
+            [(m.extra.get("staleness_lambda"), m.extra.get("deadline_frac"))
+             for m in srv.history], srv.control.state_dict())
+
+
+@pytest.mark.parametrize("engine", ["semi-sync", "async"])
+def test_cuda_des_trace_and_registry_equal_cpu(cuda, engine):
+    """A DES engine under adaptive control, telemetry and a network, 4
+    windows on the card and on the CPU under a TickTimer: the trace, the
+    registry without ``host/`` and the controller trajectories equal, params
+    within 1e-5, every fold a leaves-form launch."""
+    ops.reset_agg_counts()
+    on_card = _ctrl_server(cuda, engine)
+    on_card.run(4)
+    torch.cuda.synchronize()
+    assert ops.agg_launches > 0
+    assert ops.agg_leaves_launches == ops.agg_launches
+    on_cpu = _ctrl_server("cpu", engine)
+    on_cpu.run(4)
+    assert _trace_state(on_card) == _trace_state(on_cpu)
+    assert T.validate_trace(on_card.telemetry.tracer) == []
+    for k in on_cpu.params:
+        torch.testing.assert_close(on_card.params[k].cpu(), on_cpu.params[k],
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("engine", ["bsp", "semi-sync", "async"])
+def test_cuda_adaptive_kill_and_auto_resume_reproduces_trace(cuda, tmp_path,
+                                                             engine):
+    """On the card under adaptive control, telemetry, a network and the
+    chaos plan: a run killed mid-round and resumed by a fresh server's
+    ``run(N, auto_resume=True)`` reproduces the uninterrupted run's trace,
+    registry without ``host/``, controller trajectories and
+    ``params_digest``."""
+    N = 4
+    ref = _ctrl_server(cuda, engine, str(tmp_path / "ref"), faults=True)
+    ex0, calls = ref.executors[0], [0]
+    real = ex0.run_queue
+
+    def counting(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    ex0.run_queue = counting
+    ref.run(N)
+    kill_at = max(2, calls[0] * 5 // 8)
+    work = str(tmp_path / "run")
+    victim = _ctrl_server(cuda, engine, work, faults=True)
+    ex0, calls = victim.executors[0], [0]
+    real = ex0.run_queue
+
+    def dying(*a, **kw):
+        calls[0] += 1
+        if calls[0] >= kill_at:
+            raise KeyboardInterrupt
+        return real(*a, **kw)
+
+    ex0.run_queue = dying
+    with pytest.raises(KeyboardInterrupt):
+        victim.run(N)
+    assert 1 <= victim.round < N
+    resumed = _ctrl_server(cuda, engine, work, faults=True)
+    resumed.run(N, auto_resume=True)
+    assert params_digest(resumed.params) == params_digest(ref.params)
+    got, want = _trace_state(resumed), _trace_state(ref)
+    if engine == "async":
+        # the async engine's known gap: the first resumed window's
+        # comm_bytes omits the broadcast sent before the save
+        for st in (got, want):
+            st[1]["counters"].pop("total/comm_bytes", None)
+    assert got == want
+
+
+def test_cuda_ganged_semi_sync_first_wave_is_one_dispatch(cuda):
+    """Semi-sync under ``gang_waves`` and a one-device placement on the
+    card: each window's first wave is one client-step dispatch (no
+    first-seen re-run on the card) and one fold launch for each group the
+    four lanes fold; makespans equal the serial dispatch's, params within
+    1e-5."""
+    from repro_torch.core import engine as eng_mod
+
+    def run(gang):
+        algo = T.make_algorithm("fedprox", T.value_and_grad(_loss),
+                                lr=0.05)
+        timer = T.TickTimer(1.0)
+        execs = [T.SequentialExecutor(k, algo, timer=timer, client_block=2,
+                                      device=cuda) for k in range(4)]
+        srv = T.ParrotServer(
+            params={"w": torch.zeros(16, 4), "b": torch.zeros(4)},
+            algorithm=algo, executors=execs,
+            data_by_client=_equal_clients(), clients_per_round=8, seed=0,
+            device=cuda, round_engine="semi-sync",
+            engine_opts={"chunk_size": 2, "over_select": 1.5},
+            placement=T.DevicePlacement(range(4), devices=[cuda]),
+            control=T.ControlPlane(gang_waves=gang))
+        return srv, T.engine_for(algo, cuda)
+
+    srv, eng = run(True)
+    waves = []
+    inner_gang, inner_fold = eng_mod.run_queues_ganged, \
+        T.LocalAggregator.fold_block
+    groups = [0]
+
+    def fold_block(agg, stacked, weights):
+        inner_fold(agg, stacked, weights)
+        groups[0] += len(agg._acc)
+
+    def gang(*a, **kw):
+        d0, f0, g0 = eng.n_dispatches, ops.agg_launches, groups[0]
+        reps = inner_gang(*a, **kw)
+        torch.cuda.synchronize()
+        waves.append((reps is not None, eng.n_dispatches - d0,
+                      ops.agg_launches - f0, groups[0] - g0))
+        return reps
+
+    eng_mod.run_queues_ganged = gang
+    T.LocalAggregator.fold_block = fold_block
+    try:
+        srv.run(3)
+    finally:
+        eng_mod.run_queues_ganged = inner_gang
+        T.LocalAggregator.fold_block = inner_fold
+    assert len(waves) == 3 and all(w[0] for w in waves)
+    assert all(w[1] == 1 for w in waves)
+    assert all(w[2] == w[3] > 0 for w in waves)
+    serial, _ = run(False)
+    serial.run(3)
+    assert [m.makespan for m in srv.history] == \
+        [m.makespan for m in serial.history]
+    for k in serial.params:
+        torch.testing.assert_close(srv.params[k], serial.params[k],
+                                   atol=1e-5, rtol=1e-5)

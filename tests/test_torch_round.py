@@ -225,10 +225,11 @@ def test_entry_points_default_to_the_card():
     "checkpoint_manager", "network", "availability", "faults", "retry",
     "placement", "parallel_dispatch", "control", "telemetry"])
 def test_later_slice_knobs_raise(knob):
-    """Each knob of a later slice raises naming its ROADMAP item; the
+    """Every knob of the later slices is ported and taken as it is: the
     checkpoint manager (item 11), the network, availability, fault plan
-    and retry policy (item 13), and the placement and parallel dispatch
-    (item 15) are ported and are taken as they are."""
+    and retry policy (item 13), the placement and parallel dispatch (item
+    15), the control plane and telemetry (item 16; ``telemetry=True``
+    builds a ``Telemetry``).  An unknown keyword still raises."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
     kw = dict(params={"w": torch.zeros(2)}, algorithm=algo, executors=[],
               data_by_client={}, clients_per_round=1, device="cpu")
@@ -240,13 +241,19 @@ def test_later_slice_knobs_raise(knob):
               "retry": (T.RetryPolicy(), lambda s: s.faults.retry),
               "placement": (T.DevicePlacement([], devices=["cpu"]),
                             lambda s: s.placement),
-              "parallel_dispatch": (True, lambda s: s.parallel_dispatch)}
-    if knob in ported:
-        val, read = ported[knob]
-        assert read(T.ParrotServer(**kw, **{knob: val})) is val
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.ParrotServer(**kw, **{knob: object()})
+              "parallel_dispatch": (True, lambda s: s.parallel_dispatch),
+              "control": (T.ControlPlane.adaptive(), lambda s: s.control),
+              "telemetry": (T.Telemetry(), lambda s: s.telemetry)}
+    val, read = ported[knob]
+    srv = T.ParrotServer(**kw, **{knob: val})
+    assert read(srv) is val
+    if knob == "control":
+        assert srv.telemetry is None and val.telemetry is None
+    if knob == "telemetry":
+        assert isinstance(T.ParrotServer(**kw, telemetry=True).telemetry,
+                          T.Telemetry)
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        T.ParrotServer(**kw, **{f"{knob}_x": val})
 
 
 @pytest.mark.parametrize("kw", [
@@ -285,26 +292,30 @@ def test_bsp_only_knobs_rejected_by_des_engines(engine, knob):
 
 @pytest.mark.parametrize("engine", ["semi-sync", "async"])
 def test_des_engines_refuse_the_left_out_knobs(engine):
-    """Under a DES engine the knobs of later slices still raise, naming
-    their item (the network and fault plan, item 13, and the placement,
-    item 15, are taken); the engines' checkpoint state (item 11)
-    round-trips and a state of another engine is refused."""
+    """Under a DES engine every knob of the later slices is taken (the
+    network and fault plan, item 13, the placement, item 15, the control
+    plane and telemetry, item 16, wired into each other and into the fault
+    injector); the engines' checkpoint state (item 11) round-trips and a
+    state of another engine is refused."""
     algo = T.make_algorithm("fedavg", TGRAD, lr=0.1)
-    items = {"control": "item 16", "telemetry": "item 16"}
     for knob, val in (("network", T.NetworkModel({})),
                       ("faults", T.FaultPlan(())),
-                      ("placement", T.DevicePlacement([], devices=["cpu"]))):
+                      ("placement", T.DevicePlacement([], devices=["cpu"])),
+                      ("control", T.ControlPlane.adaptive()),
+                      ("telemetry", T.Telemetry())):
         srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
                              executors=[], data_by_client={},
                              clients_per_round=1, device="cpu",
                              round_engine=engine, **{knob: val})
         assert srv.engine.mode == engine
-    for knob, item in items.items():
-        with pytest.raises(NotImplementedError, match=item):
-            T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
-                           executors=[], data_by_client={},
-                           clients_per_round=1, device="cpu",
-                           round_engine=engine, **{knob: object()})
+        assert getattr(srv, knob) is val or knob == "faults"
+    ctrl, tele = T.ControlPlane.adaptive(), T.Telemetry()
+    srv = T.ParrotServer(params={"w": torch.zeros(2)}, algorithm=algo,
+                         executors=[], data_by_client={},
+                         clients_per_round=1, device="cpu",
+                         round_engine=engine, faults=T.FaultPlan(()),
+                         control=ctrl, telemetry=tele)
+    assert ctrl.telemetry is tele and srv.faults.telemetry is tele
     eng = T.make_engine(engine)
     state = eng.state_dict()
     assert state["mode"] == engine
