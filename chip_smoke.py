@@ -100,9 +100,9 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    executors under SCAFFOLD with a state manager holding 4 client states
    (the rest spill), a ``TickTimer`` and a checkpoint every round, under
    BSP, semi-sync and async (phase 8b's options; async with top-k 0.01):
-   an uninterrupted 4-round reference, the same server killed mid-round
-   by a ``run_queue`` that raises ``KeyboardInterrupt``, and a fresh
-   server's ``run(4, auto_resume=True)``: ``params_digest``, makespans and
+   an uninterrupted 3-round (async: 4-round) reference, the same server
+   killed mid-round by a ``run_queue`` that raises ``KeyboardInterrupt``,
+   and a fresh server's ``run(n, auto_resume=True)``: ``params_digest``, makespans and
    cohorts equal to the reference's, every fold after the resume a
    leaves-form launch; for async one top-k launch for each span shipped,
    the kernel equal to plain on the first resumed partial (with its
@@ -117,7 +117,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    ``dynamic_env(4, 5)`` with phase 8b's options: (a) BSP, semi-sync and
    async under ``benchmarks/bench_network.py``'s constrained lognormal
    uplink (median 40 kbps, trace seed 13), each without a codec and with
-   top-k 0.01, 3 rounds: per round the virtual makespan, the comm keys,
+   top-k 0.01, 2 rounds: per round the virtual makespan, the comm keys,
    the wall and the launches; one top-k launch for each span shipped,
    every fold of the leaves form and one launch a folded group,
    ``comm_wire_bytes`` equal to the bytes shipped, the kernel equal to
@@ -175,9 +175,40 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    window the dispatches and fold launches, and a profiled semi-sync gang
    window.
 
+13. LM client training: (a) the backward kernels of flash attention and
+   RMSNorm against their plain versions on the card at fp32 and bf16 --
+   flash over phase 6's shapes (causal and not, windows, KV heads in place
+   at every head dim, ragged S, the serving shapes) and ragged Sq != Skv,
+   with the forward's log-sum-exp; the norm over phase 7's grid (its four
+   forward routes' shapes, odd d) and g tables of a vmapped block (a row a
+   client, one row shared at a stride of 0); both at 13(c)'s shapes, one
+   client and a folded block of 4; ``vmap(grad)`` of a client's norm,
+   projection and flash over 4 clients at 13(c)'s shapes, g per client and
+   shared, one launch of each kernel for the block, equal to a per-client
+   loop; (b) each timed at qwen2's
+   training shape beside its plain version, its bound and the backward of
+   the one PyTorch call (``scaled_dot_product_attention``, ``F.rms_norm``);
+   (c) full-width qwen2-0.5b (bf16, the ``pallas`` route) in
+   ``launch/fl_train_lm.py``'s traffic: FedAvg, 2 rounds under the default
+   timer (the params are fp32 from round 1 on: FedAvg adds the fp32
+   aggregate, as the JAX package does, and flash follows their dtype's
+   route), then one round profiled on device activity only, with the eval
+   loss before and after each round, peak device memory, the idle share,
+   and each round's launches held exactly to the schedule (24 flash and 49
+   norm launches forward and backward a local step of a client-step call,
+   padded steps included; one leaves-form fold a ``fold_block`` group at n
+   = 494,032,768; no scan, no top-k); (d) one ``make_train_step`` at (4,
+   1024): train tokens/s and its launches; (e) qwen2's widths cut to 2
+   layers, fp32, card (kernels) against CPU (plain): the gradients leaf by
+   leaf within 1e-4 relative, one train step and 2 FL rounds under a
+   ``TickTimer``; (f) at full width in bf16 the gradients
+   of the ``pallas`` route against the ``chunked`` route, each leaf's norm
+   within 2e-2.
+
 Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
-gang rounds, 12(a)'s card runs and 12(c)'s gang runs are the main path:
+gang rounds, 12(a)'s card runs, 12(c)'s gang runs and 13(c)'s rounds are
+the main path:
 kernel launch counters are set to 0 just before each and read just after,
 and every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
@@ -1848,6 +1879,11 @@ def serve_main_run(label, ops, lm, tree, generate, make_prompt, cfg,
     launches = lm_launches(t)
     counters = {"flash": ops.flash_launches, "ssm_scan": ops.ssm_scan_launches,
                 "rmsnorm": ops.rmsnorm_launches}
+    backward = {k: t[f"{part}_{k}_launches"] for part in ("prefill", "decode")
+                for k in ("flash_bwd", "rmsnorm_bwd")}
+    if any(backward.values()):
+        raise AssertionError(f"{cfg.name}: serving launched a backward "
+                             f"kernel: {backward}")
     routes = dict(ops.flash_route_launches)
     log(f"{label}: {cfg.name} launches (flash, ssm_scan, rmsnorm) in the "
         f"main run: prefill {launches['prefill']}, {G - 1} decode steps "
@@ -2105,11 +2141,12 @@ def phase_des_quickstart(T, make_clients, ops):
 
 class FoldGroups:
     """While active, counts the groups ``LocalAggregator.fold_block``
-    folds: each is one launch of the leaves form (blocks of at most 64
-    clients, 142 leaves: one table)."""
+    folds (each one launch of the leaves form for blocks of at most 64
+    clients and 150 leaves: one table) and keeps their accumulator
+    sizes."""
 
     def __init__(self, T):
-        self.cls, self.n = T.LocalAggregator, 0
+        self.cls, self.n, self.sizes = T.LocalAggregator, 0, []
 
     def __enter__(self):
         inner = self.inner = self.cls.fold_block
@@ -2117,6 +2154,7 @@ class FoldGroups:
         def fold_block(agg, stacked, weights):
             inner(agg, stacked, weights)
             self.n += len(agg._acc)
+            self.sizes.extend(a.numel() for a in agg._acc.values())
 
         self.cls.fold_block = fold_block
         return self
@@ -2278,11 +2316,14 @@ def phase_des(T, make_clients, ops, plain):
 
 CKPT_ROUNDS = 4
 MLP_STATE_BYTES = 4 * MAIN_SHAPE[0]     # one SCAFFOLD control variate
-# engine -> (engine_opts, top-k fraction): phase 8b's options, and top-k
-# 0.01 on the async run
-CKPT_ENGINES = {"bsp": (None, None),
-                "semi-sync": (DES_FULL["semi-sync"], None),
-                "async": (DES_FULL["async"], 0.01)}
+# engine -> (engine_opts, top-k fraction, rounds): phase 8b's options, and
+# top-k 0.01 on the async run; BSP and semi-sync run 3 rounds (the budget
+# of phase 13), async CKPT_ROUNDS, the fewest whose resumed first partial
+# carries a restored residual (at 3 it carries none; rehearsed on the CPU
+# under the same TickTimer)
+CKPT_ENGINES = {"bsp": (None, None, 3),
+                "semi-sync": (DES_FULL["semi-sync"], None, 3),
+                "async": (DES_FULL["async"], 0.01, CKPT_ROUNDS)}
 
 
 def ckpt_server(T, device, engine, work, ckpt, knobs=dict):
@@ -2291,7 +2332,7 @@ def ckpt_server(T, device, engine, work, ckpt, knobs=dict):
     virtual time from a TickTimer, a checkpoint every round; ``knobs()``
     builds the network / fault kwargs afresh for each server."""
     from repro_torch.checkpoint import CheckpointManager
-    opts, frac = CKPT_ENGINES[engine]
+    opts, frac, _ = CKPT_ENGINES[engine]
     algo = T.make_algorithm("scaffold", T.value_and_grad(mlp_loss), 0.05,
                             local_epochs=1)
     sm = T.ClientStateManager(tempfile.mkdtemp(dir=work, prefix="spill_"),
@@ -2357,12 +2398,13 @@ def timed_saves(srv, sync):
     return rows
 
 
-def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict):
-    """One engine: an uninterrupted CKPT_ROUNDS-round reference; the same
+def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict,
+                    n_rounds=CKPT_ROUNDS):
+    """One engine: an uninterrupted ``n_rounds``-round reference; the same
     server killed mid-round by a ``run_queue`` that raises
     KeyboardInterrupt at the middle one of executor 0's calls made in
-    rounds 1 to CKPT_ROUNDS - 1 (the reference's count); a fresh server's
-    ``run(CKPT_ROUNDS, auto_resume=True)``.  ``on_resumed(srv)`` runs on the
+    rounds 1 to ``n_rounds - 1`` (the reference's count); a fresh server's
+    ``run(n_rounds, auto_resume=True)``.  ``on_resumed(srv)`` runs on the
     resumed server before it restores (counters, wraps)."""
     from repro_torch.checkpoint import manager as ckm
     from repro_torch.checkpoint import params_digest
@@ -2380,13 +2422,13 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict):
 
     ex0.run_queue = counting
     t0 = time.perf_counter()
-    ref.run(CKPT_ROUNDS)
+    ref.run(n_rounds)
     sync()
     out["ref_wall_s"] = time.perf_counter() - t0
     out["digest"] = params_digest(ref.params)
     out["makespans"] = [m.makespan for m in ref.history]
     out["saves"] = saves
-    mid = [i + 1 for i, r in enumerate(rounds) if 1 <= r < CKPT_ROUNDS]
+    mid = [i + 1 for i, r in enumerate(rounds) if 1 <= r < n_rounds]
     kill_at = mid[len(mid) // 2]
 
     ck = os.path.join(work, "ck")
@@ -2402,14 +2444,14 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict):
 
     ex0.run_queue = dying
     try:
-        victim.run(CKPT_ROUNDS)
+        victim.run(n_rounds)
     except KeyboardInterrupt:
         pass
     else:
         raise AssertionError(f"{engine}: the kill at call {kill_at} of "
                              f"executor 0 never fired")
     out["killed_in_round"] = victim.round
-    if not 1 <= victim.round < CKPT_ROUNDS:
+    if not 1 <= victim.round < n_rounds:
         raise AssertionError(f"{engine}: killed in round {victim.round}")
     del victim
 
@@ -2431,7 +2473,7 @@ def ckpt_engine_run(T, device, engine, work, on_resumed=None, knobs=dict):
     ckm.CheckpointManager.restore = restore
     try:
         t0 = time.perf_counter()
-        hist = resumed.run(CKPT_ROUNDS, auto_resume=True)
+        hist = resumed.run(n_rounds, auto_resume=True)
         sync()
     finally:
         ckm.CheckpointManager.restore = inner
@@ -2491,7 +2533,8 @@ def phase_checkpoint(T, ops, plain):
                 ops.reset_agg_counts()
                 ops.reset_topk_counts()
 
-            r = ckpt_engine_run(T, "cuda", engine, work, on_resumed)
+            r = ckpt_engine_run(T, "cuda", engine, work, on_resumed,
+                                n_rounds=CKPT_ENGINES[engine][2])
             launches, leaves = ops.agg_launches, ops.agg_leaves_launches
             copies, topk = ops.agg_leaf_copies, ops.topk_launches
             if r["resumed_digest"] != r["digest"]:
@@ -2557,7 +2600,9 @@ def phase_checkpoint(T, ops, plain):
                 f"{[v['shard_bytes_written'] for v in saves]} of linked "
                 f"{[v['shard_bytes_linked'] for v in saves]}; restore "
                 f"{r['restore_ms']:.1f} ms; walls {r['ref_wall_s']:.2f} s "
-                f"(4 rounds) / {r['resumed_wall_s']:.2f} s (resume)")
+                f"({CKPT_ENGINES[engine][2]} rounds) / "
+                f"{r['resumed_wall_s']:.2f} s "
+                f"(resume)")
         finally:
             shutil.rmtree(work, ignore_errors=True)
     return out
@@ -2700,7 +2745,7 @@ def phase_ckpt(T, ops, plain, make_population):
 # phase 10: the network, availability and fault model
 # ---------------------------------------------------------------------------
 
-NET_ROUNDS = 3
+NET_ROUNDS = 2         # 3 before phase 13 was paid for
 # engine -> engine_opts: phase 8b's options (BSP takes none)
 NET_ENGINES = {"bsp": None, "semi-sync": DES_FULL["semi-sync"],
                "async": DES_FULL["async"]}
@@ -3118,7 +3163,8 @@ def phase_fault_resume(T, ops, plain):
         r = ckpt_engine_run(
             T, "cuda", "async", work, on_resumed,
             knobs=lambda: fault_knobs(T, fault_plan(
-                T, FAULT_SEED, RESUME_HORIZON, RESUME_RATE)))
+                T, FAULT_SEED, RESUME_HORIZON, RESUME_RATE)),
+            n_rounds=CKPT_ROUNDS)
         topk, seen = ops.topk_launches, box["seen"]
         if r["resumed_digest"] != r["digest"] \
                 or r["resumed_makespans"] != r["makespans"] \
@@ -3887,6 +3933,676 @@ def phase_ctrl(T, ops, card):
             "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: LM client training (qwen2-0.5b)
+# ---------------------------------------------------------------------------
+
+# 13(c)'s attention: a client's batch of 4 sequences of fl_train_lm's 32
+# tokens at qwen2's heads (one partial key tile), and V clients folded
+LM_FL_FLASH = (4, 32, 14, 2, 64)            # B, S, H, KV, hd
+LM_FL_V = 4
+# 13(a)'s vmap(grad) against a per-client loop, as a relative 2-norm a
+# gradient: the block runs the projection's products batched, so wq's
+# gradient, a sum over 128 rows, rounds apart from the loop's (elementwise
+# 8.4e-5 in fp32 where the sum cancels, past 13(a)'s tolerance); another
+# client's gradient would be ~1.4
+VMAP_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+# (B, Sq, Skv, H, KV, hd, causal, window): the flash backward's grid -- the
+# shapes of phase 6's grid (the JAX grid, windows, non-causal, KV heads in
+# place at every head dim, a ragged S, the serving shapes) with Sq == Skv,
+# then ragged Sq and Skv apart, then 13(c)'s shape for one client and a
+# folded block; each at fp32 and bf16
+FLASH_BWD_GRID = (sorted({(B, S, S, H, KV, hd, causal, window)
+                          for B, S, H, KV, hd, causal, window, _
+                          in FLASH_GRID})
+                  + [(1, 100, 130, 4, 1, 128, True, 0),
+                     (1, 130, 100, 4, 2, 64, False, 0),
+                     (1, 77, 77, 2, 1, 96, True, 20)]
+                  + [(V * LM_FL_FLASH[0], LM_FL_FLASH[1], LM_FL_FLASH[1],
+                      *LM_FL_FLASH[2:], True, 0) for V in (1, LM_FL_V)])
+# qwen2-0.5b's attention in a training step at (4, 1024) tokens
+TRAIN_FLASH = (4, 1024, 14, 2, 64)          # B, S, H, KV, hd
+# (rows, d, g rows): phase 7's norm grid with one g row (all four forward
+# routes' shapes, odd d), then g tables as a vmapped block hands them over:
+# a row a client, and (a negative count) one row shared at a stride of 0;
+# then 13(c)'s rows (4 x 32 tokens at d = 896) for one client and a block
+# of 4
+RMS_BWD_GRID = ([(T, d, 1) for T, d in RMS_GRID]
+                + [(1000, 896, 4), (4096, 896, 8), (512, 1600, 8),
+                   (300, 5120, 3), (512, 896, -4), (40, 33, -8)]
+                + [(128, 896, 1), (512, 896, LM_FL_V)])
+TRAIN_RMS = (4096, 896)                     # qwen2's rows at (4, 1024)
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+LM_FL_ROUNDS = 2
+QWEN_PARAMS = 494032768
+# 13(f): each leaf's gradient norm, pallas route against chunked route, in
+# bf16 at full width: both routes round activations to bf16 at the same
+# places but inside attention (flash rounds P to bf16 before P·V), a few
+# bf16 steps (2^-8 each) through 24 layers
+ROUTE_NORM_BOUND = 2e-2
+# 13(e): the 2-layer fp32 cut's FL traffic, small enough for the CPU twin
+# (the head's 151,936 columns dominate a CPU step)
+CUT_CLIENTS, CUT_PER_ROUND, CUT_SEQ = 4, 2, 16
+CUT_SAMPLES, CUT_BATCH = 2, 2
+# 13(e): each leaf's gradient, card against CPU in fp32, as a relative
+# 2-norm: the plain routes' own fp32 differences (pallas against dense on
+# the CPU) are at most 8.2e-7 a leaf at this cut, and a zeroed dq, dk or dv
+# moves a leaf by 1 (scripts/cut_grad_routes.py)
+CUT_GRAD_RTOL = 1e-4
+
+
+def flash_bwd_bound_ms(B, S, H, KV, hd, itemsize):
+    """Least time for the causal backward from (q, k, v, o, dO, lse): q, o
+    and dO read and dq written at the H query heads, k and v read and dk,
+    dv written at the KV heads, lse read, each once -- (4·H + 4·KV)·B·S·hd
+    elements and 4·B·H·S bytes -- over the memory rate, vs 10·hd
+    operations for each of the B·H·S(S+1)/2 unmasked pairs (S = q·k
+    recomputed, dP = dO·v, dV, dQ, dK) over the bf16 tensor-core rate; the
+    larger bounds it."""
+    nbytes = (4 * H + 4 * KV) * B * S * hd * itemsize + 4 * B * H * S
+    flops = 10 * hd * B * H * S * (S + 1) // 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def rms_bwd_bound_ms(T, d, itemsize):
+    """Least time for the norm's backward: x and dy read and dx written
+    once, g read and dg written once, over the memory rate, vs 8 fp32
+    operations an element over the fp32 rate."""
+    nbytes = 3 * T * d * itemsize + 2 * d * itemsize
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8 * T * d / FP32_FLOP_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes)
+
+
+def _past_tol(got, want, tol):
+    atol, rtol = tol
+    diff = (got.float() - want.float()).abs()
+    return diff, diff > atol + rtol * want.float().abs()
+
+
+def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain):
+    """13(a): the forward's lse and the backward kernel against their plain
+    versions over FLASH_BWD_GRID at fp32 and bf16, on the same (q, k, v,
+    o, dO, lse), at tests/test_kernels.py's tolerances; one launch a
+    call."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, Sq, Skv, H, KV, hd, causal, window in FLASH_BWD_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dt)
+            k, v = (torch.randn(B, Skv, KV, hd, device="cuda",
+                                generator=gen).to(dt) for _ in range(2))
+            do = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dt)
+            o, lse = ops._flash_fwd(q, k, v, causal, window, True)
+            _, want_lse = fwd_plain(q, k, v, causal=causal, window=window)
+            launches = ops.flash_bwd_launches
+            got = ops._flash_bwd(do, q, k, v, o, lse, causal, window)
+            want = bwd_plain(do, q, k, v, o, lse, causal=causal,
+                             window=window)
+            torch.cuda.synchronize()
+            case = (f"(B,Sq,Skv,H,KV,hd)=({B},{Sq},{Skv},{H},{KV},{hd}) {dt}"
+                    f" causal={causal} window={window}")
+            _, bad = _past_tol(lse, want_lse, flash_tol(dt))
+            if bool(bad.any()):
+                raise AssertionError(f"flash lse {case}: {int(bad.sum())} "
+                                     f"rows past tolerance")
+            if ops.flash_bwd_launches != launches + 1:
+                raise AssertionError(f"flash backward {case}: not one launch")
+            key = str(dt).replace("torch.", "")
+            for name, g, w, ref in zip("qkv", got, want, (q, k, v)):
+                diff, bad = _past_tol(g, w, flash_tol(dt))
+                if g.dtype != dt or g.shape != ref.shape \
+                        or not bool(torch.isfinite(g).all()) \
+                        or bool(bad.any()):
+                    raise AssertionError(
+                        f"flash backward d{name} {case}: {int(bad.sum())} "
+                        f"elements past tolerance, max err "
+                        f"{float(diff.max())}")
+                max_err[key] = max(max_err[key], float(diff.max()))
+            del q, k, v, do, o, lse, got, want
+    ops.reset_flash_counts()       # comparison launches do not count
+    log(f"phase 13a: flash backward kernel == plain on "
+        f"{2 * len(FLASH_BWD_GRID)} cases (phase 6's shapes at fp32 and "
+        f"bf16 -- causal and not, windows, KV heads in place at hd 16-192, "
+        f"ragged S, the serving shapes -- ragged Sq != Skv, and 13(c)'s "
+        f"{LM_FL_FLASH} for one client and {LM_FL_V} folded), the "
+        f"forward's lse == plain; max |err| fp32 {max_err['float32']:.3g}, "
+        f"bf16 {max_err['bfloat16']:.3g}")
+    return max_err
+
+
+def phase_rms_bwd_grid(ops, grouped_plain, bwd_plain):
+    """13(a): the norm's forward with a g table and its backward kernel
+    against their plain versions over RMS_BWD_GRID at fp32 and bf16; one
+    launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for T_, d, V in RMS_BWD_GRID:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
+            dy = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
+            g = (1 + 0.1 * torch.randn(abs(V), d, device="cuda",
+                                       generator=gen)).to(dt)
+            if V < 0:                  # one row shared at a stride of 0
+                g = g[:1].expand(-V, d)
+            tol = (2e-5, 1e-2) if dt == torch.float32 else (2e-2, 1e-2)
+            y = ops._rms_fwd(x, g, 1e-5)
+            launches = ops.rmsnorm_bwd_launches
+            dx, dg = ops._rms_bwd(dy, x, g, 1e-5)
+            wy = grouped_plain(x, g, 1e-5)
+            wx, wg = bwd_plain(dy, x, g, 1e-5)
+            torch.cuda.synchronize()
+            case = f"(T,d,V)=({T_},{d},{V}) {dt}"
+            if ops.rmsnorm_bwd_launches != launches + 1:
+                raise AssertionError(f"rmsnorm backward {case}: not one "
+                                     f"launch")
+            key = str(dt).replace("torch.", "")
+            for name, a, b in (("y", y, wy), ("dx", dx, wx), ("dg", dg, wg)):
+                diff, bad = _past_tol(a, b, tol)
+                if a.shape != b.shape or a.dtype != b.dtype \
+                        or bool(bad.any()):
+                    raise AssertionError(
+                        f"rmsnorm {name} {case}: {int(bad.sum())} elements "
+                        f"past tolerance, max err {float(diff.max())}")
+                max_err[key] = max(max_err[key], float(diff.max()))
+    ops.reset_rmsnorm_counts()
+    log(f"phase 13a: rmsnorm backward kernel (and the forward with a g "
+        f"table) == plain on {2 * len(RMS_BWD_GRID)} cases (phase 7's grid "
+        f"over the four forward routes' shapes and odd d, g tables of 3-8 "
+        f"rows and rows shared at a stride of 0, 13(c)'s 128 x 896 rows for "
+        f"one client and {LM_FL_V}); max |err| fp32 "
+        f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
+    return max_err
+
+
+def _client_loss(ops, wq, g, x, k, v):
+    """A client's loss at 13(c)'s shapes: the norm over qwen2's d, the query
+    projection to its heads, causal flash over its KV heads in place."""
+    B, S, H, _, hd = LM_FL_FLASH
+    q = (ops.rmsnorm(x, g) @ wq).view(B, S, H, hd)
+    o = ops.flash_attention(q, k, v, causal=True)
+    return torch.sum(o.float() ** 2)
+
+
+def phase_vmap_grad_block(ops):
+    """13(a): the vmap rules at 13(c)'s shapes on the card: ``vmap(grad)``
+    over LM_FL_V clients (g per client, and one g shared as a client's
+    first step hands it over) launches each kernel once forward and once
+    backward for the block, and each client's gradients equal a per-client
+    loop of ``grad`` (LM_FL_V launches of each): each gradient's
+    ``|vmap - loop| / |loop|`` (2-norms) within VMAP_GRAD_RTOL."""
+    B, S, H, KV, hd = LM_FL_FLASH
+    d, V = H * hd, LM_FL_V
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    fn = torch.func.grad(lambda *a: _client_loss(ops, *a),
+                         argnums=(0, 1, 2, 3, 4))
+    max_err = {}
+    for dt in (torch.float32, torch.bfloat16):
+        tol = VMAP_GRAD_RTOL[dt]
+        for shared in (False, True):
+            wq = (torch.randn(V, d, d, device="cuda", generator=gen)
+                  / d ** 0.5).to(dt)
+            g = (1 + 0.1 * torch.randn(V, d, device="cuda",
+                                       generator=gen)).to(dt)
+            x = torch.randn(V, B, S, d, device="cuda", generator=gen).to(dt)
+            k, v = (torch.randn(V, B, S, KV, hd, device="cuda",
+                                generator=gen).to(dt) for _ in range(2))
+            in_dims = (0, None if shared else 0, 0, 0, 0)
+            if shared:
+                g = g[0]
+            reset_counts(ops)
+            got = torch.func.vmap(fn, in_dims=in_dims)(wq, g, x, k, v)
+            torch.cuda.synchronize()
+            block = ops.launch_counts()
+            want = {"flash": 1, "flash_bwd": 1, "ssm_scan": 0, "rmsnorm": 1,
+                    "rmsnorm_bwd": 1}
+            case = f"{dt} g {'shared' if shared else 'per client'}"
+            if block != want:
+                raise AssertionError(f"13a vmap(grad) {case}: launches "
+                                     f"{block}, expected {want}")
+            key = f"{str(dt).replace('torch.', '')} {case.split(' ', 1)[1]}"
+            max_err[key] = 0.0
+            for i in range(V):
+                args = [a if dim is None else a[i]
+                        for a, dim in zip((wq, g, x, k, v), in_dims)]
+                for name, a, b in zip(("wq", "g", "x", "k", "v"),
+                                      (t[i] for t in got), fn(*args)):
+                    rel = float((a.float() - b.float()).norm()
+                                / b.float().norm())
+                    if a.shape != b.shape or not rel <= tol:
+                        raise AssertionError(
+                            f"13a vmap(grad) {case}: client {i} d{name} "
+                            f"|vmap - loop| / |loop| {rel:.3g} > {tol}")
+                    max_err[key] = max(max_err[key], rel)
+    reset_counts(ops)              # comparison launches do not count
+    fp32_tol, bf16_tol = (VMAP_GRAD_RTOL[t]
+                          for t in (torch.float32, torch.bfloat16))
+    log(f"phase 13a: vmap(grad) of a client's norm, projection and flash over"
+        f" {V} clients at 13(c)'s shapes (x ({B}, {S}, {d}), q ({B}, {S}, "
+        f"{H}, {hd}), k, v ({B}, {S}, {KV}, {hd})), g per client and shared:"
+        f" one launch of each kernel forward and backward for the block, "
+        f"each client's gradients == a per-client loop (|vmap - loop| / "
+        f"|loop| a gradient, bound {fp32_tol} fp32, {bf16_tol} bf16): "
+        f"{max_err}")
+    return max_err
+
+
+def time_flash_bwd(ops, plain, timer):
+    """13(b): the backward at qwen2's training shape, bf16 causal, beside
+    its plain version, its bound and the backward of
+    scaled_dot_product_attention(is_causal, enable_gqa) (forward untimed;
+    the port never calls it)."""
+    import torch.nn.functional as F
+    B, S, H, KV, hd = TRAIN_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, gen)
+    do = torch.randn(B, S, H, hd, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    o, lse = ops._flash_fwd(q, k, v, True, 0, True)
+    k_ms = timer.ms(lambda: ops._flash_bwd(do, q, k, v, o, lse, True, 0))
+    host_ms = timer.host_ms(lambda: ops._flash_bwd(do, q, k, v, o, lse,
+                                                   True, 0), reps=10)
+    p_ms = timer.ms(lambda: plain(do, q, k, v, o, lse, causal=True,
+                                  window=0), reps=5)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                         enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+    lib = torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    mine = ops._flash_bwd(do, q, k, v, o, lse, True, 0)
+    lib_diff = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
+                   for a, b in zip(lib, mine))
+    bound, by, nbytes, flops = flash_bwd_bound_ms(B, S, H, KV, hd, 2)
+    ops.reset_flash_counts()
+    row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                     "dtype": "bfloat16", "causal": True, "window": 0},
+           "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "kernel_over_library": k_ms / lib_ms,
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
+           "bytes": nbytes, "flops": flops, "library_max_abs_diff": lib_diff}
+    log(f"phase 13b timing: flash backward {TRAIN_FLASH} bf16 causal: kernel"
+        f" {k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
+        f"{p_ms:.4f} ms, scaled_dot_product_attention's backward "
+        f"{lib_ms:.4f} ms (|diff| {lib_diff:.3g}); kernel_ms / library_ms "
+        f"{k_ms / lib_ms:.2f}; bound {bound:.4f} ms ({by}: {nbytes} B, "
+        f"{flops} FLOP), kernel at {100 * bound / k_ms:.2f}% of the bound")
+    return row
+
+
+def time_rms_bwd(ops, plain, timer):
+    """13(b): the norm's backward at qwen2's training rows, bf16, beside
+    its plain version, its bound and F.rms_norm's backward (forward
+    untimed)."""
+    import torch.nn.functional as F
+    T_, d = TRAIN_RMS
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(T_, d, device="cuda", generator=gen).to(torch.bfloat16)
+    dy = torch.randn(T_, d, device="cuda", generator=gen).to(torch.bfloat16)
+    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
+         ).to(torch.bfloat16)
+    gt = g[None]
+    k_ms = timer.ms(lambda: ops._rms_bwd(dy, x, gt, 1e-5))
+    host_ms = timer.host_ms(lambda: ops._rms_bwd(dy, x, gt, 1e-5))
+    p_ms = timer.ms(lambda: plain(dy, x, gt, 1e-5), reps=10)
+    xr, gr = x.clone().requires_grad_(), g.clone().requires_grad_()
+    y = F.rms_norm(xr, (d,), gr, 1e-5)
+    lib_ms = timer.ms(lambda: torch.autograd.grad(y, (xr, gr), dy,
+                                                  retain_graph=True))
+    bound, by, nbytes = rms_bwd_bound_ms(T_, d, 2)
+    ops.reset_rmsnorm_counts()
+    row = {"shape": {"T": T_, "d": d, "dtype": "bfloat16"}, "ms": k_ms,
+           "host_ms": host_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
+           "bytes": nbytes, "copy_ms": copy_bytes_ms(timer, nbytes)}
+    log(f"phase 13b timing: rmsnorm backward {TRAIN_RMS} bf16: kernel "
+        f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
+        f"{p_ms:.4f} ms, F.rms_norm's backward {lib_ms:.4f} ms, a copy_ of "
+        f"the same bytes {row['copy_ms']:.4f} ms; bound {bound:.4f} ms ({by}:"
+        f" {nbytes} B), kernel at {100 * bound / k_ms:.1f}% of the bound")
+    return row
+
+
+class StepCalls:
+    """While active, counts the local steps the client engine runs: each
+    ``ClientStepEngine._run_one`` call (once for a vmapped block, once for
+    a single client, re-runs included) runs ``local_epochs`` x n_pad
+    steps, each one forward and one backward of the model."""
+
+    def __init__(self, T):
+        self.cls, self.calls = T.ClientStepEngine, []
+
+    def __enter__(self):
+        inner = self.inner = self.cls._run_one
+
+        def run_one(eng, payload, state, batches, mask):
+            self.calls.append(eng.algorithm.local_epochs * mask.shape[0])
+            return inner(eng, payload, state, batches, mask)
+
+        self.cls._run_one = run_one
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._run_one = self.inner
+
+
+def lm_round_launches(ops):
+    c = ops.launch_counts()
+    c.update(fold=ops.agg_launches, fold_leaves=ops.agg_leaves_launches,
+             topk=ops.topk_launches)
+    return c
+
+
+def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
+    """13(c): full-width qwen2-0.5b, bf16, the pallas route, in
+    ``fl_train_lm``'s traffic: FedAvg, LM_FL_ROUNDS rounds under the default
+    timer, then one round profiled on device activity only.  Counts set to
+    0 just before each round and read just after, held exactly to what
+    the schedule implies; the eval loss before and after each round."""
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    n = sum(a.numel() for a in tree.leaves(params))
+    if n != QWEN_PARAMS:
+        raise AssertionError(f"qwen2-0.5b: {n} params, expected "
+                             f"{QWEN_PARAMS}")
+    data = fl.lm_data(cfg)
+    batch = fl.eval_batch(cfg)
+    set_up_s = time.perf_counter() - t0
+    rows = []
+    L = cfg.n_layers
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as sd:
+        srv = fl.build(cfg, params, torch.device("cuda", 0), sd, data=data)
+        loss = fl.eval_loss(srv.params, batch, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(LM_FL_ROUNDS):
+            # bf16 params take the tensor-core flash, fp32 the CUDA-core
+            # one: FedAvg's server update adds the fp32 aggregate, so the
+            # model is fp32 from round 1 on, as in the JAX package
+            dtype = srv.params["embed"]["w"].dtype
+            route = ("tensor_cores" if dtype == torch.bfloat16
+                     else "cuda_cores")
+            with StepCalls(T) as steps, FoldGroups(T) as folds:
+                reset_counts(ops)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m = srv.run_round()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = lm_round_launches(ops)
+            s = sum(steps.calls)
+            want = {"flash": L * s, "flash_bwd": L * s,
+                    "rmsnorm": (2 * L + 1) * s,
+                    "rmsnorm_bwd": (2 * L + 1) * s, "ssm_scan": 0,
+                    "topk": 0, "fold": len(folds.sizes),
+                    "fold_leaves": len(folds.sizes)}
+            if got != want or set(folds.sizes) != {n} \
+                    or ops.flash_route_launches[route] != got["flash"]:
+                raise AssertionError(
+                    f"13c round {r}: launches {got}, expected {want} for "
+                    f"{s} local steps in {len(steps.calls)} client-step "
+                    f"calls; fold sizes {folds.sizes}; flash routes "
+                    f"{ops.flash_route_launches}")
+            before, loss = loss, fl.eval_loss(srv.params, batch, cfg)
+            if not np.isfinite(loss):
+                raise AssertionError(f"13c round {r}: eval loss {loss}")
+            rows.append({"round": r, "wall_s": wall, "params_dtype":
+                         str(dtype).replace("torch.", ""), "flash_route": route,
+                         "makespan_s": m.makespan, "clients": m.n_clients,
+                         "client_step_calls": len(steps.calls),
+                         "local_steps": s, "launches": got,
+                         "eval_loss_before": before,
+                         "eval_loss_after": loss})
+            log(f"phase 13c round {r} [{card}]: {rows[-1]['params_dtype']} "
+                f"params (flash on the {route}), wall {wall:.3f} s, makespan "
+                f"{m.makespan:.3f} s, {m.n_clients} clients in "
+                f"{len(steps.calls)} client-step calls ({s} local steps, "
+                f"padded included); launches {got} (== 24/49 a step "
+                f"forward and backward, one leaves-form fold a group at n = "
+                f"{n}); eval loss {before:.4f} -> {loss:.4f}")
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_round(srv)
+        after = fl.eval_loss(srv.params, batch, cfg)
+        reset_counts(ops)          # the profile's launches do not count
+        del srv
+    torch.cuda.empty_cache()
+    if prof is None:
+        log("phase 13c profile: the trace holds no device time (not "
+            "measured)")
+    else:
+        log(f"phase 13c profile (one more round) [{card}]: wall "
+            f"{prof['wall_s']:.3f} s, device busy {prof['device_busy_s']:.4f}"
+            f" s, idle share {prof['device_idle_share']:.3f}, "
+            f"{prof['kernel_launches']} kernel launches; eval loss -> "
+            f"{after:.4f}")
+        for k in prof["top_kernels"]:
+            log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
+                f"{k['name']}")
+    log(f"phase 13c: {n} params, set-up {set_up_s:.2f} s, "
+        f"max_memory_allocated over the {LM_FL_ROUNDS} rounds {peak} B")
+    return {"rows": rows, "profile": prof, "max_memory_allocated": peak,
+            "eval_loss_after_profiled_round": after, "n_params": n}
+
+
+def lm_batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, size=(B, S), dtype=np.int32)
+            for k in ("inputs", "labels")}
+
+
+def phase_lm_step(ops, lm, tree, cfg, card):
+    """13(d): one make_train_step at (4, 1024) full width, after one
+    warm-up step: train tokens/s and its launches (counts set to 0 just
+    before)."""
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg)
+    step = lm.make_train_step(cfg, lr=0.05)
+    batch = lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 3)
+    params, _ = step(params, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    params, met = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    L = cfg.n_layers
+    want = {"flash": L, "flash_bwd": L, "ssm_scan": 0, "rmsnorm": 2 * L + 1,
+            "rmsnorm_bwd": 2 * L + 1}
+    loss = float(met["loss"])
+    if got != want or not np.isfinite(loss):
+        raise AssertionError(f"13d: launches {got}, expected {want}; loss "
+                             f"{loss}")
+    peak = torch.cuda.max_memory_allocated()
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"phase 13d [{card}]: make_train_step at ({TRAIN_BATCH}, "
+        f"{TRAIN_SEQ}) full width bf16 pallas: {wall * 1e3:.2f} ms, "
+        f"{tok / wall:.0f} train tokens/s, loss {loss:.4f}, launches {got}, "
+        f"max_memory_allocated {peak} B")
+    del params
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "tokens_per_s": tok / wall, "loss": loss,
+            "launches": got, "max_memory_allocated": peak}
+
+
+def phase_lm_routes(T, lm, tree, cfg, card):
+    """13(f): at full width in bf16, the gradients on the pallas route
+    against the chunked route on one batch: each leaf's norm within
+    ROUTE_NORM_BOUND; the relative difference of each leaf printed."""
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(2),
+                            cfg)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in lm_batch(cfg, 4, 256, 4).items()}
+    grads = {}
+    for impl in ("pallas", "chunked"):
+        c = dataclasses.replace(cfg, attention_impl=impl)
+        loss, g = T.value_and_grad(
+            lambda p, b, c=c: lm.loss_and_aux(p, b, c))(params, batch)
+        grads[impl] = (float(loss), tree.leaves(g))
+    norm_err, diff_err = [], []
+    for a, b in zip(grads["pallas"][1], grads["chunked"][1]):
+        na, nb = float(a.float().norm()), float(b.float().norm())
+        norm_err.append(abs(na - nb) / nb)
+        diff_err.append(float((a.float() - b.float()).norm()) / nb)
+    del params, grads["pallas"], grads["chunked"]
+    torch.cuda.empty_cache()
+    worst = max(norm_err)
+    if not worst <= ROUTE_NORM_BOUND:
+        raise AssertionError(f"13f: a leaf's gradient norm differs by "
+                             f"{worst:.3g} between the routes (bound "
+                             f"{ROUTE_NORM_BOUND})")
+    log(f"phase 13f [{card}]: full-width bf16 gradients, pallas vs chunked "
+        f"route on a (4, 256) batch: each leaf's norm within {worst:.3g} "
+        f"(bound {ROUTE_NORM_BOUND}); |g_pallas - g_chunked| / |g_chunked| "
+        f"per leaf up to {max(diff_err):.3g}")
+    return {"bound": ROUTE_NORM_BOUND, "norm_rel_err_max": worst,
+            "diff_rel_err_max": max(diff_err), "leaves": len(norm_err)}
+
+
+def cut_server(T, lm, cfg, params, device, sd, make_clients):
+    """13(e)'s FL run: fl_train_lm's wiring (FedAvg, lr 0.1, 4 executors)
+    on CUT_CLIENTS clients of CUT_SEQ tokens, CUT_PER_ROUND a round, under a
+    TickTimer."""
+    algo = T.make_algorithm("fedavg", T.value_and_grad(
+        lambda p, b: lm.loss_and_aux(p, b, cfg)), lr=0.1, local_epochs=1)
+    sm = T.ClientStateManager(sd)
+    timer = T.TickTimer(1.0)
+    execs = [T.SequentialExecutor(k, algo, state_manager=sm, timer=timer,
+                                  device=device) for k in range(4)]
+    data = make_clients(CUT_CLIENTS, vocab=cfg.vocab_size, seq_len=CUT_SEQ,
+                        batch_size=CUT_BATCH, mean_samples=CUT_SAMPLES,
+                        seed=0)
+    return T.ParrotServer(params=params, algorithm=algo, executors=execs,
+                          data_by_client=data,
+                          clients_per_round=CUT_PER_ROUND, seed=0,
+                          device=device)
+
+
+def cut_grads(T, ops, lm, tree, cut, p_card, p_cpu, batch):
+    """13(e): the gradients of ``loss_and_aux`` on the card (kernels) and
+    on the CPU (plain), leaf by leaf: ``|g_card - g_cpu| / |g_cpu|`` (2-norms)
+    within CUT_GRAD_RTOL; the launches of the card's call."""
+    vg = T.value_and_grad(lambda p, b: lm.loss_and_aux(p, b, cut))
+    reset_counts(ops)
+    _, g_card = vg(p_card, {k: torch.as_tensor(v, device="cuda")
+                            for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _, g_cpu = vg(p_cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    rel = [float((a.cpu() - b).norm()) / float(b.norm())
+           for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu))]
+    want = {"flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
+            "rmsnorm_bwd": 5}
+    if launches != want or not max(rel) <= CUT_GRAD_RTOL:
+        raise AssertionError(f"13e gradients: |g_card - g_cpu| / |g_cpu| per "
+                             f"leaf {rel} (bound {CUT_GRAD_RTOL}); launches "
+                             f"{launches}, expected {want}")
+    return launches, rel
+
+
+def phase_lm_cut(T, ops, lm, tree, cfg, make_clients, card):
+    """13(e): qwen2's widths cut to 2 layers, fp32, the pallas route: the
+    card's kernels against the CPU's plain versions -- the gradients leaf
+    by leaf (relative, CUT_GRAD_RTOL), one train step (loss within 1e-5,
+    params within 1e-4) and 2 FL rounds under a TickTimer (schedules and
+    makespans exact, params within 1e-4)."""
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_cpu = lm.init_params(torch.Generator().manual_seed(0), cut)
+    p_card = tree.map(lambda t: t.to("cuda"), p_cpu)
+    batch = lm_batch(cut, 2, 32, 5)
+    launches, grad_rel = cut_grads(T, ops, lm, tree, cut, p_card, p_cpu,
+                                   batch)
+    step = lm.make_train_step(cut, lr=0.05)
+    n_card, m_card = step(p_card, batch)
+    torch.cuda.synchronize()
+    n_cpu, m_cpu = step(p_cpu, batch)
+    loss_err = abs(float(m_card["loss"]) - float(m_cpu["loss"]))
+    step_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                   zip(tree.leaves(n_card), tree.leaves(n_cpu)))
+    if loss_err > 1e-5 or step_err > 1e-4:
+        raise AssertionError(f"13e step: loss |diff| {loss_err}, params "
+                             f"|diff| {step_err}")
+    del n_card, n_cpu
+    hist = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cut_") as sd:
+        for key, params in (("card", p_card), ("cpu", p_cpu)):
+            srv = cut_server(T, lm, cut, params, params["embed"]["w"].device,
+                             os.path.join(sd, key), make_clients)
+            for _ in range(2):
+                srv.run_round()
+            hist[key] = ([(m.round, m.makespan, m.n_clients)
+                          for m in srv.history],
+                         [m.extra for m in srv.history],
+                         tree.leaves(srv.params))
+            del srv
+    if hist["card"][:2] != hist["cpu"][:2]:
+        raise AssertionError(f"13e FL: card {hist['card'][:2]} vs CPU "
+                             f"{hist['cpu'][:2]}")
+    fl_err = max(float((a.cpu() - b).abs().max())
+                 for a, b in zip(hist["card"][2], hist["cpu"][2]))
+    if fl_err > 1e-4:
+        raise AssertionError(f"13e FL: params |card - CPU| {fl_err}")
+    log(f"phase 13e [{card}]: qwen2 widths cut to 2 layers, fp32, card "
+        f"(kernels: {launches}) vs CPU (plain): gradients of "
+        f"{len(grad_rel)} leaves |g_card - g_cpu| / |g_cpu| up to "
+        f"{max(grad_rel):.3g} <= {CUT_GRAD_RTOL}; one train step loss "
+        f"|diff| {loss_err:.3g} <= 1e-5, params {step_err:.3g} <= 1e-4; 2 FL "
+        f"rounds"
+        f" under a TickTimer ({CUT_PER_ROUND} of {CUT_CLIENTS} clients a "
+        f"round, {CUT_SEQ} tokens): makespans {[h[1] for h in hist['card'][0]]}"
+        f" identical, params |diff| {fl_err:.3g} <= 1e-4")
+    return {"grad_rel_err": grad_rel, "step_loss_err": loss_err,
+            "step_params_err": step_err,
+            "fl_params_err": fl_err,
+            "fl_makespans": [h[1] for h in hist["card"][0]]}
+
+
+def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
+    """Phase 13: LM client training on the card -- (a) each backward
+    kernel against its plain version, (b) timed, (c) full-width qwen2-0.5b
+    FedAvg rounds (the main path), (d) one train step at (4, 1024), (e)
+    the 2-layer fp32 cut card vs CPU, (f) pallas vs chunked gradients."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain,
+                                             rmsnorm_grouped_plain)
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = round(time.perf_counter() - t, 1)
+
+    part("flash_err", phase_flash_bwd_grid, ops, flash_attention_fwd_plain,
+         flash_attention_bwd_plain)
+    part("rms_err", phase_rms_bwd_grid, ops, rmsnorm_grouped_plain,
+         rmsnorm_bwd_plain)
+    part("vmap_err", phase_vmap_grad_block, ops)
+    timer = Timer()
+    part("flash_timing", time_flash_bwd, ops, flash_attention_bwd_plain,
+         timer)
+    part("rms_timing", time_rms_bwd, ops, rmsnorm_bwd_plain, timer)
+    del timer
+    cfg = dataclasses.replace(get_arch("qwen2-0.5b"), attention_impl="pallas")
+    part("fl", phase_lm_fl, T, ops, lm, tree, fl, cfg, card)
+    part("step", phase_lm_step, ops, lm, tree, cfg, card)
+    part("routes", phase_lm_routes, T, lm, tree, cfg, card)
+    part("cut", phase_lm_cut, T, ops, lm, tree, cfg, make_clients, card)
+    out["part_seconds"] = secs
+    log(f"phase 13 parts: {secs} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_seconds(n, t0):
     """Log phase ``n``'s seconds since ``t0``; return the time now."""
     t = time.perf_counter()
@@ -3902,7 +4618,8 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch.core as T
     from repro_torch.data import (make_classification_clients,
-                                  make_classification_population)
+                                  make_classification_population,
+                                  make_lm_clients)
     from repro_torch.kernels import _build, ops
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import tree
@@ -3914,6 +4631,7 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     from repro_torch.kernels.topk_compress import blocks as topk_blocks
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
+    from repro_torch.launch import fl_train_lm
     from repro_torch.launch.serve import generate, make_prompt
     from repro_torch.models import lm
 
@@ -3923,7 +4641,8 @@ def main() -> int:
     t_ph = phase_seconds(1, t_ph)
     t0 = time.perf_counter()
     paths = _build.build(["agg_weighted_sum", "topk_compress",
-                          "flash_attention", "ssm_scan", "rmsnorm"])
+                          "flash_attention", "flash_attention_bwd",
+                          "ssm_scan", "rmsnorm"])
     log(f"phase 2: built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log(f"--- nvcc -Xptxas -v for {name} ---")
@@ -3972,6 +4691,9 @@ def main() -> int:
     nf_runs = nf["network"]["runs"]
     gang = phase_gang(T, ops, card, nf["faults"])
     ctrl = phase_ctrl(T, ops, card)
+    lmt = phase_lm_train(T, ops, lm, tree, fl_train_lm, get_arch,
+                         make_lm_clients, card)
+    lm_rounds = lmt["fl"]["rows"]
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -4092,6 +4814,38 @@ def main() -> int:
         "serving": serve,
         "hymba_prefill_launches": h_launch["prefill"][0],
         "hymba_timing": rec_t["flash_hymba"],
+        "lm_training_launches": [r["launches"]["flash"] for r in lm_rounds],
+        "train_step_launches": lmt["step"]["launches"]["flash"],
+    }, {
+        "name": "flash_attention_bwd",
+        "route": "cuda",
+        "compute_units": "CUDA cores (fp32 products) for both dtypes",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:29",
+        "replaces_note": "no TPU kernel: the Pallas flash kernel has no VJP "
+                         "(the JAX package trains through its jnp "
+                         "attention); this is the backward of that kernel's "
+                         "port, which the port's training path runs",
+        "launches": sum(r["launches"]["flash_bwd"] for r in lm_rounds),
+        "launches_per_round": [r["launches"]["flash_bwd"]
+                               for r in lm_rounds],
+        "max_abs_err": max(lmt["flash_err"].values()),
+        "max_abs_err_by_dtype": lmt["flash_err"],
+        "ms": lmt["flash_timing"]["ms"],
+        "time_ms": lmt["flash_timing"]["ms"],
+        "host_ms": lmt["flash_timing"]["host_ms"],
+        "plain_ms": lmt["flash_timing"]["plain_ms"],
+        "bound_ms": lmt["flash_timing"]["bound_ms"],
+        "bound_by": lmt["flash_timing"]["bound_by"],
+        "library_ms": lmt["flash_timing"]["library_ms"],
+        "library_call": "torch.autograd.grad of scaled_dot_product_attention("
+                        "is_causal=True, enable_gqa=True) on (B, H, S, hd) "
+                        "views of the same inputs, forward untimed",
+        "shape": lmt["flash_timing"]["shape"],
+        "timing": lmt["flash_timing"],
+        "train_step_launches": lmt["step"]["launches"]["flash_bwd"],
+        "lm_training": {k: v for k, v in lmt.items()
+                        if k not in ("flash_timing", "rms_timing")},
     }, {
         "name": "ssm_scan",
         "route": "cuda",
@@ -4140,6 +4894,37 @@ def main() -> int:
         "timings": rec_t["rmsnorm"],
         "qwen_launches": q_launch["prefill"][2] + q_launch["decode"][2],
         "xlstm_launches": x_launch["prefill"][2] + x_launch["decode"][2],
+        "lm_training_launches": [r["launches"]["rmsnorm"]
+                                 for r in lm_rounds],
+        "train_step_launches": lmt["step"]["launches"]["rmsnorm"],
+    }, {
+        "name": "rmsnorm_bwd",
+        "route": "cuda",
+        "compute_units": "CUDA cores",
+        "source": "src/repro_torch/kernels/csrc/rmsnorm.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:17",
+        "replaces_note": "no TPU kernel: the JAX package trains through its "
+                         "jnp norm; this is the backward of the norm "
+                         "kernel's port, which the port's training path "
+                         "runs",
+        "launches": sum(r["launches"]["rmsnorm_bwd"] for r in lm_rounds),
+        "launches_per_round": [r["launches"]["rmsnorm_bwd"]
+                               for r in lm_rounds],
+        "max_abs_err": max(lmt["rms_err"].values()),
+        "max_abs_err_by_dtype": lmt["rms_err"],
+        "ms": lmt["rms_timing"]["ms"],
+        "time_ms": lmt["rms_timing"]["ms"],
+        "host_ms": lmt["rms_timing"]["host_ms"],
+        "plain_ms": lmt["rms_timing"]["plain_ms"],
+        "bound_ms": lmt["rms_timing"]["bound_ms"],
+        "bound_by": lmt["rms_timing"]["bound_by"],
+        "library_ms": lmt["rms_timing"]["library_ms"],
+        "library_call": "torch.autograd.grad of F.rms_norm(x, (d,), g, "
+                        "1e-5), forward untimed",
+        "copy_ms": lmt["rms_timing"]["copy_ms"],
+        "shape": lmt["rms_timing"]["shape"],
+        "timing": lmt["rms_timing"],
+        "train_step_launches": lmt["step"]["launches"]["rmsnorm_bwd"],
     }]}
     log(f"chip_smoke: all phases held in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,6 @@
-"""Synthetic federated datasets; port of ``make_classification_clients``
-and ``make_classification_population`` from ``repro/data/synthetic.py``.
+"""Synthetic federated datasets; port of ``make_classification_clients``,
+``make_classification_population`` and ``make_lm_clients`` from
+``repro/data/synthetic.py``.
 
 Gaussian-blob classification (FEMNIST-like): each client draws from a
 Dir(α) or natural mixture of class blobs.  The data rng is numpy
@@ -94,3 +95,32 @@ def make_classification_population(
                           fetch_cache_bytes=fetch_cache_bytes,
                           signature=("blobs", dim, n_classes, batch_size),
                           meta={"seed": seed, "partition": partition})
+
+
+def make_lm_clients(
+        n_clients: int, vocab: int = 256, seq_len: int = 64,
+        partition: str = "natural", partition_arg: float = 5.0,
+        mean_samples: int = 8, batch_size: int = 4, seed: int = 0
+) -> Dict[int, ClientData]:
+    """Per-client token streams (a sample = one sequence of ``seq_len + 1``
+    tokens): ``{"inputs", "labels"}`` int32 batches, byte for byte the JAX
+    package's."""
+    rng = np.random.default_rng(seed)
+    sizes = partition_sizes(partition, n_clients, partition_arg,
+                            mean_samples, seed)
+    out: Dict[int, ClientData] = {}
+    for c in range(n_clients):
+        n = int(sizes[c])
+        # cheap per-client distribution: biased unigram sampling
+        bias = rng.dirichlet(np.full(vocab, 0.5))
+        toks = rng.choice(vocab, size=(n, seq_len + 1), p=bias)
+        batches = []
+        for i in range(0, n, batch_size):
+            tb = toks[i:i + batch_size]
+            if len(tb) < batch_size:
+                tb = np.concatenate(
+                    [tb, np.repeat(tb, batch_size, 0)[:batch_size - len(tb)]])
+            batches.append({"inputs": tb[:, :-1].astype(np.int32),
+                            "labels": tb[:, 1:].astype(np.int32)})
+        out[c] = ClientData(batches=batches, n_samples=n)
+    return out

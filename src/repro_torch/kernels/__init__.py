@@ -5,17 +5,20 @@
   topk_compress     — fused error-feedback top-k of the compressed wire
                       (CUDA C++, ``csrc/topk_compress.cu``; radix select
                       and a stable compaction; memory-bound)
-  flash_attention   — online-softmax attention of the LM prefill (CUDA
-                      C++, ``csrc/flash_attention.cu``; fp32 products on
-                      the CUDA cores, bound by operations)
+  flash_attention   — online-softmax attention of the LM prefill and
+                      training (CUDA C++, ``csrc/flash_attention.cu``;
+                      bound by operations); its backward for training
+                      (``csrc/flash_attention_bwd.cu``, which replaces no
+                      TPU kernel: the Pallas kernel has no VJP)
   ssm_scan          — chunked SSD / mLSTM scan of the recurrent prefill
                       (CUDA C++, ``csrc/ssm_scan.cu``; fp32 products on the
                       CUDA cores, bound by operations)
-  rmsnorm           — every block norm of every LM (CUDA C++,
-                      ``csrc/rmsnorm.cu``; a warp a row, memory-bound)
+  rmsnorm           — every block norm of every LM and its backward
+                      (CUDA C++, ``csrc/rmsnorm.cu``; memory-bound)
 
-``ops`` holds the public wrappers and launch counters.  Every TPU kernel of
-the JAX package has its counterpart here.
+``ops`` holds the public wrappers, their autograd and vmap rules, and the
+launch counters.  Every TPU kernel of the JAX package has its counterpart
+here.
 """
 from repro_torch.kernels import ops
 

@@ -60,6 +60,13 @@
 // never leaves the thread; row max and sum are four xor-shuffles.  Q, K and V
 // tiles are staged in shared memory (66 KB at hd 64, 161 KB at hd 192).
 //
+// Both forward kernels write the row's log-sum-exp of the scaled scores,
+// lse = m + log(l) in fp32 (B, H, Sq), when the caller passes a buffer for
+// it (training: the backward reads it); serving passes null and nothing
+// more is stored.
+//
+// The backward of both kernels is csrc/flash_attention_bwd.cu.
+//
 // Plain C interface, loaded with ctypes.  A launch goes to the caller's
 // stream, does not synchronise and allocates nothing; the return value is
 // cudaGetLastError() after the launch (or the error of a setup step).
@@ -85,6 +92,7 @@ struct FlashParams {
     const float* k;
     const float* v;
     float* o;
+    float* lse;        // (B, H, Sq) or null
     long long sq[3];   // strides in elements: batch, seq, head
     long long sk[3];
     long long sv[3];
@@ -244,6 +252,8 @@ flash_fp32_kernel(const FlashParams p) {
         float* orow = og + (long long)row * p.so[1];
 #pragma unroll
         for (int c = 0; c < NC; ++c) orow[tx + 16 * c] = acc[i][c] / denom;
+        if (p.lse != nullptr && tx == 0)
+            p.lse[(long long)bh * p.Sq + row] = m[i] + logf(denom);
     }
 }
 
@@ -286,6 +296,7 @@ static int launch_fp32(const FlashParams& p, int BH, cudaStream_t stream) {
 
 struct TcParams {
     __nv_bfloat16* o;
+    float* lse;              // (B, H, Sq) or null
     long long so[3];         // o's strides in elements: batch, seq, head
     int H;
     int group;
@@ -717,6 +728,12 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
     }
     const float inv0 = 1.f / fmaxf(l0, 1e-30f);
     const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+    if (p.lse != nullptr && lane % 4 == 0) {
+        // m is in the exp2 domain: lse = (m + log2 l) ln 2
+        float* lr = p.lse + (long long)bh * p.Sq;
+        if (row0 < p.Sq) lr[row0] = (m0 + log2f(fmaxf(l0, 1e-30f))) * 0.6931471805599453f;
+        if (row1 < p.Sq) lr[row1] = (m1 + log2f(fmaxf(l1, 1e-30f))) * 0.6931471805599453f;
+    }
     __nv_bfloat16* og = p.o + b * p.so[0] + h * p.so[2];
 #pragma unroll
     for (int j = 0; j < 8 * NP; ++j) {
@@ -803,15 +820,18 @@ static int launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
     return (int)cudaGetLastError();
 }
 
+
 extern "C" {
 
 // q, o: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0; device
-// pointers.  strides: 12 element strides, (batch, seq, head) for q, k, v and
-// o in that order, with a unit stride along hd.  Returns 0 or a cudaError_t.
+// pointers; lse: (B, H, Sq) fp32 contiguous, or null.  strides: 12 element
+// strides, (batch, seq, head) for q, k, v and o in that order, with a unit
+// stride along hd.  Returns 0 or a cudaError_t.
 
 // fp32, on the CUDA cores
 int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
-                                void* o, const long long* strides, int B,
+                                void* o, float* lse, const long long* strides,
+                                int B,
                                 int H, int KV, int Sq, int Skv, int hd,
                                 int causal, int window, float scale,
                                 void* stream) {
@@ -823,6 +843,7 @@ int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
     p.k = static_cast<const float*>(k);
     p.v = static_cast<const float*>(v);
     p.o = static_cast<float*>(o);
+    p.lse = lse;
     for (int a = 0; a < 3; ++a) {
         p.sq[a] = strides[a];
         p.sk[a] = strides[3 + a];
@@ -851,7 +872,8 @@ int flash_attention_fp32_launch(const void* q, const void* k, const void* v,
 // bf16, on the tensor cores; q, k, v need 16-byte aligned addresses and
 // (batch, seq, head) strides that are multiples of 8 elements (TMA)
 int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
-                                void* o, const long long* strides, int B,
+                                void* o, float* lse, const long long* strides,
+                                int B,
                                 int H, int KV, int Sq, int Skv, int hd,
                                 int causal, int window, float scale,
                                 void* stream) {
@@ -866,6 +888,7 @@ int flash_attention_bf16_launch(const void* q, const void* k, const void* v,
     if (err) return err;
     TcParams p;
     p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = lse;
     for (int a = 0; a < 3; ++a) p.so[a] = strides[9 + a];
     p.H = H;
     p.group = H / KV;

@@ -42,10 +42,37 @@
 // CPU's rsqrt rounds), then y = (x * scale) * g in fp32, rounded once to x's
 // dtype.  g may be fp32 or bf16 whatever x is.
 //
+// g is a table of rows (one row for a plain call): row t of x reads g row
+// t / rpg, gs elements apart (gs = 0 shares one row, and skips the division).  A vmapped call -- each
+// client with its own g, or all sharing one -- is then one launch over the
+// folded rows.
+//
+// The backward (rmsnorm_bwd_launch; it replaces no TPU kernel: the JAX package
+// trains through its jnp norm, and this port's forward is the kernel on the
+// card, so its gradient is one too).  With xh = x * r, r = rsqrt(mean(x^2) +
+// eps): dx = r * dy * g - x * r^3 * sum(dy * g * x) / d and dg = sum over the
+// rows of dy * xh, all in fp32, dx in x's dtype and dg in g's.  Three kernels,
+// one launch on the wrapper's counter:
+//
+//   dx       a warp per row: the two row sums, r (kept in the workspace for
+//            the next kernel), then dx from a second walk of the row.
+//   dg part  a thread per column and a block per chunk of RN_BWD_CHUNK rows of
+//            one g row's segment: the chunk's sum of dy * x * r into its own
+//            row of fp32 partials in the workspace (no atomics).
+//   dg       a thread per (g row, column): the segment's partials summed in
+//            chunk order, so the result is the same on every run.
+//
+// What bounds it: it must read x and dy and write dx (plus g and dg, one row
+// each): at qwen2-0.5b's training rows (T = 4096, d = 896, bf16) 22.0 MB, or
+// 6.6 us at 3.35 TB/s, far above its 8 operations an element.  This first
+// design reads x and dy twice (the dg kernel walks them by columns after the
+// dx kernel walked them by rows), ~1.7x the bound's bytes.
+//
 // Plain C interface, loaded with ctypes.  The launch goes to the caller's
-// stream, does not synchronise and allocates nothing; the return value is
-// cudaGetLastError() after the launch.  rmsnorm_route says which route a
-// call takes, for the tests.
+// stream, does not synchronise and allocates nothing (the backward's
+// workspace comes from the wrapper: rmsnorm_bwd_workspace gives its size);
+// the return value is cudaGetLastError() after the launch.  rmsnorm_route
+// says which route a call takes, for the tests.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,6 +84,7 @@
 #define RN_MAX_PACKS 8          // most 16-byte packs of x a lane holds
 #define RN_FEW_ROWS 128         // T at or below this takes the few-rows route
 #define RN_LOOP_UNROLL 4        // packs in flight a thread, looped route
+#define RN_BWD_CHUNK 64         // rows a block of the dg partial kernel
 
 enum { ROUTE_SCALAR = 0, ROUTE_ROWS = 1, ROUTE_FEW_ROWS = 2, ROUTE_LOOPED = 3 };
 
@@ -105,7 +133,7 @@ template <typename TX, typename TG, int P>
 __global__ void __launch_bounds__(RN_FEW_THREADS)
 rms_reg_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
                TX* __restrict__ y, long long T, int d, long long sx,
-               float eps, int wpr) {
+               long long gs, long long rpg, float eps, int wpr) {
     constexpr int VEC = XPack<TX>::VEC;
     __shared__ float part[RN_FEW_THREADS / 32];
     const int tpr = 32 * wpr;
@@ -116,6 +144,7 @@ rms_reg_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
     const bool live = row < T;
     const int packs = d / VEC;
     const TX* xr = x + (live ? row : 0LL) * sx;
+    const TG* gr = gs ? g + (live ? row / rpg : 0LL) * gs : g;
     TX* yr = y + (live ? row : 0LL) * (long long)d;
 
     XPack<TX> xp[P];
@@ -128,7 +157,7 @@ rms_reg_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < P; ++i) {
         const int j = t + i * tpr;
-        if (live && j < packs) gp[i].load(g + j * VEC);
+        if (live && j < packs) gp[i].load(gr + j * VEC);
     }
     float ss = 0.f;
 #pragma unroll
@@ -169,7 +198,8 @@ rms_reg_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
 template <typename TX, typename TG>
 __global__ void __launch_bounds__(RN_LOOP_THREADS)
 rms_loop_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
-                TX* __restrict__ y, int d, long long sx, float eps) {
+                TX* __restrict__ y, int d, long long sx, long long gs,
+                long long rpg, float eps) {
     constexpr int VEC = XPack<TX>::VEC;
     constexpr int U = RN_LOOP_UNROLL;
     __shared__ float part[RN_LOOP_THREADS / 32];
@@ -177,6 +207,7 @@ rms_loop_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
     const int nt = blockDim.x;
     const long long row = blockIdx.x;
     const TX* xr = x + row * sx;
+    const TG* gr = gs ? g + (row / rpg) * gs : g;
     TX* yr = y + row * (long long)d;
     const int packs = d / VEC;
 
@@ -214,7 +245,7 @@ rms_loop_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
             const int j = base + u * nt;
             if (j < packs) {
                 xp[u].load(xr + (long long)j * VEC);
-                gp[u].load(g + j * VEC);
+                gp[u].load(gr + j * VEC);
             }
         }
 #pragma unroll
@@ -236,12 +267,13 @@ template <typename TX, typename TG>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_scalar_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
                   TX* __restrict__ y, long long T, int d, long long sx,
-                  float eps) {
+                  long long gs, long long rpg, float eps) {
     const int lane = threadIdx.x % 32;
     const long long row = (long long)blockIdx.x * (RN_THREADS / 32)
         + threadIdx.x / 32;
     if (row >= T) return;
     const TX* xr = x + row * sx;
+    const TG* gr = gs ? g + (row / rpg) * gs : g;
     TX* yr = y + row * (long long)d;
     float ss = 0.f;
     for (int i = lane; i < d; i += 32) {
@@ -253,7 +285,7 @@ rms_scalar_kernel(const TX* __restrict__ x, const TG* __restrict__ g,
         ss += __shfl_xor_sync(0xffffffffu, ss, off);
     const float r = 1.0f / sqrtf(ss / (float)d + eps);
     for (int i = lane; i < d; i += 32)
-        from_f(&yr[i], to_f(xr[i]) * r * to_f(g[i]));
+        from_f(&yr[i], to_f(xr[i]) * r * to_f(gr[i]));
 }
 
 // How a call is laid out: route, warps a row and packs a lane (register
@@ -268,14 +300,15 @@ static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <typename TX, typename TG>
 static Plan plan(const void* x, const void* g, const void* y, long long T,
-                 int d, long long sx) {
+                 int d, long long sx, long long gs) {
     constexpr int VEC = 16 / sizeof(TX);
     constexpr int GBYTES = VEC * (int)sizeof(TG);
     const int galign = GBYTES < 16 ? GBYTES : 16;
     const bool vec = d % VEC == 0 && sx % VEC == 0
         && reinterpret_cast<uintptr_t>(x) % 16 == 0
         && reinterpret_cast<uintptr_t>(y) % 16 == 0
-        && reinterpret_cast<uintptr_t>(g) % galign == 0;
+        && reinterpret_cast<uintptr_t>(g) % galign == 0
+        && (gs * (long long)sizeof(TG)) % galign == 0;
     Plan p{ROUTE_SCALAR, 1, 1, (T + RN_THREADS / 32 - 1) / (RN_THREADS / 32),
            RN_THREADS};
     if (!vec) return p;
@@ -298,16 +331,17 @@ static Plan plan(const void* x, const void* g, const void* y, long long T,
 
 template <typename TX, typename TG, int P>
 static void launch_reg(const Plan& p, const TX* x, const TG* g, TX* y,
-                       long long T, int d, long long sx, float eps,
-                       cudaStream_t s) {
+                       long long T, int d, long long sx, long long gs,
+                       long long rpg, float eps, cudaStream_t s) {
     rms_reg_kernel<TX, TG, P><<<(unsigned)p.blocks, p.threads, 0, s>>>(
-        x, g, y, T, d, sx, eps, p.wpr);
+        x, g, y, T, d, sx, gs, rpg, eps, p.wpr);
 }
 
 template <typename TX, typename TG>
 static int launch(const void* xv, const void* gv, void* yv, long long T,
-                  int d, long long sx, float eps, cudaStream_t s) {
-    const Plan p = plan<TX, TG>(xv, gv, yv, T, d, sx);
+                  int d, long long sx, long long gs, long long rpg, float eps,
+                  cudaStream_t s) {
+    const Plan p = plan<TX, TG>(xv, gv, yv, T, d, sx, gs);
     if (p.blocks < 1 || p.blocks > 2147483647LL)
         return (int)cudaErrorInvalidValue;
     const TX* x = static_cast<const TX*>(xv);
@@ -316,22 +350,22 @@ static int launch(const void* xv, const void* gv, void* yv, long long T,
     switch (p.route) {
     case ROUTE_SCALAR:
         rms_scalar_kernel<TX, TG><<<(unsigned)p.blocks, p.threads, 0, s>>>(
-            x, g, y, T, d, sx, eps);
+            x, g, y, T, d, sx, gs, rpg, eps);
         break;
     case ROUTE_LOOPED:
         rms_loop_kernel<TX, TG><<<(unsigned)p.blocks, p.threads, 0, s>>>(
-            x, g, y, d, sx, eps);
+            x, g, y, d, sx, gs, rpg, eps);
         break;
     default:
         switch (p.P) {
-        case 1: launch_reg<TX, TG, 1>(p, x, g, y, T, d, sx, eps, s); break;
-        case 2: launch_reg<TX, TG, 2>(p, x, g, y, T, d, sx, eps, s); break;
-        case 3: launch_reg<TX, TG, 3>(p, x, g, y, T, d, sx, eps, s); break;
-        case 4: launch_reg<TX, TG, 4>(p, x, g, y, T, d, sx, eps, s); break;
-        case 5: launch_reg<TX, TG, 5>(p, x, g, y, T, d, sx, eps, s); break;
-        case 6: launch_reg<TX, TG, 6>(p, x, g, y, T, d, sx, eps, s); break;
-        case 7: launch_reg<TX, TG, 7>(p, x, g, y, T, d, sx, eps, s); break;
-        case 8: launch_reg<TX, TG, 8>(p, x, g, y, T, d, sx, eps, s); break;
+        case 1: launch_reg<TX, TG, 1>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 2: launch_reg<TX, TG, 2>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 3: launch_reg<TX, TG, 3>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 4: launch_reg<TX, TG, 4>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 5: launch_reg<TX, TG, 5>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 6: launch_reg<TX, TG, 6>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 7: launch_reg<TX, TG, 7>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
+        case 8: launch_reg<TX, TG, 8>(p, x, g, y, T, d, sx, gs, rpg, eps, s); break;
         default: return (int)cudaErrorInvalidValue;
         }
     }
@@ -340,44 +374,185 @@ static int launch(const void* xv, const void* gv, void* yv, long long T,
 
 template <typename TX, typename TG>
 static int route_of(const void* x, const void* g, const void* y, long long T,
-                    int d, long long sx) {
-    return plan<TX, TG>(x, g, y, T, d, sx).route;
+                    int d, long long sx, long long gs) {
+    return plan<TX, TG>(x, g, y, T, d, sx, gs).route;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+// dx, a warp per row; r of each row into rr for the dg kernels
+template <typename TX, typename TG>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_bwd_dx_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+                  const TG* __restrict__ g, TX* __restrict__ dx,
+                  float* __restrict__ rr, long long T, int d, long long sx,
+                  long long gs, long long rpg, float eps) {
+    const int lane = threadIdx.x % 32;
+    const long long row = (long long)blockIdx.x * (RN_THREADS / 32)
+        + threadIdx.x / 32;
+    if (row >= T) return;
+    const TX* xr = x + row * sx;
+    const TX* dyr = dy + row * (long long)d;
+    const TG* gr = gs ? g + (row / rpg) * gs : g;
+    TX* dxr = dx + row * (long long)d;
+    float s1 = 0.f, s2 = 0.f;
+    for (int i = lane; i < d; i += 32) {
+        const float xv = to_f(xr[i]);
+        s1 = fmaf(xv, xv, s1);
+        s2 = fmaf(to_f(dyr[i]) * to_f(gr[i]), xv, s2);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float r = 1.0f / sqrtf(s1 / (float)d + eps);
+    const float c = r * r * r * (s2 / (float)d);
+    if (lane == 0) rr[row] = r;
+    for (int i = lane; i < d; i += 32)
+        from_f(&dxr[i], r * (to_f(dyr[i]) * to_f(gr[i])) - to_f(xr[i]) * c);
+}
+
+// dg partials: block (column block, segment * nch + chunk) sums its chunk's
+// rows of dy * (x * r) for its columns into its own row of part
+template <typename TX>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_bwd_dg_part_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+                       const float* __restrict__ rr, float* __restrict__ part,
+                       int d, long long sx, long long rpg, int nch) {
+    const int col = blockIdx.x * RN_THREADS + threadIdx.x;
+    if (col >= d) return;
+    const long long seg = blockIdx.y / nch;
+    const long long ch = blockIdx.y % nch;
+    const long long r0 = seg * rpg + ch * RN_BWD_CHUNK;
+    const long long r1 = min(r0 + RN_BWD_CHUNK, (seg + 1) * rpg);
+    float acc = 0.f;
+    for (long long row = r0; row < r1; ++row)
+        acc = fmaf(to_f(dy[row * d + col]), to_f(x[row * sx + col]) * rr[row],
+                   acc);
+    part[(long long)blockIdx.y * d + col] = acc;
+}
+
+// dg: each (g row, column) sums its segment's partials in chunk order
+template <typename TG>
+__global__ void __launch_bounds__(RN_THREADS)
+rms_bwd_dg_reduce_kernel(const float* __restrict__ part, TG* __restrict__ dg,
+                         long long n, int d, int nch) {
+    const long long i = (long long)blockIdx.x * RN_THREADS + threadIdx.x;
+    if (i >= n) return;
+    const long long v = i / d;
+    const int col = (int)(i % d);
+    float acc = 0.f;
+    for (int ch = 0; ch < nch; ++ch)
+        acc += part[(v * nch + ch) * d + col];
+    from_f(&dg[i], acc);
+}
+
+static long long bwd_chunks(long long rpg) {
+    return (rpg + RN_BWD_CHUNK - 1) / RN_BWD_CHUNK;
+}
+
+template <typename TX, typename TG>
+static int launch_bwd(const void* xv, const void* dyv, const void* gv,
+                      void* dxv, void* dgv, float* ws, long long T, int d,
+                      long long sx, long long gs, long long rpg, float eps,
+                      cudaStream_t s) {
+    const TX* x = static_cast<const TX*>(xv);
+    const TX* dy = static_cast<const TX*>(dyv);
+    const long long V = T / rpg;
+    const long long nch = bwd_chunks(rpg);
+    const long long dx_blocks = (T + RN_THREADS / 32 - 1) / (RN_THREADS / 32);
+    if (dx_blocks > 2147483647LL || V * nch > 65535 || nch > 2147483647LL)
+        return (int)cudaErrorInvalidValue;
+    float* rr = ws;
+    float* part = ws + T;
+    rms_bwd_dx_kernel<TX, TG><<<(unsigned)dx_blocks, RN_THREADS, 0, s>>>(
+        x, dy, static_cast<const TG*>(gv), static_cast<TX*>(dxv), rr, T, d,
+        sx, gs, rpg, eps);
+    const dim3 pgrid((d + RN_THREADS - 1) / RN_THREADS, (unsigned)(V * nch));
+    rms_bwd_dg_part_kernel<TX><<<pgrid, RN_THREADS, 0, s>>>(
+        x, dy, rr, part, d, sx, rpg, (int)nch);
+    const long long n = V * d;
+    rms_bwd_dg_reduce_kernel<TG><<<(unsigned)((n + RN_THREADS - 1) / RN_THREADS),
+                                   RN_THREADS, 0, s>>>(
+        part, static_cast<TG*>(dgv), n, d, (int)nch);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // x: T rows of d elements, row stride sx elements, unit stride along d;
-// g: d elements; y: T x d contiguous.  x_dtype / g_dtype: 0 = fp32,
-// 1 = bf16.  Returns 0 or a cudaError_t.
+// g: rows of d elements, gs elements apart (0: one shared row), row t of x
+// reading g row t / rpg (rpg >= 1); y: T x d contiguous.  x_dtype /
+// g_dtype: 0 = fp32, 1 = bf16.  Returns 0 or a cudaError_t.
 int rmsnorm_launch(const void* x, const void* g, void* y, long long T, int d,
-                   long long sx, int x_dtype, int g_dtype, float eps,
-                   void* stream) {
-    if (T <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
+                   long long sx, long long gs, long long rpg, int x_dtype,
+                   int g_dtype, float eps, void* stream) {
+    if (T <= 0 || d <= 0 || rpg <= 0 || gs < 0)
+        return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (x_dtype == 0 && g_dtype == 0)
-        return launch<float, float>(x, g, y, T, d, sx, eps, s);
+        return launch<float, float>(x, g, y, T, d, sx, gs, rpg, eps, s);
     if (x_dtype == 0 && g_dtype == 1)
-        return launch<float, __nv_bfloat16>(x, g, y, T, d, sx, eps, s);
+        return launch<float, __nv_bfloat16>(x, g, y, T, d, sx, gs, rpg, eps, s);
     if (x_dtype == 1 && g_dtype == 0)
-        return launch<__nv_bfloat16, float>(x, g, y, T, d, sx, eps, s);
+        return launch<__nv_bfloat16, float>(x, g, y, T, d, sx, gs, rpg, eps, s);
     if (x_dtype == 1 && g_dtype == 1)
-        return launch<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx, eps, s);
+        return launch<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx, gs, rpg,
+                                                    eps, s);
     return (int)cudaErrorInvalidValue;
 }
 
 // The route rmsnorm_launch takes for these arguments: 0 scalar, 1 rows,
 // 2 few rows, 3 looped; -1 for dtypes it does not take.
 int rmsnorm_route(const void* x, const void* g, const void* y, long long T,
-                  int d, long long sx, int x_dtype, int g_dtype) {
+                  int d, long long sx, long long gs, int x_dtype,
+                  int g_dtype) {
     if (x_dtype == 0 && g_dtype == 0)
-        return route_of<float, float>(x, g, y, T, d, sx);
+        return route_of<float, float>(x, g, y, T, d, sx, gs);
     if (x_dtype == 0 && g_dtype == 1)
-        return route_of<float, __nv_bfloat16>(x, g, y, T, d, sx);
+        return route_of<float, __nv_bfloat16>(x, g, y, T, d, sx, gs);
     if (x_dtype == 1 && g_dtype == 0)
-        return route_of<__nv_bfloat16, float>(x, g, y, T, d, sx);
+        return route_of<__nv_bfloat16, float>(x, g, y, T, d, sx, gs);
     if (x_dtype == 1 && g_dtype == 1)
-        return route_of<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx);
+        return route_of<__nv_bfloat16, __nv_bfloat16>(x, g, y, T, d, sx, gs);
     return -1;
+}
+
+// fp32 elements of the backward's workspace: r for each of the T rows, then
+// d partials for each chunk of each of the T / rpg segments
+long long rmsnorm_bwd_workspace(long long T, int d, long long rpg) {
+    if (T <= 0 || d <= 0 || rpg <= 0 || T % rpg) return -1;
+    return T + (T / rpg) * bwd_chunks(rpg) * (long long)d;
+}
+
+// The backward of rmsnorm_launch for the same x, g (gs, rpg; T % rpg == 0):
+// dy and dx T x d contiguous in x's dtype, dg (T / rpg) x d contiguous in
+// g's dtype; ws holds rmsnorm_bwd_workspace(T, d, rpg) floats.  Returns 0 or
+// a cudaError_t.
+int rmsnorm_bwd_launch(const void* x, const void* dy, const void* g, void* dx,
+                       void* dg, float* ws, long long T, int d, long long sx,
+                       long long gs, long long rpg, int x_dtype, int g_dtype,
+                       float eps, void* stream) {
+    if (T <= 0 || d <= 0 || rpg <= 0 || gs < 0 || T % rpg)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (x_dtype == 0 && g_dtype == 0)
+        return launch_bwd<float, float>(x, dy, g, dx, dg, ws, T, d, sx, gs,
+                                        rpg, eps, s);
+    if (x_dtype == 0 && g_dtype == 1)
+        return launch_bwd<float, __nv_bfloat16>(x, dy, g, dx, dg, ws, T, d,
+                                                sx, gs, rpg, eps, s);
+    if (x_dtype == 1 && g_dtype == 0)
+        return launch_bwd<__nv_bfloat16, float>(x, dy, g, dx, dg, ws, T, d,
+                                                sx, gs, rpg, eps, s);
+    if (x_dtype == 1 && g_dtype == 1)
+        return launch_bwd<__nv_bfloat16, __nv_bfloat16>(x, dy, g, dx, dg, ws,
+                                                        T, d, sx, gs, rpg,
+                                                        eps, s);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -17,14 +17,26 @@ call form):
 * :func:`flash_attention_cuda` — the launch of a CUDA kernel, picked by the
   dtype: bf16 runs the tensor-core kernel (wgmma, TMA loads), fp32 the
   CUDA-core kernel (exact fp32 products).  Both read and write the tensors
-  in place through their strides.
+  in place through their strides, and write the rows' log-sum-exp when
+  given a buffer for it (training; serving passes none).
+* :func:`flash_attention_fwd_plain` — the plain forward with that
+  log-sum-exp (:func:`flash_attention_plain` is its output alone), for the
+  CPU route of training.
+* :func:`flash_attention_bwd_plain` / :func:`flash_attention_bwd_cuda` —
+  the backward, FlashAttention-2's algorithm (``D = rowsum(dO∘O)``, ``P =
+  exp(S·scale − lse)``, ``dS = P∘(dO·Vᵀ − D)``), in plain PyTorch and as the
+  launch of the hand-written CUDA kernels of ``csrc/flash_attention_bwd.cu``;
+  it replaces no TPU kernel (the Pallas kernel has no VJP).
 
-The public wrapper (and the launch counters) is ``ops.flash_attention``.
+The public wrapper (its autograd and vmap rules, and the launch counters)
+is ``ops.flash_attention``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import _build
@@ -43,16 +55,20 @@ ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
 _RC_TMA_LAYOUT = 716
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          *, causal: bool = True,
-                          window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0 -> (B, Sq,
-    H, hd) in q's dtype."""
-    Sq, H, hd = q.shape[1], q.shape[2], q.shape[3]
-    if k.shape[2] != H:                  # each KV head serves H // KV heads
+def _repeat_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """k and v at q's head count (each KV head serves H // KV heads)."""
+    H = q.shape[2]
+    if k.shape[2] != H:
         k = torch.repeat_interleave(k, H // k.shape[2], dim=2)
         v = torch.repeat_interleave(v, H // v.shape[2], dim=2)
-    Skv = k.shape[1]
+    return k, v
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            window: int) -> torch.Tensor:
+    """Scaled fp32 scores (B, H, Sq, Skv) of repeated-head k, masked with
+    ``NEG_INF``."""
+    Sq, hd, Skv = q.shape[1], q.shape[3], k.shape[1]
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                      k.to(torch.float32)) * scale
@@ -63,10 +79,58 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos <= qpos
     if window:
         mask &= kpos > (qpos - window)
-    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    return torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd), H % KV == 0 -> (B, Sq,
+    H, hd) in q's dtype."""
+    return flash_attention_fwd_plain(q, k, v, causal=causal,
+                                     window=window)[0]
+
+
+def flash_attention_fwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0):
+    """The plain forward and the rows' log-sum-exp of the scaled scores:
+    ``(o (B, Sq, H, hd) in q's dtype, lse (B, H, Sq) fp32)``."""
+    kk, vv = _repeat_heads(q, k, v)
+    s = _scores(q, kk, causal, window)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32))
-    return out.to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vv.to(torch.float32))
+    return out.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def flash_attention_bwd_plain(do: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              o: torch.Tensor, lse: torch.Tensor, *,
+                              causal: bool = True, window: int = 0):
+    """The backward of the forward that gave ``o`` and ``lse``: ``(dq, dk,
+    dv)`` in q's dtype, dk and dv at k's KV heads (the sum over each KV
+    head's group of query heads).  The kernel's algorithm on dense tiles in
+    fp32: ``D = rowsum(dO∘O)``, ``P = exp(S·scale − lse)`` (0 where
+    masked), ``dV = Pᵀ·dO``, ``dS = P∘(dO·Vᵀ − D)``, ``dQ = scale·dS·K``,
+    ``dK = scale·dSᵀ·Q``."""
+    B, Skv, KV, hd = k.shape
+    H = q.shape[2]
+    kk, vv = _repeat_heads(q, k, v)
+    s = _scores(q, kk, causal, window)
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dof = do.to(torch.float32)
+    dd = torch.sum(dof * o.to(torch.float32), dim=-1).transpose(1, 2)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vv.to(torch.float32))
+    ds = p * (dp - dd[..., None])
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kk.to(torch.float32)) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.to(torch.float32)) * scale
+    if KV != H:                      # sum each KV head's group
+        dk = dk.reshape(B, Skv, KV, H // KV, hd).sum(dim=3)
+        dv = dv.reshape(B, Skv, KV, H // KV, hd).sum(dim=3)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 _launchers = {}
@@ -78,7 +142,7 @@ def _launcher(route: str):
         lib = _build.load("flash_attention")
         fn = (lib.flash_attention_bf16_launch if route == "tensor_cores"
               else lib.flash_attention_fp32_launch)
-        fn.argtypes = ([ctypes.c_void_p] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 5
                        + [ctypes.POINTER(ctypes.c_longlong)]
                        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -87,13 +151,14 @@ def _launcher(route: str):
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         out: torch.Tensor, *, causal: bool,
-                         window: int) -> str:
+                         out: torch.Tensor, *, causal: bool, window: int,
+                         lse: Optional[torch.Tensor] = None) -> str:
     """Launch the dtype's kernel on the current stream, writing ``out`` (B,
-    Sq, H, hd); returns the route it took (``ROUTES``).  The caller has
-    checked devices, dtypes, shapes and strides (``ops._check_flash``); the
-    tensor-core launcher checks what TMA needs (a ValueError here).  Raises
-    if the launch fails."""
+    Sq, H, hd) and, when given, ``lse`` (B, H, Sq) fp32 contiguous; returns
+    the route it took (``ROUTES``).  The caller has checked devices, dtypes,
+    shapes and strides (``ops._check_flash``); the tensor-core launcher
+    checks what TMA needs (a ValueError here).  Raises if the launch
+    fails."""
     B, Sq, H, hd = q.shape
     strides = [t.stride(a) for t in (q, k, v, out) for a in (0, 1, 2)]
     arr = (ctypes.c_longlong * 12)(*strides)
@@ -102,7 +167,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _launcher(route)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              out.data_ptr(), arr, B, H, k.shape[2], Sq,
+                              out.data_ptr(),
+                              None if lse is None else lse.data_ptr(),
+                              arr, B, H, k.shape[2], Sq,
                               k.shape[1], hd, int(causal), int(window), scale,
                               stream)
     if rc == _RC_TMA_LAYOUT and route == "tensor_cores":
@@ -115,3 +182,46 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"(q {tuple(q.shape)}, kv {tuple(k.shape)}, "
                            f"{q.dtype}, {route})")
     return route
+
+
+_bwd_launcher = None
+
+
+def flash_attention_bwd_cuda(do: torch.Tensor, q: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor,
+                             o: torch.Tensor, lse: torch.Tensor,
+                             dq: torch.Tensor, dk: torch.Tensor,
+                             dv: torch.Tensor, ws: torch.Tensor, *,
+                             causal: bool, window: int) -> None:
+    """Launch the backward's three kernels on the current stream, writing
+    ``dq`` (q's shape) and ``dk``, ``dv`` (k's shape), all in q's dtype;
+    ``lse`` the forward's (B, H, Sq) fp32, ``ws`` (B, H, Sq) fp32 scratch.
+    Every tensor is read or written through its (batch, seq, head) strides
+    with a unit stride along hd.  The caller has checked the rest; raises if
+    the launch fails."""
+    global _bwd_launcher
+    if _bwd_launcher is None:
+        fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_launcher = fn
+    B, Sq, H, hd = q.shape
+    strides = [t.stride(a) for t in (q, k, v, o, do, dq, dk, dv)
+               for a in (0, 1, 2)]
+    arr = (ctypes.c_longlong * 24)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_launcher(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                           ws.data_ptr(), arr, B, H, k.shape[2], Sq,
+                           k.shape[1], hd, int(causal), int(window),
+                           1.0 / math.sqrt(hd),
+                           0 if q.dtype == torch.float32 else 1, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: error "
+                           f"{rc} (q {tuple(q.shape)}, kv {tuple(k.shape)}, "
+                           f"{q.dtype})")

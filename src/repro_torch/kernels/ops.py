@@ -26,6 +26,22 @@ counterparts):
 :data:`flash_route_launches` splits the flash launches by the kernel the
 dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
 
+Gradients.  ``flash_attention`` and ``rmsnorm`` are differentiable through
+``torch.autograd.Function``s whose backward is a hand-written kernel on a
+CUDA tensor (its plain version on a CPU tensor), counted by
+:data:`flash_bwd_dispatches` / :data:`flash_bwd_launches` and
+:data:`rmsnorm_bwd_dispatches` / :data:`rmsnorm_bwd_launches` (one launch a
+call, whatever its kernels; reset with the forward's counters).  Each
+Function has a ``vmap`` rule that folds the vmapped axis into the rows (the
+batch for flash, the rows and a g table for the norm), so ``torch.func.vmap``
+of ``torch.func.grad`` — the client engine — launches each kernel once for a
+block of clients.  A call takes the Function when an input requires grad or
+is a ``torch.func`` transform's tensor; a plain call (serving, under
+``no_grad``) launches the forward alone, and flash then writes no
+log-sum-exp.  ``ssm_scan`` has no backward kernel yet: on a CUDA tensor a
+gradient through it raises ``NotImplementedError`` (ROADMAP.md modules item
+17e); on a CPU tensor the plain version is ordinary PyTorch.
+
 The fold and top-k counters are updated under a lock: executors that run
 in threads (``ParrotServer(parallel_dispatch=True)``) fold concurrently.
 """
@@ -58,10 +74,14 @@ flash_dispatches = 0
 flash_launches = 0
 # flash launches by route: bf16 on the tensor cores, fp32 on the CUDA cores
 flash_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
+flash_bwd_dispatches = 0
+flash_bwd_launches = 0
 ssm_scan_dispatches = 0
 ssm_scan_launches = 0
 rmsnorm_dispatches = 0
 rmsnorm_launches = 0
+rmsnorm_bwd_dispatches = 0
+rmsnorm_bwd_launches = 0
 _count_lock = threading.Lock()
 
 
@@ -297,10 +317,40 @@ def fused_topk(x: torch.Tensor, res: torch.Tensor, k: int, *,
 
 def reset_flash_counts() -> None:
     global flash_dispatches, flash_launches
+    global flash_bwd_dispatches, flash_bwd_launches
     flash_dispatches = 0
     flash_launches = 0
+    flash_bwd_dispatches = 0
+    flash_bwd_launches = 0
     for route in flash_route_launches:
         flash_route_launches[route] = 0
+
+
+def _traced(*ts: torch.Tensor) -> bool:
+    """Whether a call must take the autograd Function: an input requires
+    grad, or is a ``torch.func`` transform's tensor (vmap, grad)."""
+    return any(torch._C._functorch.is_functorch_wrapped_tensor(t)
+               for t in ts) or (torch.is_grad_enabled()
+                                and any(t.requires_grad for t in ts))
+
+
+def _front(t: torch.Tensor, dim, V: int) -> torch.Tensor:
+    """A vmap rule's input with the vmapped axis (``dim``; None: not
+    vmapped, broadcast) moved to the front at size V."""
+    if dim is None:
+        return t.expand((V,) + tuple(t.shape))
+    return t.movedim(dim, 0)
+
+
+def _fold(t: torch.Tensor, dim, V: int) -> torch.Tensor:
+    """(V, B, ...) -> contiguous (V·B, ...): the vmapped axis folded into
+    the batch (contiguous, so TMA can load it)."""
+    t = _front(t, dim, V)
+    return t.reshape((V * t.shape[1],) + tuple(t.shape[2:])).contiguous()
+
+
+def _unfold(t: torch.Tensor, V: int) -> torch.Tensor:
+    return t.reshape((V, t.shape[0] // V) + tuple(t.shape[1:]))
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -341,23 +391,116 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     dtype (bf16 on the tensor cores, fp32 on the CUDA cores), or raises on
     what it does not take (hd, dtype, rank, head counts, a device mix, a
     bf16 layout TMA cannot load)."""
-    global flash_dispatches, flash_launches
+    global flash_dispatches
     flash_dispatches += 1
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k and v must lie on one device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if q.device.type == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal,
-                                         window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no flash attention kernel for device {q.device}")
+    if _traced(q, k, v):
+        return _FlashFn.apply(q, k, v, bool(causal), int(window))[0]
+    return _flash_fwd(q, k, v, bool(causal), int(window), False)
+
+
+def _flash_fwd(q, k, v, causal: bool, window: int, with_lse: bool):
+    """The forward on plain tensors: ``o``, or ``(o, lse)`` with the rows'
+    log-sum-exp (B, H, Sq) fp32."""
+    global flash_launches
+    if q.device.type == "cpu":
+        o, lse = _fa.flash_attention_fwd_plain(q, k, v, causal=causal,
+                                               window=window)
+        return (o, lse) if with_lse else o
     _check_flash(q, k, v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]),
+                       dtype=torch.float32, device=q.device)
+           if with_lse else None)
     route = _fa.flash_attention_cuda(q, k, v, out, causal=causal,
-                                     window=int(window))
+                                     window=window, lse=lse)
     flash_launches += 1
     flash_route_launches[route] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _hd_unit(t: torch.Tensor) -> torch.Tensor:
+    return t if t.stride(3) == 1 else t.contiguous()
+
+
+def _flash_bwd(do, q, k, v, o, lse, causal: bool, window: int):
+    """The backward on plain tensors -> (dq, dk, dv) in q's dtype."""
+    global flash_bwd_dispatches, flash_bwd_launches
+    flash_bwd_dispatches += 1
+    do = do.to(q.dtype)
+    if q.device.type == "cpu":
+        return _fa.flash_attention_bwd_plain(do, q, k, v, o, lse,
+                                             causal=causal, window=window)
+    _check_flash(q, k, v)
+    do, o = _hd_unit(do), _hd_unit(o)
+    lse = lse.contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    ws = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
+    _fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, dq, dk, dv, ws,
+                                 causal=causal, window=window)
+    flash_bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashFn(torch.autograd.Function):
+    """``(o, lse) = flash(q, k, v)``; the gradient of o through the
+    backward kernel (lse is not differentiable)."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window):
+        return _flash_fwd(q, k, v, causal, window, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window = inputs
+        o, lse = output
+        ctx.mark_non_differentiable(lse)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _FlashBwdFn.apply(do, q, k, v, o, lse, ctx.causal,
+                                       ctx.window)
+        return dq, dk, dv, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window):
+        V = info.batch_size
+        q, k, v = (_fold(t, d, V) for t, d in zip((q, k, v), in_dims))
+        o, lse = _FlashFn.apply(q, k, v, causal, window)
+        return (_unfold(o, V), _unfold(lse, V)), (0, 0)
+
+
+class _FlashBwdFn(torch.autograd.Function):
+    """``(dq, dk, dv)`` of :class:`_FlashFn`; not differentiable again."""
+
+    @staticmethod
+    def forward(do, q, k, v, o, lse, causal, window):
+        return _flash_bwd(do, q, k, v, o, lse, causal, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the flash attention backward has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, do, q, k, v, o, lse, causal, window):
+        V = info.batch_size
+        args = [_fold(t, d, V) for t, d in zip((do, q, k, v, o, lse),
+                                               in_dims)]
+        out = _FlashBwdFn.apply(*args, causal, window)
+        return tuple(_unfold(t, V) for t in out), (0, 0, 0)
 
 
 def reset_ssm_scan_counts() -> None:
@@ -404,7 +547,7 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kernels of the chunk-parallel scan (one launch on the counter), reading
     q, k, v and log_a through their strides (a stride of 0 along H
     included), or raises on what it does not take."""
-    global ssm_scan_dispatches, ssm_scan_launches
+    global ssm_scan_dispatches
     ssm_scan_dispatches += 1
     if any(t.device != q.device for t in (k, v, log_a)):
         raise ValueError(f"q, k, v and log_a must lie on one device, got "
@@ -414,6 +557,14 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return _ssm.ssm_scan_plain(q, k, v, log_a, chunk)
     if q.device.type != "cuda":
         raise ValueError(f"no scan kernel for device {q.device}")
+    if _traced(q, k, v, log_a):
+        return _SsmScanFn.apply(q, k, v, log_a)
+    return _ssm_fwd(q, k, v, log_a)
+
+
+def _ssm_fwd(q, k, v, log_a):
+    """The kernel launch on plain CUDA tensors -> (y, h_final)."""
+    global ssm_scan_launches
     _check_ssm(q, k, v, log_a)
     B, S, H, N = q.shape
     y = torch.empty(v.shape, dtype=v.dtype, device=q.device)
@@ -426,30 +577,67 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y, h
 
 
+class _SsmScanFn(torch.autograd.Function):
+    """The scan kernel under autograd on the card: the forward runs; a
+    gradient through it raises (no backward kernel yet)."""
+
+    @staticmethod
+    def forward(q, k, v, log_a):
+        return _ssm_fwd(q, k, v, log_a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        raise NotImplementedError(
+            "no gradient through ops.ssm_scan on a CUDA tensor: its backward "
+            "kernel is ROADMAP.md modules item 17e (recurrent training)")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, log_a):
+        V = info.batch_size
+        args = [_fold(t, d, V) for t, d in zip((q, k, v, log_a), in_dims)]
+        y, h = _SsmScanFn.apply(*args)
+        return (_unfold(y, V), _unfold(h, V)), (0, 0)
+
+
 def reset_rmsnorm_counts() -> None:
     global rmsnorm_dispatches, rmsnorm_launches
+    global rmsnorm_bwd_dispatches, rmsnorm_bwd_launches
     rmsnorm_dispatches = 0
     rmsnorm_launches = 0
+    rmsnorm_bwd_dispatches = 0
+    rmsnorm_bwd_launches = 0
 
 
 def _check_rmsnorm(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The (T, d) row view of x the kernel reads; raises on what it does
-    not take."""
+    """The (T, d) row view of x the kernel reads, for g (d,) contiguous or
+    a (V, d) table with V | T, a unit stride along d and any row stride;
+    raises on what it does not take."""
     if x.dtype not in _rms.DTYPES or g.dtype not in _rms.DTYPES:
         raise ValueError(f"rmsnorm takes float32 or bfloat16 x and g, got "
                          f"{x.dtype}, {g.dtype}")
-    if x.dim() < 1 or g.dim() != 1 or g.shape[0] != x.shape[-1] \
-            or not g.is_contiguous():
-        raise ValueError(f"rmsnorm takes x (..., d) and a contiguous g (d,),"
-                         f" got {tuple(x.shape)}, {tuple(g.shape)}")
+    if x.dim() < 1 or g.dim() not in (1, 2) or g.shape[-1] != x.shape[-1] \
+            or (g.shape[-1] > 1 and g.stride(-1) != 1) \
+            or (g.dim() == 2 and (g.shape[0] < 1 or g.stride(0) < 0)):
+        raise ValueError(f"rmsnorm takes x (..., d) and g (d,) or (V, d) "
+                         f"with a unit stride along d, got {tuple(x.shape)},"
+                         f" {tuple(g.shape)} {g.stride()}")
     if x.numel() == 0:
         raise ValueError("rmsnorm takes a non-empty x")
     if x.is_contiguous():
-        return x.reshape(-1, x.shape[-1])
-    if x.dim() == 2 and x.stride(1) == 1:
-        return x
-    raise ValueError("rmsnorm takes x contiguous, or 2-D with a unit stride "
-                     "along d")
+        x2 = x.reshape(-1, x.shape[-1])
+    elif x.dim() == 2 and x.stride(1) == 1:
+        x2 = x
+    else:
+        raise ValueError("rmsnorm takes x contiguous, or 2-D with a unit "
+                         "stride along d")
+    if g.dim() == 2 and x2.shape[0] % g.shape[0]:
+        raise ValueError(f"rmsnorm takes a g table of V rows with V | T, "
+                         f"got V={g.shape[0]}, T={x2.shape[0]}")
+    return x2
 
 
 def rmsnorm(x: torch.Tensor, g: torch.Tensor,
@@ -458,15 +646,27 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor,
     axis, computed in fp32, in x's dtype.  A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel, or raises on what it does
     not take."""
-    global rmsnorm_dispatches, rmsnorm_launches
+    global rmsnorm_dispatches
     rmsnorm_dispatches += 1
     if g.device != x.device:
         raise ValueError(f"x and g must lie on one device, got {x.device}, "
                          f"{g.device}")
-    if x.device.type == "cpu":
-        return _rms.rmsnorm_plain(x, g, eps)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no rmsnorm kernel for device {x.device}")
+    if _traced(x, g):
+        return _RmsNormFn.apply(x, g[None], float(eps))
+    return _rms_fwd(x, g, float(eps))
+
+
+def _rms_fwd(x, g, eps: float):
+    """The forward on plain tensors; g (d,) or a (V, d) table (row t of
+    x's rows reads g row ``t // (T // V)``)."""
+    global rmsnorm_launches
+    if x.device.type == "cpu":
+        if g.dim() == 1 or g.shape[0] == 1:
+            return _rms.rmsnorm_plain(x, g.reshape(-1), eps)
+        x2 = x.reshape(-1, x.shape[-1])
+        return _rms.rmsnorm_grouped_plain(x2, g, eps).reshape(x.shape)
     x2 = _check_rmsnorm(x, g)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _rms.rmsnorm_cuda(x2, g, out.view(-1, x.shape[-1]), eps)
@@ -474,7 +674,94 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor,
     return out
 
 
+def _rms_bwd(dy, x, g_table, eps: float):
+    """The backward on plain tensors -> (dx in x's shape and dtype, dg
+    (V, d) in g's dtype)."""
+    global rmsnorm_bwd_dispatches, rmsnorm_bwd_launches
+    rmsnorm_bwd_dispatches += 1
+    d = x.shape[-1]
+    dy2 = dy.to(x.dtype).reshape(-1, d)
+    if x.device.type == "cpu":
+        dx, dg = _rms.rmsnorm_bwd_plain(dy2, x.reshape(-1, d), g_table, eps)
+        return dx.reshape(x.shape), dg
+    x2 = _check_rmsnorm(x, g_table)
+    dy2 = dy2.contiguous()
+    T, V = x2.shape[0], g_table.shape[0]
+    dx = torch.empty((T, d), dtype=x.dtype, device=x.device)
+    dg = torch.empty((V, d), dtype=g_table.dtype, device=x.device)
+    ws = torch.empty(_rms.bwd_workspace_numel(T, d, V), dtype=torch.float32,
+                     device=x.device)
+    _rms.rmsnorm_bwd_cuda(dy2, x2, g_table, dx, dg, ws, eps)
+    rmsnorm_bwd_launches += 1
+    return dx.reshape(x.shape), dg
+
+
+def _rows(t: torch.Tensor, dim, V: int) -> torch.Tensor:
+    """A vmap rule's (V, ..., d) input as (V·T, d) rows."""
+    t = _front(t, dim, V)
+    return t.reshape(-1, t.shape[-1])
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """``y = rmsnorm(x, g_table)`` (g_table (V, d), V | rows); the gradient
+    through the backward kernel."""
+
+    @staticmethod
+    def forward(x, g_table, eps):
+        return _rms_fwd(x, g_table, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, g_table, eps = inputs
+        ctx.save_for_backward(x, g_table)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, g_table = ctx.saved_tensors
+        dx, dg = _RmsNormBwdFn.apply(dy, x, g_table, ctx.eps)
+        return dx, dg, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, g_table, eps):
+        # client v's rows read its g rows: a shared g is a stride-0 table
+        V = info.batch_size
+        xs = _front(x, in_dims[0], V)
+        y = _RmsNormFn.apply(xs.reshape(-1, xs.shape[-1]),
+                             _rows(g_table, in_dims[1], V), eps)
+        return y.reshape(xs.shape), 0
+
+
+class _RmsNormBwdFn(torch.autograd.Function):
+    """``(dx, dg_table)`` of :class:`_RmsNormFn`; not differentiable
+    again."""
+
+    @staticmethod
+    def forward(dy, x, g_table, eps):
+        return _rms_bwd(dy, x, g_table, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError("the rmsnorm backward has no gradient")
+
+    @staticmethod
+    def vmap(info, in_dims, dy, x, g_table, eps):
+        V = info.batch_size
+        xs = _front(x, in_dims[1], V)
+        gs = _front(g_table, in_dims[2], V)
+        dx, dg = _RmsNormBwdFn.apply(_rows(dy, in_dims[0], V),
+                                     xs.reshape(-1, xs.shape[-1]),
+                                     gs.reshape(-1, gs.shape[-1]), eps)
+        return (dx.reshape(xs.shape), dg.reshape(gs.shape)), (0, 0)
+
+
 def launch_counts() -> dict:
-    """The launch counters of the LM kernels, by kernel name."""
-    return {"flash": flash_launches, "ssm_scan": ssm_scan_launches,
-            "rmsnorm": rmsnorm_launches}
+    """The launch counters of the LM kernels, by kernel name (forward and
+    backward)."""
+    return {"flash": flash_launches, "flash_bwd": flash_bwd_launches,
+            "ssm_scan": ssm_scan_launches, "rmsnorm": rmsnorm_launches,
+            "rmsnorm_bwd": rmsnorm_bwd_launches}

@@ -1,1 +1,2 @@
-"""Launchers of the port (``repro/launch``): the serving driver."""
+"""Launchers of the port (``repro/launch`` and the ``examples`` programs):
+serving, round tracing and federated LM training."""

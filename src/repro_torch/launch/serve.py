@@ -60,8 +60,9 @@ def generate(params, prompt, cfg, gen: int,
     seconds around work that ends in a device synchronise
     (``prefill_s``, ``decode_s``), beside the launches of each LM kernel
     that each part made (``prefill_<name>_launches`` and
-    ``decode_<name>_launches`` for ``flash``, ``ssm_scan`` and
-    ``rmsnorm``)."""
+    ``decode_<name>_launches`` for each name of ``ops.launch_counts()``:
+    ``flash``, ``ssm_scan``, ``rmsnorm`` and the backward kernels
+    ``flash_bwd`` and ``rmsnorm_bwd``, which serving never launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 

@@ -1,21 +1,34 @@
-"""Top-level language model: embedding → decoder stack → head.
+"""Top-level language model: embedding → decoder stack → head → loss.
 
-Port of ``repro/models/lm.py``, the serving side:
+Port of ``repro/models/lm.py``:
 
   init_params(gen, cfg)                         -> params tree
   forward(params, inputs, cfg, ...)             -> hidden states
+  loss_and_aux(params, batch, cfg)              -> scalar loss (chunked xent)
+  make_train_step(cfg, lr)                      -> SGD client step
   make_prefill_step(cfg, batch, seq)            -> serve prefill
   make_decode_step(cfg)                         -> serve one-token decode
 
 ``input_kind == "embeddings"`` (audio/vlm stubs) feeds precomputed frontend
-embeddings of shape (B, S, d_model) instead of token ids.  The training
-side (``loss_and_aux``, ``chunked_xent``, ``make_train_step``) is not
-ported yet (ROADMAP.md modules item 17b).
+embeddings of shape (B, S, d_model) instead of token ids; the label side is
+always token ids.
+
+Training differentiates with ``torch.func`` (``grad_and_value``), which
+composes with the client engine's ``vmap``; on the card the norms and the
+``pallas`` attention route backpropagate through hand-written kernels
+(``kernels/ops.py``).  One intended difference: ``chunked_xent`` does not
+recompute each chunk's logits in the backward (JAX's ``jax.checkpoint``;
+``torch.utils.checkpoint`` does not compose with ``torch.func.grad``), so
+the logits of every chunk stay alive until the backward.
 """
 from __future__ import annotations
 
+from typing import Any, Dict
+
 import torch
 
+from repro_torch.core import tree
+from repro_torch.device import as_tensor
 from repro_torch.models import layers, transformer
 
 
@@ -63,6 +76,97 @@ def forward(params, inputs, cfg, *, positions=None, caches=None,
 
 def _device(params) -> torch.device:
     return params["embed"]["w"].device
+
+
+def _xent(logits, labels):
+    """Summed token cross-entropy, fp32.  logits: (T,V); labels: (T,)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    return torch.sum(lse - gold)
+
+
+def chunked_xent(params, h, labels, cfg):
+    """Mean token cross entropy over sequence chunks of the head: the
+    smallest split nc | S with B·(S/nc) <= ``cfg.logit_chunk`` (the whole
+    sequence when it is 0), each chunk's summed loss added in order into an
+    fp32 total, as the JAX package's scan does.  The head's product runs in
+    the parameter dtype; the logits are upcast to fp32 for the loss."""
+    B, S, _ = h.shape
+    T = B * S
+    chunk_tokens = cfg.logit_chunk or T
+    nc = 1
+    while nc < S and (B * (S // nc) > chunk_tokens or S % nc):
+        nc += 1
+    Sc = S // nc
+
+    def one(hc, lc):
+        logits = _head(params, hc, cfg)
+        return _xent(logits.reshape(-1, logits.shape[-1]), lc.reshape(-1))
+
+    if nc == 1:
+        return one(h, labels) / T
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(nc):
+        sl = slice(c * Sc, (c + 1) * Sc)
+        tot = tot + one(h[:, sl], labels[:, sl])
+    return tot / T
+
+
+def loss_and_aux(params, batch, cfg):
+    """batch: {"inputs": (B,S)[ids]|(B,S,d)[embeds], "labels": (B,S)}."""
+    h, _, aux = forward(params, batch["inputs"], cfg)
+    loss = chunked_xent(params, h, batch["labels"], cfg)
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.aux_loss_weight * aux
+    return loss
+
+
+def _batch_on(batch: Dict[str, Any], device: torch.device):
+    return {k: as_tensor(v, device) for k, v in batch.items()}
+
+
+def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
+    """Plain-SGD client local step (the FL inner loop; see core/algorithms
+    for the federated wrappers).  ``train_step(params, batch) -> (new
+    params, {"loss": fp32 scalar})``; the batch may be numpy or tensors.
+
+    ``micro_batches`` > 1 accumulates gradients over k slices of the batch
+    in fp32 (a Python loop in place of ``lax.scan``), then divides the loss
+    and the gradients by k.  The update is ``(p − lr·g)`` in fp32, cast
+    back to the parameter's dtype."""
+    micro = micro_batches or getattr(cfg, "train_microbatches", 1) or 1
+    grad_fn = torch.func.grad_and_value(loss_and_aux)
+
+    def train_step(params, batch):
+        batch = _batch_on(batch, _device(params))
+        if micro <= 1:
+            grads, loss = grad_fn(params, batch, cfg)
+        else:
+            B = batch["labels"].shape[0]
+            if B % micro:
+                raise ValueError(f"batch {B} does not split into {micro} "
+                                 f"micro-batches")
+            n = B // micro
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=_device(params))
+            grads = tree.map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            for i in range(micro):
+                mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
+                g, l = grad_fn(params, mb, cfg)
+                loss = loss + l
+                grads = tree.map(lambda a, b: a + b.to(torch.float32),
+                                  grads, g)
+            loss = loss / micro
+            grads = tree.map(lambda g: g / micro, grads)
+        new_params = tree.map(
+            lambda p, g: (p.to(torch.float32)
+                          - lr * g.to(torch.float32)).to(p.dtype),
+            params, grads)
+        return new_params, {"loss": loss}
+
+    return train_step
 
 
 def make_prefill_step(cfg, batch: int, seq_len: int, cache_len: int = 0):

@@ -177,6 +177,16 @@ def stack_cache(cfg, batch: int, seq_len: int, dtype, device=None):
         for kind in unit_pattern(cfg))
 
 
+def _unstack(stacked, n):
+    """The per-repetition trees of a stacked one, as views: one ``unbind`` a
+    leaf, whose backward stacks the repetitions' gradients once, where
+    indexing ``a[r]`` would write a zero-filled copy of the whole leaf for
+    every repetition."""
+    leaves, treedef = tree.flatten(stacked)
+    cols = [a.unbind(0) for a in leaves]
+    return [tree.unflatten(treedef, [c[r] for c in cols]) for r in range(n)]
+
+
 def stack_apply(params, x, cfg, *, positions, caches=None, cache_index=None,
                 decode: bool = False):
     """params/caches: tuple over pattern positions of stacked pytrees.
@@ -186,9 +196,10 @@ def stack_apply(params, x, cfg, *, positions, caches=None, cache_index=None,
     pat = unit_pattern(cfg)
     has_cache = caches is not None
     aux_tot = 0.0
+    per_rep = [_unstack(p, n_rep(cfg)) for p in params]
     for r in range(n_rep(cfg)):
         for i, kind in enumerate(pat):
-            up = tree.map(lambda a: a[r], params[i])
+            up = per_rep[i][r]
             uc = tree.map(lambda a: a[r], caches[i]) if has_cache else None
             x, _, a = block_apply(up, x, cfg, kind, positions=positions,
                                   cache=uc, cache_index=cache_index,

@@ -1535,3 +1535,198 @@ def test_cuda_ganged_semi_sync_first_wave_is_one_dispatch(cuda):
     for k in serial.params:
         torch.testing.assert_close(srv.params[k], serial.params[k],
                                    atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# LM training: the backward kernels and gradients through them
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Skv, H, KV, hd, causal, window): every head dim with KV < H,
+# windows, non-causal, ragged Sq and Skv, the training shape
+FLASH_BWD_CASES = [(2, 256, 256, 4, 2, hd, True, 0)
+                   for hd in (16, 32, 64, 96, 128, 192)] + [
+    (1, 77, 77, 2, 1, 96, True, 20), (2, 130, 100, 4, 2, 64, False, 0),
+    (1, 100, 130, 4, 1, 128, True, 0), (1, 300, 300, 8, 2, 192, True, 100),
+    (4, 1024, 1024, 14, 2, 64, True, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same (q, k, v, o, dO, lse), and the forward's log-sum-exp against the
+    plain one, at tests/test_kernels.py's tolerances; one launch a call."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_fwd_plain)
+    B, Sq, Skv, H, KV, hd, causal, window = case
+    g = torch.Generator(device=cuda).manual_seed(Sq + hd + KV)
+    q = torch.randn(B, Sq, H, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, Skv, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, Sq, H, hd, device=cuda, generator=g).to(dtype)
+    o, lse = ops._flash_fwd(q, k, v, causal, window, True)
+    _, want_lse = flash_attention_fwd_plain(q, k, v, causal=causal,
+                                            window=window)
+    launches = ops.flash_bwd_launches
+    got = ops._flash_bwd(do, q, k, v, o, lse, causal, window)
+    want = flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    assert ops.flash_bwd_launches == launches + 1
+    atol, rtol = (2e-5, 1e-3) if dtype == F32 else (2e-2, 1e-2)
+    torch.testing.assert_close(lse, want_lse, atol=atol, rtol=rtol)
+    for a, w, ref in zip(got, want, (q, k, v)):
+        assert a.dtype == dtype and a.shape == ref.shape
+        torch.testing.assert_close(a.float(), w.float(), atol=atol,
+                                   rtol=rtol)
+
+
+# (rows, d, g rows): the forward routes' shapes, odd d, g tables of a
+# vmapped block (negative: one row shared at a stride of 0)
+RMS_BWD_CASES = [(100, 64, 1), (7, 33, 1), (4096, 896, 1), (4, 1600, 1),
+                 (4, 40000, 1), (1000, 896, 4), (4096, 896, 8),
+                 (300, 5120, 3), (512, 896, -4)]
+
+
+@pytest.mark.parametrize("case", RMS_BWD_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_rmsnorm_bwd_kernel_matches_plain(cuda, case, dtype):
+    """The norm's forward with a g table and its backward kernel against
+    the plain versions; one launch a call."""
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain,
+                                             rmsnorm_grouped_plain)
+    T_, d, V = case
+    g = torch.Generator(device=cuda).manual_seed(T_ + d)
+    x = torch.randn(T_, d, device=cuda, generator=g).to(dtype)
+    dy = torch.randn(T_, d, device=cuda, generator=g).to(dtype)
+    w = (1 + 0.1 * torch.randn(abs(V), d, device=cuda, generator=g)).to(dtype)
+    if V < 0:
+        w = w[:1].expand(-V, d)
+    launches = ops.rmsnorm_bwd_launches
+    y = ops._rms_fwd(x, w, 1e-5)
+    dx, dg = ops._rms_bwd(dy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    assert ops.rmsnorm_bwd_launches == launches + 1
+    wx, wg = rmsnorm_bwd_plain(dy, x, w, 1e-5)
+    atol = 2e-5 if dtype == F32 else 2e-2
+    for a, b in ((y, rmsnorm_grouped_plain(x, w, 1e-5)), (dx, wx), (dg, wg)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                   rtol=1e-2)
+
+
+def _lm_cfg(impl="pallas", **kw):
+    return dataclasses.replace(ARCHS["qwen2-0.5b"].reduced(),
+                               attention_impl=impl, **kw)
+
+
+def _lm_batch(cfg, B=2, S=32, seed=0):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+            for k in ("inputs", "labels")}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_lm_forward_gives_every_param_a_gradient(cuda, dtype):
+    """``loss.backward()`` through ``lm.forward`` on the card reaches every
+    parameter (the norms' and flash's outputs are no longer detached), and
+    the gradients are the CPU's (fp32: 1e-4; bf16: finite and nonzero)."""
+    cfg = _lm_cfg(dtype=dtype)
+    params = lm.init_params(torch.Generator().manual_seed(0), cfg)
+    batch = _lm_batch(cfg)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree.map(lambda t: t.detach().to(dev).requires_grad_(), params)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+        ops.reset_flash_counts()
+        ops.reset_ssm_scan_counts()
+        ops.reset_rmsnorm_counts()
+        lm.loss_and_aux(p, b, cfg).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {
+                "flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
+                "rmsnorm_bwd": 5}
+        grads[dev.type] = [t.grad for t in tree.leaves(p)]
+    for gc, gp in zip(grads["cuda"], grads["cpu"]):
+        assert gc is not None and bool(torch.isfinite(gc).all())
+        assert bool(gc.abs().sum() > 0)
+        if dtype == "float32":
+            torch.testing.assert_close(gc.cpu(), gp, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_vmapped_grad_launches_once_a_block_and_equals_cpu(cuda):
+    """``torch.func.vmap(grad)`` of the LM loss over a block of 3 clients
+    on the card: one launch of each kernel a layer for the whole block, and
+    each client's gradient the CPU's."""
+    cfg = _lm_cfg()
+    params = lm.init_params(torch.Generator().manual_seed(1), cfg)
+    rng = np.random.default_rng(2)
+    batches = {k: rng.integers(0, cfg.vocab_size, (3, 2, 16)).astype(np.int32)
+               for k in ("inputs", "labels")}
+    fn = T.value_and_grad(lambda p, b: lm.loss_and_aux(p, b, cfg))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = tree.map(lambda t: t.to(dev), params)
+        b = {k: torch.as_tensor(v, device=dev) for k, v in batches.items()}
+        ops.reset_flash_counts()
+        ops.reset_ssm_scan_counts()
+        ops.reset_rmsnorm_counts()
+        out[dev.type] = torch.func.vmap(fn, in_dims=(None, 0))(p, b)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {
+                "flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
+                "rmsnorm_bwd": 5}
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               atol=1e-5, rtol=1e-5)
+    for a, b in zip(tree.leaves(out["cuda"][1]), tree.leaves(out["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def test_cuda_gradient_through_ssm_scan_raises(cuda):
+    """The scan has no backward kernel yet: its forward runs under autograd
+    on the card, a gradient through it raises ``NotImplementedError``
+    (not a silent zero), and a no-grad call is the plain launch."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, S, H, N, P = 1, 64, 2, 16, 32
+    q, k = (torch.randn(B, S, H, N, device=cuda, generator=g)
+            for _ in range(2))
+    v = torch.randn(B, S, H, P, device=cuda, generator=g)
+    la = -torch.rand(B, S, H, device=cuda, generator=g)
+    qq = q.clone().requires_grad_()
+    launches = ops.ssm_scan_launches
+    y, _ = ops.ssm_scan(qq, k, v, la, chunk=16)
+    assert ops.ssm_scan_launches == launches + 1
+    with pytest.raises(NotImplementedError, match="17e"):
+        y.sum().backward()
+    with pytest.raises(NotImplementedError, match="17e"):
+        torch.func.grad(lambda t: ops.ssm_scan(t, k, v, la, chunk=16)[0]
+                        .sum())(q)
+    with torch.no_grad():
+        y2, _ = ops.ssm_scan(q, k, v, la, chunk=16)
+    torch.testing.assert_close(y2, y.detach())
+
+
+def test_cuda_serving_launches_no_backward_and_no_lse(cuda, monkeypatch):
+    """Serving (``generate`` under ``no_grad``) takes the forward alone:
+    its flash launches pass no log-sum-exp buffer, and no backward kernel
+    launches."""
+    from repro_torch.kernels import flash_attention as fa
+    cfg = _lm_cfg()
+    params = lm.init_params(torch.Generator(device=cuda).manual_seed(0), cfg)
+    seen = []
+    inner = fa.flash_attention_cuda
+
+    def spy(*a, lse=None, **kw):
+        seen.append(lse)
+        return inner(*a, lse=lse, **kw)
+
+    monkeypatch.setattr(fa, "flash_attention_cuda", spy)
+    ops.reset_flash_counts()
+    ops.reset_rmsnorm_counts()
+    _, _, t = generate(params, make_prompt(cfg, 2, 32, 0), cfg, 4, cuda)
+    assert t["prefill_flash_launches"] == cfg.n_layers
+    assert seen == [None] * cfg.n_layers
+    assert all(t[f"{part}_{k}_launches"] == 0 for part in ("prefill", "decode")
+               for k in ("flash_bwd", "rmsnorm_bwd"))

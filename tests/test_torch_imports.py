@@ -32,6 +32,27 @@ def _imports(path):
             yield node.module or ""
 
 
+def test_training_modules_are_checked():
+    """The training slice's modules are among the checked files and import
+    without JAX (``test_package_imports_without_jax`` walks them too)."""
+    names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
+    assert {"optim/__init__.py", "optim/optimizers.py",
+            "launch/fl_train_lm.py", "models/lm.py"} <= names
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.optim import adamw, fedyogi, sgd\n"
+            "from repro_torch.data import make_lm_clients\n"
+            "from repro_torch.launch import fl_train_lm\n"
+            "from repro_torch.models.lm import make_train_step\n"
+            "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_guard_tells_repro_from_repro_torch():
     assert _forbidden("repro") and _forbidden("repro.core.flat")
     assert _forbidden("jax") and _forbidden("jax.numpy")

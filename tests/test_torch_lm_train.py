@@ -1,0 +1,236 @@
+"""The port's LM client training against the JAX package on the CPU:
+``loss_and_aux`` and its gradients on every reduced dense arch (the port
+under the ``dense``, ``chunked`` and ``pallas`` attention routes -- the last
+through the flash and norm Functions with their plain backwards -- the JAX
+side under ``chunked``), a ``logit_chunk`` that splits the loss into
+sequence chunks, ``make_train_step`` with 1 and 4 micro-batches, and two
+federated rounds of reduced qwen2-0.5b through ``launch/fl_train_lm.py``'s
+wiring under a ``TickTimer`` in both packages.
+
+Both packages start from JAX's ``init_params`` (``params_from_jax``) on the
+same numpy batches.  Tolerances: the loss 1e-5, gradients and params 1e-5
+absolute / 1e-4 relative (fp32 throughout, summed in another order; the
+largest differences seen are ~1.5e-6); selections, schedules and makespans
+exactly.
+"""
+import dataclasses
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.core as J
+from repro.configs.registry import ARCHS as JARCHS
+from repro.data import make_lm_clients as jclients
+from repro.models import lm as jlm
+import repro_torch.core as T
+from repro_torch.configs.registry import ARCHS
+from repro_torch.convert import params_from_jax
+from repro_torch.core import tree
+from repro_torch.kernels import ops
+from repro_torch.launch import fl_train_lm
+from repro_torch.models import lm, transformer
+
+DENSE = sorted(n for n, c in ARCHS.items()
+               if transformer.unit_pattern(c) == ("dense",) and c.moe is None)
+IMPLS = ["pallas", "chunked", "dense"]
+LOSS_TOL = 1e-5
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _cfgs(name, impl="chunked", **kw):
+    return (dataclasses.replace(JARCHS[name].reduced(), **kw),
+            dataclasses.replace(ARCHS[name].reduced(), attention_impl=impl,
+                                **kw))
+
+
+def _params(jcfg, seed=0):
+    jp = jlm.init_params(jax.random.PRNGKey(seed), jcfg)
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+def _batch(cfg, B, S, seed):
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "embeddings":
+        inputs = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    else:
+        inputs = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return {"inputs": inputs,
+            "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)}
+
+
+def _jax_grads(jcfg, jp, batch):
+    fn = jax.jit(jax.value_and_grad(lambda p, b: jlm.loss_and_aux(p, b,
+                                                                  jcfg)))
+    return fn(jp, jax.tree.map(jnp.asarray, batch))
+
+
+def _port_grads(tcfg, tp, batch):
+    fn = T.value_and_grad(lambda p, b: lm.loss_and_aux(p, b, tcfg))
+    return fn(tp, {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _close_trees(got, want, atol=ATOL, rtol=RTOL):
+    gl, wl = tree.leaves(got), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    for g, w in zip(gl, wl):
+        np.testing.assert_allclose(g.detach().float().numpy(),
+                                   np.asarray(w, np.float32), atol=atol,
+                                   rtol=rtol)
+
+
+def test_dense_archs_are_the_six_dense_family_configs():
+    assert DENSE == sorted(["llama3.2-3b", "musicgen-large",
+                            "phi-3-vision-4.2b", "phi3-mini-3.8b",
+                            "qwen2-0.5b", "qwen2.5-14b"])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("name", DENSE)
+def test_loss_and_grads_match_jax(name, impl):
+    jcfg, tcfg = _cfgs(name, impl)
+    jp, tp = _params(jcfg)
+    batch = _batch(jcfg, 2, 32, seed=1)
+    jl, jg = _jax_grads(jcfg, jp, batch)
+    ops.reset_flash_counts()
+    ops.reset_rmsnorm_counts()
+    tl, tg = _port_grads(tcfg, tp, batch)
+    assert tl.dtype == torch.float32 and tl.shape == ()
+    np.testing.assert_allclose(float(tl), float(jl), atol=LOSS_TOL, rtol=0)
+    assert tree.structure(tg) == tree.structure(tp)
+    _close_trees(tg, jg)
+    # every norm (and, on the pallas route, every attention) went forward
+    # and backward through its Function; no launch on the CPU
+    n_norms = 2 * tcfg.n_layers + 1
+    assert (ops.rmsnorm_dispatches, ops.rmsnorm_bwd_dispatches) == \
+        (n_norms, n_norms)
+    flash = tcfg.n_layers if impl == "pallas" else 0
+    assert (ops.flash_dispatches, ops.flash_bwd_dispatches) == (flash, flash)
+    assert ops.launch_counts() == dict.fromkeys(ops.launch_counts(), 0)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+@pytest.mark.parametrize("chunk", [8, 40, 64])
+def test_chunked_xent_splits_like_jax(impl, chunk):
+    """B=2, S=32: logit_chunk 8 / 40 / 64 splits the loss into 8 / 2 / 1
+    sequence chunks (the smallest nc | S with B·S/nc <= logit_chunk), summed
+    in order in fp32."""
+    jcfg, tcfg = _cfgs("qwen2-0.5b", impl, logit_chunk=chunk)
+    jp, tp = _params(jcfg)
+    batch = _batch(jcfg, 2, 32, seed=2)
+    jl, jg = _jax_grads(jcfg, jp, batch)
+    tl, tg = _port_grads(tcfg, tp, batch)
+    np.testing.assert_allclose(float(tl), float(jl), atol=LOSS_TOL, rtol=0)
+    _close_trees(tg, jg)
+    h = torch.zeros(2, 32, tcfg.d_model)
+    labels = torch.zeros(2, 32, dtype=torch.int64)
+    heads = []
+    inner = lm._head
+
+    def spy(params, hc, cfg):
+        heads.append(tuple(hc.shape))
+        return inner(params, hc, cfg)
+
+    lm._head = spy
+    try:
+        lm.chunked_xent(tp, h, labels, tcfg)
+    finally:
+        lm._head = inner
+    nc = {8: 8, 40: 2, 64: 1}[chunk]
+    assert heads == [(2, 32 // nc, tcfg.d_model)] * nc
+
+
+@pytest.mark.parametrize("micro", [1, 4])
+@pytest.mark.parametrize("impl", ["pallas", "chunked"])
+def test_train_step_matches_jax(micro, impl):
+    jcfg, tcfg = _cfgs("qwen2-0.5b", impl)
+    jp, tp = _params(jcfg)
+    batch = _batch(jcfg, 4, 32, seed=3)
+    jstep = jax.jit(jlm.make_train_step(jcfg, lr=0.05, micro_batches=micro))
+    tstep = lm.make_train_step(tcfg, lr=0.05, micro_batches=micro)
+    for _ in range(2):
+        jp, jm = jstep(jp, jax.tree.map(jnp.asarray, batch))
+        tp, tm = tstep(tp, batch)
+        np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
+                                   atol=LOSS_TOL, rtol=0)
+        _close_trees(tp, jp)
+    assert all(p.dtype == torch.float32 for p in tree.leaves(tp))
+
+
+def test_train_step_keeps_bf16_params_and_refuses_a_ragged_split():
+    _, tcfg = _cfgs("qwen2-0.5b", "pallas", dtype="bfloat16")
+    tp = lm.init_params(torch.Generator().manual_seed(0), tcfg)
+    batch = _batch(tcfg, 4, 16, seed=4)
+    new, m = lm.make_train_step(tcfg, lr=0.05, micro_batches=2)(tp, batch)
+    assert m["loss"].dtype == torch.float32 and bool(torch.isfinite(m["loss"]))
+    assert all(p.dtype == torch.bfloat16 for p in tree.leaves(new))
+    assert any(not torch.equal(a, b) for a, b in zip(tree.leaves(new),
+                                                     tree.leaves(tp)))
+    with pytest.raises(ValueError):
+        lm.make_train_step(tcfg, micro_batches=3)(tp, batch)
+
+
+def _record_schedules(srv):
+    seen = []
+    inner = srv.scheduler.schedule
+
+    def schedule(rnd, tasks, executors, **kw):
+        s = inner(rnd, tasks, executors, **kw)
+        seen.append((rnd, sorted(t.client for t in tasks),
+                     {k: [t.client for t in q]
+                      for k, q in s.assignment.items()}))
+        return s
+
+    srv.scheduler.schedule = schedule
+    return seen
+
+
+def _jax_server(jcfg, jp, state_dir):
+    """``examples/fl_train_lm.py``'s wiring, under a TickTimer."""
+    grad_fn = jax.jit(jax.value_and_grad(
+        lambda p, b: jlm.loss_and_aux(p, b, jcfg)))
+    data = jclients(60, vocab=jcfg.vocab_size, seq_len=32, batch_size=4,
+                    mean_samples=8, seed=0)
+    algo = J.make_algorithm("fedavg", grad_fn, lr=0.1, local_epochs=1)
+    sm = J.ClientStateManager(state_dir)
+    timer = J.TickTimer(1.0)
+    execs = [J.SequentialExecutor(k, algo, state_manager=sm, timer=timer)
+             for k in range(4)]
+    return J.ParrotServer(params=jp, algorithm=algo, executors=execs,
+                          data_by_client=data, clients_per_round=12, seed=0)
+
+
+def test_two_fl_rounds_of_reduced_qwen2_match_jax():
+    """The port on the kernel route (``pallas``: the flash and norm
+    Functions inside the client engine's vmap of grad), JAX on its default
+    ``chunked`` route."""
+    jcfg, tcfg = _cfgs("qwen2-0.5b", "pallas")
+    jp, tp = _params(jcfg)
+    with tempfile.TemporaryDirectory() as jd, \
+            tempfile.TemporaryDirectory() as td:
+        js = _jax_server(jcfg, jp, jd)
+        ts = fl_train_lm.build(tcfg, tp, "cpu", td, timer=T.TickTimer(1.0))
+        jsel, tsel = _record_schedules(js), _record_schedules(ts)
+        ops.reset_flash_counts()
+        for _ in range(2):
+            js.run_round()
+            ts.run_round()
+    assert tsel == jsel
+    assert [(m.round, m.makespan, m.n_clients) for m in ts.history] == \
+        [(m.round, m.makespan, m.n_clients) for m in js.history]
+    _close_trees(ts.params, js.params)
+    assert ops.flash_dispatches > 0
+    assert ops.flash_bwd_dispatches == ops.flash_dispatches
+    loss = fl_train_lm.eval_loss(ts.params, fl_train_lm.eval_batch(tcfg),
+                                 tcfg)
+    assert np.isfinite(loss)
+
+
+def test_fl_train_lm_main_runs_on_the_cpu(capsys):
+    fl_train_lm.main(["--device", "cpu", "--rounds", "1"])
+    out = capsys.readouterr().out
+    assert "round 0: clients=12" in out and "eval_loss=" in out
+    assert "attention=pallas" in out
