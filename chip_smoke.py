@@ -950,11 +950,16 @@ def profile_round(srv):
     None where the trace holds no device time.  The device activity alone:
     the host ops' trace added ~45 s of processing a round and changed no
     device number."""
+    return profile_call(srv.run_round)
+
+
+def profile_call(fn):
+    """``profile_round``'s record for one call of ``fn``."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.run_round()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
@@ -3950,14 +3955,18 @@ VMAP_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 # (B, Sq, Skv, H, KV, hd, causal, window): the flash backward's grid -- the
 # shapes of phase 6's grid (the JAX grid, windows, non-causal, KV heads in
 # place at every head dim, a ragged S, the serving shapes) with Sq == Skv,
-# then ragged Sq and Skv apart, then 13(c)'s shape for one client and a
-# folded block; each at fp32 and bf16
+# then ragged Sq and Skv apart, then the tensor-core tiling's edges at
+# qwen2's heads (a ragged last tile, one key tile, a two-tile window), then
+# 13(c)'s shape for one client and a folded block; each at fp32 and bf16
 FLASH_BWD_GRID = (sorted({(B, S, S, H, KV, hd, causal, window)
                           for B, S, H, KV, hd, causal, window, _
                           in FLASH_GRID})
                   + [(1, 100, 130, 4, 1, 128, True, 0),
                      (1, 130, 100, 4, 2, 64, False, 0),
                      (1, 77, 77, 2, 1, 96, True, 20)]
+                  + [(1, 200, 200, 14, 2, 64, True, 0),
+                     (2, 64, 64, 14, 2, 64, True, 0),
+                     (1, 300, 300, 14, 2, 64, True, 128)]
                   + [(V * LM_FL_FLASH[0], LM_FL_FLASH[1], LM_FL_FLASH[1],
                       *LM_FL_FLASH[2:], True, 0) for V in (1, LM_FL_V)])
 # qwen2-0.5b's attention in a training step at (4, 1024) tokens
@@ -3965,11 +3974,12 @@ TRAIN_FLASH = (4, 1024, 14, 2, 64)          # B, S, H, KV, hd
 # (rows, d, g rows): phase 7's norm grid with one g row (all four forward
 # routes' shapes, odd d), then g tables as a vmapped block hands them over:
 # a row a client, and (a negative count) one row shared at a stride of 0;
-# then 13(c)'s rows (4 x 32 tokens at d = 896) for one client and a block
-# of 4
+# rows that do not split into whole 32-row chunks (4097; 65 a g row); then
+# 13(c)'s rows (4 x 32 tokens at d = 896) for one client and a block of 4
 RMS_BWD_GRID = ([(T, d, 1) for T, d in RMS_GRID]
                 + [(1000, 896, 4), (4096, 896, 8), (512, 1600, 8),
-                   (300, 5120, 3), (512, 896, -4), (40, 33, -8)]
+                   (300, 5120, 3), (512, 896, -4), (40, 33, -8),
+                   (4097, 896, 1), (130, 896, 2)]
                 + [(128, 896, 1), (512, 896, LM_FL_V)])
 TRAIN_RMS = (4096, 896)                     # qwen2's rows at (4, 1024)
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
@@ -3997,12 +4007,14 @@ def flash_bwd_bound_ms(B, S, H, KV, hd, itemsize):
     dv written at the KV heads, lse read, each once -- (4·H + 4·KV)·B·S·hd
     elements and 4·B·H·S bytes -- over the memory rate, vs 10·hd
     operations for each of the B·H·S(S+1)/2 unmasked pairs (S = q·k
-    recomputed, dP = dO·v, dV, dQ, dK) over the bf16 tensor-core rate; the
-    larger bounds it."""
+    recomputed, dP = dO·v, dV, dQ, dK) over the peak rate of the inputs'
+    type (bf16 tensor cores; fp32 CUDA cores: TF32 would break the fp32
+    tolerances); the larger bounds it."""
     nbytes = (4 * H + 4 * KV) * B * S * hd * itemsize + 4 * B * H * S
     flops = 10 * hd * B * H * S * (S + 1) // 2
+    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, flops)
 
@@ -4024,13 +4036,15 @@ def _past_tol(got, want, tol):
     return diff, diff > atol + rtol * want.float().abs()
 
 
-def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain):
+def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain, bwd_route):
     """13(a): the forward's lse and the backward kernel against their plain
     versions over FLASH_BWD_GRID at fp32 and bf16, on the same (q, k, v,
-    o, dO, lse), at tests/test_kernels.py's tolerances; one launch a
-    call."""
+    o, dO, lse), at tests/test_kernels.py's tolerances; one launch a call,
+    on the route ``bwd_route`` names; a second call on the same inputs
+    gives the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    routes = {"tensor_cores": 0, "cuda_cores": 0}
     for B, Sq, Skv, H, KV, hd, causal, window in FLASH_BWD_GRID:
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dt)
@@ -4040,18 +4054,29 @@ def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain):
             o, lse = ops._flash_fwd(q, k, v, causal, window, True)
             _, want_lse = fwd_plain(q, k, v, causal=causal, window=window)
             launches = ops.flash_bwd_launches
+            route = bwd_route(dt, hd)
+            on_route = ops.flash_bwd_route_launches[route]
             got = ops._flash_bwd(do, q, k, v, o, lse, causal, window)
             want = bwd_plain(do, q, k, v, o, lse, causal=causal,
                              window=window)
+            again = ops._flash_bwd(do, q, k, v, o, lse, causal, window)
             torch.cuda.synchronize()
             case = (f"(B,Sq,Skv,H,KV,hd)=({B},{Sq},{Skv},{H},{KV},{hd}) {dt}"
                     f" causal={causal} window={window}")
+            if ops.flash_bwd_route_launches[route] != on_route + 2:
+                raise AssertionError(f"flash backward {case}: not on the "
+                                     f"{route} route")
+            routes[route] += 1
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash backward {case}: a second call"
+                                     f" gave other bits")
             _, bad = _past_tol(lse, want_lse, flash_tol(dt))
             if bool(bad.any()):
                 raise AssertionError(f"flash lse {case}: {int(bad.sum())} "
                                      f"rows past tolerance")
-            if ops.flash_bwd_launches != launches + 1:
-                raise AssertionError(f"flash backward {case}: not one launch")
+            if ops.flash_bwd_launches != launches + 2:
+                raise AssertionError(f"flash backward {case}: not one launch"
+                                     f" a call")
             key = str(dt).replace("torch.", "")
             for name, g, w, ref in zip("qkv", got, want, (q, k, v)):
                 diff, bad = _past_tol(g, w, flash_tol(dt))
@@ -4063,24 +4088,27 @@ def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain):
                         f"elements past tolerance, max err "
                         f"{float(diff.max())}")
                 max_err[key] = max(max_err[key], float(diff.max()))
-            del q, k, v, do, o, lse, got, want
+            del q, k, v, do, o, lse, got, want, again
     ops.reset_flash_counts()       # comparison launches do not count
     log(f"phase 13a: flash backward kernel == plain on "
         f"{2 * len(FLASH_BWD_GRID)} cases (phase 6's shapes at fp32 and "
         f"bf16 -- causal and not, windows, KV heads in place at hd 16-192, "
-        f"ragged S, the serving shapes -- ragged Sq != Skv, and 13(c)'s "
-        f"{LM_FL_FLASH} for one client and {LM_FL_V} folded), the "
-        f"forward's lse == plain; max |err| fp32 {max_err['float32']:.3g}, "
-        f"bf16 {max_err['bfloat16']:.3g}")
-    return max_err
+        f"ragged S, the serving shapes -- ragged Sq != Skv, the tensor-core "
+        f"tiling's edges, and 13(c)'s {LM_FL_FLASH} for one client and "
+        f"{LM_FL_V} folded), the forward's lse == plain, a second call the "
+        f"same bits; cases by route {routes}; max |err| fp32 "
+        f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
+    return {"max_err": max_err, "cases_by_route": routes}
 
 
-def phase_rms_bwd_grid(ops, grouped_plain, bwd_plain):
+def phase_rms_bwd_grid(ops, grouped_plain, bwd_plain, bwd_route):
     """13(a): the norm's forward with a g table and its backward kernel
     against their plain versions over RMS_BWD_GRID at fp32 and bf16; one
-    launch a call."""
+    launch a call; a second call on the same inputs gives the same bits;
+    the cases counted by the backward's route (``bwd_route``)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
+    routes = {}
     for T_, d, V in RMS_BWD_GRID:
         for dt in (torch.float32, torch.bfloat16):
             x = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
@@ -4095,11 +4123,17 @@ def phase_rms_bwd_grid(ops, grouped_plain, bwd_plain):
             dx, dg = ops._rms_bwd(dy, x, g, 1e-5)
             wy = grouped_plain(x, g, 1e-5)
             wx, wg = bwd_plain(dy, x, g, 1e-5)
+            dx2, dg2 = ops._rms_bwd(dy, x, g, 1e-5)
             torch.cuda.synchronize()
             case = f"(T,d,V)=({T_},{d},{V}) {dt}"
-            if ops.rmsnorm_bwd_launches != launches + 1:
+            if ops.rmsnorm_bwd_launches != launches + 2:
                 raise AssertionError(f"rmsnorm backward {case}: not one "
-                                     f"launch")
+                                     f"launch a call")
+            if not (torch.equal(dx, dx2) and torch.equal(dg, dg2)):
+                raise AssertionError(f"rmsnorm backward {case}: a second "
+                                     f"call gave other bits")
+            route = bwd_route(dy, x, g, dx)
+            routes[route] = routes.get(route, 0) + 1
             key = str(dt).replace("torch.", "")
             for name, a, b in (("y", y, wy), ("dx", dx, wx), ("dg", dg, wg)):
                 diff, bad = _past_tol(a, b, tol)
@@ -4113,10 +4147,11 @@ def phase_rms_bwd_grid(ops, grouped_plain, bwd_plain):
     log(f"phase 13a: rmsnorm backward kernel (and the forward with a g "
         f"table) == plain on {2 * len(RMS_BWD_GRID)} cases (phase 7's grid "
         f"over the four forward routes' shapes and odd d, g tables of 3-8 "
-        f"rows and rows shared at a stride of 0, 13(c)'s 128 x 896 rows for "
-        f"one client and {LM_FL_V}); max |err| fp32 "
+        f"rows and rows shared at a stride of 0, rows in part chunks, "
+        f"13(c)'s 128 x 896 rows for one client and {LM_FL_V}), a second "
+        f"call the same bits; cases by route {routes}; max |err| fp32 "
         f"{max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}")
-    return max_err
+    return {"max_err": max_err, "cases_by_route": routes}
 
 
 def _client_loss(ops, wq, g, x, k, v):
@@ -4191,17 +4226,17 @@ def phase_vmap_grad_block(ops):
     return max_err
 
 
-def time_flash_bwd(ops, plain, timer):
-    """13(b): the backward at qwen2's training shape, bf16 causal, beside
-    its plain version, its bound and the backward of
-    scaled_dot_product_attention(is_causal, enable_gqa) (forward untimed;
-    the port never calls it)."""
+def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16):
+    """13(b): the backward at qwen2's training shape, causal, in ``dt``
+    (bf16: the tensor cores, round 0 of 13(c) and 13(d); fp32: the CUDA
+    cores, 13(c)'s later rounds), beside its plain version, its bound and
+    the backward of scaled_dot_product_attention(is_causal, enable_gqa)
+    (forward untimed; the port never calls it)."""
     import torch.nn.functional as F
     B, S, H, KV, hd = TRAIN_FLASH
     gen = torch.Generator(device="cuda").manual_seed(15)
-    q, k, v = flash_inputs(B, S, H, KV, hd, torch.bfloat16, gen)
-    do = torch.randn(B, S, H, hd, device="cuda",
-                     generator=gen).to(torch.bfloat16)
+    q, k, v = flash_inputs(B, S, H, KV, hd, dt, gen)
+    do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dt)
     o, lse = ops._flash_fwd(q, k, v, True, 0, True)
     k_ms = timer.ms(lambda: ops._flash_bwd(do, q, k, v, o, lse, True, 0))
     host_ms = timer.host_ms(lambda: ops._flash_bwd(do, q, k, v, o, lse,
@@ -4219,16 +4254,18 @@ def time_flash_bwd(ops, plain, timer):
     mine = ops._flash_bwd(do, q, k, v, o, lse, True, 0)
     lib_diff = max(float((a.transpose(1, 2).float() - b.float()).abs().max())
                    for a, b in zip(lib, mine))
-    bound, by, nbytes, flops = flash_bwd_bound_ms(B, S, H, KV, hd, 2)
+    name = str(dt).replace("torch.", "")
+    bound, by, nbytes, flops = flash_bwd_bound_ms(B, S, H, KV, hd,
+                                                  q.element_size())
     ops.reset_flash_counts()
     row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
-                     "dtype": "bfloat16", "causal": True, "window": 0},
+                     "dtype": name, "causal": True, "window": 0},
            "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
            "library_ms": lib_ms, "kernel_over_library": k_ms / lib_ms,
            "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
            "bytes": nbytes, "flops": flops, "library_max_abs_diff": lib_diff}
-    log(f"phase 13b timing: flash backward {TRAIN_FLASH} bf16 causal: kernel"
-        f" {k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
+    log(f"phase 13b timing: flash backward {TRAIN_FLASH} {name} causal: "
+        f"kernel {k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, scaled_dot_product_attention's backward "
         f"{lib_ms:.4f} ms (|diff| {lib_diff:.3g}); kernel_ms / library_ms "
         f"{k_ms / lib_ms:.2f}; bound {bound:.4f} ms ({by}: {nbytes} B, "
@@ -4236,17 +4273,16 @@ def time_flash_bwd(ops, plain, timer):
     return row
 
 
-def time_rms_bwd(ops, plain, timer):
-    """13(b): the norm's backward at qwen2's training rows, bf16, beside
+def time_rms_bwd(ops, plain, timer, dt=torch.bfloat16):
+    """13(b): the norm's backward at qwen2's training rows in ``dt``, beside
     its plain version, its bound and F.rms_norm's backward (forward
     untimed)."""
     import torch.nn.functional as F
     T_, d = TRAIN_RMS
     gen = torch.Generator(device="cuda").manual_seed(16)
-    x = torch.randn(T_, d, device="cuda", generator=gen).to(torch.bfloat16)
-    dy = torch.randn(T_, d, device="cuda", generator=gen).to(torch.bfloat16)
-    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)
-         ).to(torch.bfloat16)
+    x = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
+    dy = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
+    g = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dt)
     gt = g[None]
     k_ms = timer.ms(lambda: ops._rms_bwd(dy, x, gt, 1e-5))
     host_ms = timer.host_ms(lambda: ops._rms_bwd(dy, x, gt, 1e-5))
@@ -4255,13 +4291,14 @@ def time_rms_bwd(ops, plain, timer):
     y = F.rms_norm(xr, (d,), gr, 1e-5)
     lib_ms = timer.ms(lambda: torch.autograd.grad(y, (xr, gr), dy,
                                                   retain_graph=True))
-    bound, by, nbytes = rms_bwd_bound_ms(T_, d, 2)
+    name = str(dt).replace("torch.", "")
+    bound, by, nbytes = rms_bwd_bound_ms(T_, d, x.element_size())
     ops.reset_rmsnorm_counts()
-    row = {"shape": {"T": T_, "d": d, "dtype": "bfloat16"}, "ms": k_ms,
+    row = {"shape": {"T": T_, "d": d, "dtype": name}, "ms": k_ms,
            "host_ms": host_ms, "plain_ms": p_ms, "library_ms": lib_ms,
            "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
            "bytes": nbytes, "copy_ms": copy_bytes_ms(timer, nbytes)}
-    log(f"phase 13b timing: rmsnorm backward {TRAIN_RMS} bf16: kernel "
+    log(f"phase 13b timing: rmsnorm backward {TRAIN_RMS} {name}: kernel "
         f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, F.rms_norm's backward {lib_ms:.4f} ms, a copy_ of "
         f"the same bytes {row['copy_ms']:.4f} ms; bound {bound:.4f} ms ({by}:"
@@ -4322,9 +4359,10 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
         loss = fl.eval_loss(srv.params, batch, cfg)
         torch.cuda.reset_peak_memory_stats()
         for r in range(LM_FL_ROUNDS):
-            # bf16 params take the tensor-core flash, fp32 the CUDA-core
-            # one: FedAvg's server update adds the fp32 aggregate, so the
-            # model is fp32 from round 1 on, as in the JAX package
+            # bf16 params take the tensor-core flash forward and backward,
+            # fp32 the CUDA-core ones: FedAvg's server update adds the fp32
+            # aggregate, so the model is fp32 from round 1 on, as in the
+            # JAX package
             dtype = srv.params["embed"]["w"].dtype
             route = ("tensor_cores" if dtype == torch.bfloat16
                      else "cuda_cores")
@@ -4343,12 +4381,15 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
                     "topk": 0, "fold": len(folds.sizes),
                     "fold_leaves": len(folds.sizes)}
             if got != want or set(folds.sizes) != {n} \
-                    or ops.flash_route_launches[route] != got["flash"]:
+                    or ops.flash_route_launches[route] != got["flash"] \
+                    or ops.flash_bwd_route_launches[route] \
+                    != got["flash_bwd"]:
                 raise AssertionError(
                     f"13c round {r}: launches {got}, expected {want} for "
                     f"{s} local steps in {len(steps.calls)} client-step "
                     f"calls; fold sizes {folds.sizes}; flash routes "
-                    f"{ops.flash_route_launches}")
+                    f"{ops.flash_route_launches}, backward "
+                    f"{ops.flash_bwd_route_launches}")
             before, loss = loss, fl.eval_loss(srv.params, batch, cfg)
             if not np.isfinite(loss):
                 raise AssertionError(f"13c round {r}: eval loss {loss}")
@@ -4399,7 +4440,8 @@ def lm_batch(cfg, B, S, seed):
 def phase_lm_step(ops, lm, tree, cfg, card):
     """13(d): one make_train_step at (4, 1024) full width, after one
     warm-up step: train tokens/s and its launches (counts set to 0 just
-    before)."""
+    before); then one more step on the profiler: device busy and idle
+    share, the kernels with the most device time."""
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(1),
                             cfg)
     step = lm.make_train_step(cfg, lr=0.05)
@@ -4417,19 +4459,35 @@ def phase_lm_step(ops, lm, tree, cfg, card):
     want = {"flash": L, "flash_bwd": L, "ssm_scan": 0, "rmsnorm": 2 * L + 1,
             "rmsnorm_bwd": 2 * L + 1}
     loss = float(met["loss"])
-    if got != want or not np.isfinite(loss):
-        raise AssertionError(f"13d: launches {got}, expected {want}; loss "
-                             f"{loss}")
+    if got != want or not np.isfinite(loss) \
+            or ops.flash_bwd_route_launches["tensor_cores"] != L:
+        raise AssertionError(f"13d: launches {got}, expected {want}, flash "
+                             f"backward routes {ops.flash_bwd_route_launches}"
+                             f"; loss {loss}")
     peak = torch.cuda.max_memory_allocated()
+    prof = profile_call(lambda: step(params, batch))
+    reset_counts(ops)              # the profiled step's launches do not count
     tok = TRAIN_BATCH * TRAIN_SEQ
     log(f"phase 13d [{card}]: make_train_step at ({TRAIN_BATCH}, "
         f"{TRAIN_SEQ}) full width bf16 pallas: {wall * 1e3:.2f} ms, "
         f"{tok / wall:.0f} train tokens/s, loss {loss:.4f}, launches {got}, "
         f"max_memory_allocated {peak} B")
+    if prof is None:
+        log("phase 13d profile: the trace holds no device time (not "
+            "measured)")
+    else:
+        log(f"phase 13d profile (one more step): wall "
+            f"{prof['wall_s'] * 1e3:.2f} ms, device busy "
+            f"{prof['device_busy_s'] * 1e3:.2f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
+            f"kernel launches")
+        for k in prof["top_kernels"]:
+            log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
+                f"{k['name']}")
     del params
     torch.cuda.empty_cache()
     return {"wall_s": wall, "tokens_per_s": tok / wall, "loss": loss,
-            "launches": got, "max_memory_allocated": peak}
+            "launches": got, "max_memory_allocated": peak, "profile": prof}
 
 
 def phase_lm_routes(T, lm, tree, cfg, card):
@@ -4570,7 +4628,8 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
     FedAvg rounds (the main path), (d) one train step at (4, 1024), (e)
     the 2-layer fp32 cut card vs CPU, (f) pallas vs chunked gradients."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_fwd_plain)
+        bwd_route, flash_attention_bwd_plain, flash_attention_fwd_plain)
+    from repro_torch.kernels.rmsnorm import bwd_route as rms_bwd_route
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain,
                                              rmsnorm_grouped_plain)
     t0 = time.perf_counter()
@@ -4581,14 +4640,18 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
         out[key] = fn(*args)
         secs[key] = round(time.perf_counter() - t, 1)
 
-    part("flash_err", phase_flash_bwd_grid, ops, flash_attention_fwd_plain,
-         flash_attention_bwd_plain)
-    part("rms_err", phase_rms_bwd_grid, ops, rmsnorm_grouped_plain,
-         rmsnorm_bwd_plain)
+    part("flash_grid", phase_flash_bwd_grid, ops, flash_attention_fwd_plain,
+         flash_attention_bwd_plain, bwd_route)
+    part("rms_grid", phase_rms_bwd_grid, ops, rmsnorm_grouped_plain,
+         rmsnorm_bwd_plain, rms_bwd_route)
+    out["flash_err"] = out["flash_grid"]["max_err"]
+    out["rms_err"] = out["rms_grid"]["max_err"]
     part("vmap_err", phase_vmap_grad_block, ops)
     timer = Timer()
     part("flash_timing", time_flash_bwd, ops, flash_attention_bwd_plain,
          timer)
+    part("flash_fp32_timing", time_flash_bwd, ops,
+         flash_attention_bwd_plain, timer, torch.float32)
     part("rms_timing", time_rms_bwd, ops, rmsnorm_bwd_plain, timer)
     del timer
     cfg = dataclasses.replace(get_arch("qwen2-0.5b"), attention_impl="pallas")
@@ -4819,7 +4882,9 @@ def main() -> int:
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "compute_units": "CUDA cores (fp32 products) for both dtypes",
+        "compute_units": "tensor cores (wgmma, TMA loads) for bf16 at hd <= "
+                         "128, the main path's first round and 13(d); CUDA "
+                         "cores (exact fp32) for fp32 and bf16 hd 192",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "replaces_note": "no TPU kernel: the Pallas flash kernel has no VJP "
@@ -4843,9 +4908,12 @@ def main() -> int:
                         "views of the same inputs, forward untimed",
         "shape": lmt["flash_timing"]["shape"],
         "timing": lmt["flash_timing"],
+        "fp32_timing": lmt["flash_fp32_timing"],
+        "grid_cases_by_route": lmt["flash_grid"]["cases_by_route"],
         "train_step_launches": lmt["step"]["launches"]["flash_bwd"],
         "lm_training": {k: v for k, v in lmt.items()
-                        if k not in ("flash_timing", "rms_timing")},
+                        if k not in ("flash_timing", "flash_fp32_timing",
+                                     "rms_timing")},
     }, {
         "name": "ssm_scan",
         "route": "cuda",
@@ -4924,6 +4992,7 @@ def main() -> int:
         "copy_ms": lmt["rms_timing"]["copy_ms"],
         "shape": lmt["rms_timing"]["shape"],
         "timing": lmt["rms_timing"],
+        "grid_cases_by_route": lmt["rms_grid"]["cases_by_route"],
         "train_step_launches": lmt["step"]["launches"]["rmsnorm_bwd"],
     }]}
     log(f"chip_smoke: all phases held in "

@@ -3,10 +3,11 @@
 Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` at
 the repository root (listed in ``.gitignore``), under a file name keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads the library already built.  Nothing is compiled when a
-module is imported: the CPU tests import every module on a machine without
-``nvcc``.
+a hash of the source, of every ``csrc/*.cuh`` header it includes (directly
+or through another header) and of the flags, so an edited source or header
+rebuilds and an unchanged one loads the library already built.  Nothing is
+compiled when a module is imported: the CPU tests import every module on a
+machine without ``nvcc``.
 
 ``build(names)`` starts one ``nvcc`` per missing library, all at once, and
 waits for them together.  A failed build raises with the compiler's output.
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,10 +41,30 @@ def nvcc_path() -> str:
                        "the port's CUDA kernels are built with it at first use")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"/]+\.cuh)"', re.M)
+
+
+def sources(name: str) -> List[str]:
+    """``<name>.cu`` and the ``csrc`` headers it includes, transitively, in
+    the order first reached."""
+    files, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in files:
+            continue
+        files.append(f)
+        todo += [inc.decode() for inc in
+                 _INCLUDE.findall((CSRC / f).read_bytes())
+                 if (CSRC / inc.decode()).is_file()]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    h = hashlib.sha256()
+    for f in sources(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -65,19 +65,15 @@
 // it (training: the backward reads it); serving passes null and nothing
 // more is stored.
 //
-// The backward of both kernels is csrc/flash_attention_bwd.cu.
+// The backward of both kernels is csrc/flash_attention_bwd.cu; the Hopper
+// helpers both use (mbarriers, TMA loads and tensor maps, wgmma) are in
+// csrc/flash_tc.cuh.
 //
 // Plain C interface, loaded with ctypes.  A launch goes to the caller's
 // stream, does not synchronise and allocates nothing; the return value is
 // cudaGetLastError() after the launch (or the error of a setup step).
 
-#include <cuda.h>
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#define FA_NEG_INF (-1e30f)
-#define FA_MAX_DEVICES 64
+#include "flash_tc.cuh"
 
 // ---------------------------------------------------------------------------
 // fp32: the products on the CUDA cores
@@ -257,23 +253,6 @@ flash_fp32_kernel(const FlashParams p) {
     }
 }
 
-// The shared-memory limit is raised once for each instantiation on each
-// device, at its first launch there, not at every call.
-template <typename K>
-static int raise_smem_once(K kernel, size_t smem, bool (&done)[FA_MAX_DEVICES]) {
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= FA_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (!done[dev]) {
-        err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem);
-        if (err != cudaSuccess) return (int)err;
-        done[dev] = true;
-    }
-    return 0;
-}
-
 template <int HD>
 static int launch_fp32(const FlashParams& p, int BH, cudaStream_t stream) {
     constexpr size_t smem = flash_smem_bytes<HD>();
@@ -292,7 +271,6 @@ static int launch_fp32(const FlashParams& p, int BH, cudaStream_t stream) {
 #define TC_BQ 128            // q rows a block: two consumer warpgroups of 64
 #define TC_BK 64             // keys a KV tile
 #define TC_THREADS 288       // 2 consumer warpgroups + 1 producer warp
-#define TC_PANEL 8192        // 64 rows x 64 bf16 columns, 128-byte swizzled
 
 struct TcParams {
     __nv_bfloat16* o;
@@ -317,222 +295,6 @@ struct TcShape {
     // 1 KB of slack to align the tiles to the 1 KB swizzle period
     static constexpr size_t SMEM = 1024 + BAR_OFF + 8 * (2 * STAGES + 1);
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-// returns once the barrier's phase of this parity has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_u32(bar);
-    uint32_t done = 0;
-    do {
-        asm volatile("{\n.reg .pred p;\n"
-                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                     "selp.u32 %0, 1, 0, p;\n}\n"
-                     : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-    } while (!done);
-}
-
-// one 64 x 64 box of a 4-D (hd, S, heads, B) tensor into a swizzled panel
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int col, int row,
-                                         int head, int batch) {
-    asm volatile(
-        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
-        ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
-        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
-           "r"(col), "r"(row), "r"(head), "r"(batch), "r"(smem_u32(bar))
-        : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile (1 KB aligned
-// swizzle period): lbo and sbo in bytes
-__device__ __forceinline__ uint64_t sw128_desc(const void* tile, uint32_t lbo,
-                                               uint32_t sbo) {
-    const uint32_t a = smem_u32(tile);
-    return (uint64_t)((a & 0x3FFFF) >> 4)
-         | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16)
-         | ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32)
-         | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_wait_all() {
-    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// keeps the compiler from touching accumulator registers across an async
-// wgmma (reads after the wait depend on this)
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);   // round to nearest even
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T; both K-major
-__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
-                                               uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
-                                               uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 128, fp32) += A (64 x 16, registers) . B (16 x 128, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-// D (64 x 192, fp32) += A (64 x 16, registers) . B (16 x 192, smem, MN-major)
-__device__ __forceinline__ void wgmma_rs_m64n192(float (&d)[96], const uint32_t (&a)[4],
-                                               uint64_t db, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "setp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7,"
-        " %8, %9, %10, %11, %12, %13, %14, %15,"
-        " %16, %17, %18, %19, %20, %21, %22, %23,"
-        " %24, %25, %26, %27, %28, %29, %30, %31,"
-        " %32, %33, %34, %35, %36, %37, %38, %39,"
-        " %40, %41, %42, %43, %44, %45, %46, %47,"
-        " %48, %49, %50, %51, %52, %53, %54, %55,"
-        " %56, %57, %58, %59, %60, %61, %62, %63,"
-        " %64, %65, %66, %67, %68, %69, %70, %71,"
-        " %72, %73, %74, %75, %76, %77, %78, %79,"
-        " %80, %81, %82, %83, %84, %85, %86, %87,"
-        " %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
-          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
-          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-          "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
-          "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
-}
-
-
-template <int NP>
-__device__ __forceinline__ void wgmma_pv(float (&d)[32 * NP],
-                                         const uint32_t (&a)[4], uint64_t db) {
-    if constexpr (NP == 1) wgmma_rs_m64n64(d, a, db, 1);
-    else if constexpr (NP == 2) wgmma_rs_m64n128(d, a, db, 1);
-    else wgmma_rs_m64n192(d, a, db, 1);
-}
 
 // at one panel (hd <= 64) two blocks share an SM: registers capped at 112
 // a thread (66 KB of shared memory a block), so one block's softmax overlaps
@@ -746,65 +508,6 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
             *reinterpret_cast<__nv_bfloat162*>(og + (long long)row1 * p.so[1] + col) =
                 __floats2bfloat162_rn(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
     }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
-// library links no libcuda)
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-static EncodeTiledFn encode_tiled() {
-    static EncodeTiledFn fn = nullptr;
-    if (fn == nullptr) {
-        void* ptr = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        cudaError_t err = cudaGetDriverEntryPointByVersion(
-            "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-        cudaError_t err = cudaGetDriverEntryPoint(
-            "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-        if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-            return nullptr;
-        fn = reinterpret_cast<EncodeTiledFn>(ptr);
-    }
-    return fn;
-}
-
-// the tensor map of a (B, S, heads, hd) bf16 tensor with element strides
-// st = (batch, seq, head) and a unit stride along hd: 64 x 64 boxes, 128-byte
-// swizzle, zeros outside the tensor.  A dimension of size 1 is never stepped;
-// it gets the stride it would have in a contiguous tensor.  TMA takes a
-// 16-byte aligned address and byte strides that are multiples of 16: a layout
-// that breaks that returns cudaErrorMisalignedAddress (the wrapper's cue to
-// say so).
-static int make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-                    int hd, const long long* st) {
-    EncodeTiledFn enc = encode_tiled();
-    if (enc == nullptr) return (int)cudaErrorNotSupported;
-    const long long sh = heads == 1 ? hd : st[2];
-    const long long ss = S == 1 ? (long long)heads * hd : st[1];
-    const long long sb = B == 1 ? (long long)S * heads * hd : st[0];
-    if (((uintptr_t)ptr & 15) || ((ss | sh | sb) & 7))
-        return (int)cudaErrorMisalignedAddress;
-    cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)S, (cuuint64_t)heads,
-                          (cuuint64_t)B};
-    cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
-                             (cuuint64_t)sb * 2};
-    cuuint32_t box[4] = {64, 64, 1, 1};
-    cuuint32_t elem[4] = {1, 1, 1, 1};
-    const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                           const_cast<void*>(ptr), dims, strides, box, elem,
-                           CU_TENSOR_MAP_INTERLEAVE_NONE,
-                           CU_TENSOR_MAP_SWIZZLE_128B,
-                           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 template <int NP>

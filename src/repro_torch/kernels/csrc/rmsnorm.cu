@@ -51,22 +51,30 @@
 // trains through its jnp norm, and this port's forward is the kernel on the
 // card, so its gradient is one too).  With xh = x * r, r = rsqrt(mean(x^2) +
 // eps): dx = r * dy * g - x * r^3 * sum(dy * g * x) / d and dg = sum over the
-// rows of dy * xh, all in fp32, dx in x's dtype and dg in g's.  Three kernels,
-// one launch on the wrapper's counter:
+// rows of dy * xh, all in fp32, dx in x's dtype and dg in g's.  What bounds
+// it: it must read x and dy and write dx (plus g and dg, one row each): at
+// qwen2-0.5b's training rows (T = 4096, d = 896, bf16) 22.0 MB, or 6.6 us at
+// 3.35 TB/s, far above its 8 operations an element.  So x and dy are read
+// once.  Two routes, picked by the launcher from d, the dtypes and the
+// alignment; each is two kernels, one launch on the wrapper's counter:
 //
-//   dx       a warp per row: the two row sums, r (kept in the workspace for
-//            the next kernel), then dx from a second walk of the row.
-//   dg part  a thread per column and a block per chunk of RN_BWD_CHUNK rows of
-//            one g row's segment: the chunk's sum of dy * x * r into its own
-//            row of fp32 partials in the workspace (no atomics).
-//   dg       a thread per (g row, column): the segment's partials summed in
-//            chunk order, so the result is the same on every run.
+//   one pass  (rows in 16-byte packs, at most RN_BWD_MAX_PACKS a lane of
+//              one warp: d <= 1,792 bf16, 896 fp32).  A block of 8 warps
+//              owns a chunk of RN_BWD_CHUNK rows of one g row's segment; a
+//              warp holds a row of x and dy in registers (and the segment's
+//              g row, read once), with its next row's loads in flight, takes
+//              both row sums, writes dx from the packs it holds, and adds
+//              dy * x * r into its lanes' column partials.  The block adds
+//              its warps' partials in warp order in shared memory and writes
+//              one fp32 partial row per chunk.
+//   two pass  (rows not in packs, or longer than a warp holds).  dx a warp a
+//              row, walking it twice, r of each row into the workspace; then
+//              a thread per column and a block per chunk sums the chunk's dy
+//              * x * r into its partial row, reading x and dy again.
 //
-// What bounds it: it must read x and dy and write dx (plus g and dg, one row
-// each): at qwen2-0.5b's training rows (T = 4096, d = 896, bf16) 22.0 MB, or
-// 6.6 us at 3.35 TB/s, far above its 8 operations an element.  This first
-// design reads x and dy twice (the dg kernel walks them by columns after the
-// dx kernel walked them by rows), ~1.7x the bound's bytes.
+// Then the partial rows of each g row are summed in a fixed order (chunk by
+// chunk within 8 interleaved groups, then the groups in order): no atomics,
+// the same bits on every run.
 //
 // Plain C interface, loaded with ctypes.  The launch goes to the caller's
 // stream, does not synchronise and allocates nothing (the backward's
@@ -84,7 +92,9 @@
 #define RN_MAX_PACKS 8          // most 16-byte packs of x a lane holds
 #define RN_FEW_ROWS 128         // T at or below this takes the few-rows route
 #define RN_LOOP_UNROLL 4        // packs in flight a thread, looped route
-#define RN_BWD_CHUNK 64         // rows a block of the dg partial kernel
+#define RN_BWD_CHUNK 32         // rows a chunk: a block of the backward
+#define RN_BWD_MAX_PACKS 7      // most packs of x a lane of the one pass holds
+                                // (with dy's and the next row's: 8 spills)
 
 enum { ROUTE_SCALAR = 0, ROUTE_ROWS = 1, ROUTE_FEW_ROWS = 2, ROUTE_LOOPED = 3 };
 
@@ -298,20 +308,28 @@ struct Plan {
 
 static inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// whether rows of x and y (row strides sx and d) and g's rows can be read
+// and written in 16-byte packs of x (g's beside them)
 template <typename TX, typename TG>
-static Plan plan(const void* x, const void* g, const void* y, long long T,
-                 int d, long long sx, long long gs) {
+static bool in_packs(const void* x, const void* g, const void* y, int d,
+                     long long sx, long long gs) {
     constexpr int VEC = 16 / sizeof(TX);
     constexpr int GBYTES = VEC * (int)sizeof(TG);
     const int galign = GBYTES < 16 ? GBYTES : 16;
-    const bool vec = d % VEC == 0 && sx % VEC == 0
+    return d % VEC == 0 && sx % VEC == 0
         && reinterpret_cast<uintptr_t>(x) % 16 == 0
         && reinterpret_cast<uintptr_t>(y) % 16 == 0
         && reinterpret_cast<uintptr_t>(g) % galign == 0
         && (gs * (long long)sizeof(TG)) % galign == 0;
+}
+
+template <typename TX, typename TG>
+static Plan plan(const void* x, const void* g, const void* y, long long T,
+                 int d, long long sx, long long gs) {
+    constexpr int VEC = 16 / sizeof(TX);
     Plan p{ROUTE_SCALAR, 1, 1, (T + RN_THREADS / 32 - 1) / (RN_THREADS / 32),
            RN_THREADS};
-    if (!vec) return p;
+    if (!in_packs<TX, TG>(x, g, y, d, sx, gs)) return p;
     const int packs = d / VEC;
     if (T <= RN_FEW_ROWS && packs <= RN_FEW_THREADS * RN_MAX_PACKS) {
         int tpr = (packs + 31) / 32 * 32;
@@ -382,7 +400,116 @@ static int route_of(const void* x, const void* g, const void* y, long long T,
 // backward
 // ---------------------------------------------------------------------------
 
-// dx, a warp per row; r of each row into rr for the dg kernels
+// One pass: block (segment * nch + chunk) of RN_THREADS / 32 warps, a row a
+// warp at a time (lane t holds packs t, t + 32, ...), its next row in flight
+template <typename TX, typename TG, int P>
+__global__ void __launch_bounds__(RN_THREADS, 1)
+rms_bwd_rows_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
+                    const TG* __restrict__ g, TX* __restrict__ dx,
+                    float* __restrict__ part, int d, long long sx,
+                    long long gs, long long rpg, int nch, float eps) {
+    constexpr int VEC = XPack<TX>::VEC;
+    constexpr int WARPS = RN_THREADS / 32;
+    extern __shared__ float colsum[];              // d floats
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const long long seg = blockIdx.x / nch;
+    const long long r0 = seg * rpg + (long long)(blockIdx.x % nch) * RN_BWD_CHUNK;
+    const long long r1 = min(r0 + RN_BWD_CHUNK, (seg + 1) * rpg);
+    const int packs = d / VEC;
+    const TG* gr = gs ? g + seg * gs : g;
+
+    GPack<TG, VEC> gp[P];
+    float acc[P][VEC];
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+        if (lane + 32 * i < packs) gp[i].load(gr + (lane + 32 * i) * VEC);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[i][e] = 0.f;
+    }
+    XPack<TX> xp[P], yp[P];
+    long long row = r0 + warp;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+        const int j = lane + 32 * i;
+        if (row < r1 && j < packs) {
+            xp[i].load(x + row * sx + (long long)j * VEC);
+            yp[i].load(dy + row * (long long)d + (long long)j * VEC);
+        }
+    }
+    for (; row < r1; row += WARPS) {
+        const long long next = row + WARPS;
+        XPack<TX> xn[P], yn[P];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            const int j = lane + 32 * i;
+            if (next < r1 && j < packs) {
+                xn[i].load(x + next * sx + (long long)j * VEC);
+                yn[i].load(dy + next * (long long)d + (long long)j * VEC);
+            }
+        }
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            if (lane + 32 * i < packs) {
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                    const float xv = to_f(xp[i].v[e]);
+                    s1 = fmaf(xv, xv, s1);
+                    s2 = fmaf(to_f(yp[i].v[e]) * to_f(gp[i].v[e]), xv, s2);
+                }
+            }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+        }
+        const float r = 1.0f / sqrtf(s1 / (float)d + eps);
+        const float c = r * r * r * (s2 / (float)d);
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            const int j = lane + 32 * i;
+            if (j < packs) {
+                XPack<TX> out;
+#pragma unroll
+                for (int e = 0; e < VEC; ++e) {
+                    const float xv = to_f(xp[i].v[e]);
+                    const float dyv = to_f(yp[i].v[e]);
+                    from_f(&out.v[e], r * (dyv * to_f(gp[i].v[e])) - xv * c);
+                    acc[i][e] = fmaf(dyv, xv * r, acc[i][e]);
+                }
+                out.store(dx + row * (long long)d + (long long)j * VEC);
+            }
+        }
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+            xp[i] = xn[i];
+            yp[i] = yn[i];
+        }
+    }
+    // the warps' column partials, added in warp order
+    for (int w = 0; w < WARPS; ++w) {
+        if (warp == w) {
+#pragma unroll
+            for (int i = 0; i < P; ++i) {
+                const int j = lane + 32 * i;
+                if (j < packs) {
+#pragma unroll
+                    for (int e = 0; e < VEC; ++e) {
+                        const int col = j * VEC + e;
+                        colsum[col] = (w ? colsum[col] : 0.f) + acc[i][e];
+                    }
+                }
+            }
+        }
+        __syncthreads();
+    }
+    for (int col = threadIdx.x; col < d; col += RN_THREADS)
+        part[(long long)blockIdx.x * d + col] = colsum[col];
+}
+
+// Two pass, dx: a warp per row; r of each row into rr for the dg kernel
 template <typename TX, typename TG>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_bwd_dx_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
@@ -415,8 +542,8 @@ rms_bwd_dx_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
         from_f(&dxr[i], r * (to_f(dyr[i]) * to_f(gr[i])) - to_f(xr[i]) * c);
 }
 
-// dg partials: block (column block, segment * nch + chunk) sums its chunk's
-// rows of dy * (x * r) for its columns into its own row of part
+// Two pass, dg partials: block (column block, segment * nch + chunk) sums its
+// chunk's rows of dy * (x * r) for its columns into its own row of part
 template <typename TX>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_bwd_dg_part_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
@@ -435,23 +562,56 @@ rms_bwd_dg_part_kernel(const TX* __restrict__ x, const TX* __restrict__ dy,
     part[(long long)blockIdx.y * d + col] = acc;
 }
 
-// dg: each (g row, column) sums its segment's partials in chunk order
+// dg: block (32-column block, g row); warp k sums chunks k, k + 8, ... of
+// its 32 columns in order, then the 8 sums are added in warp order
 template <typename TG>
 __global__ void __launch_bounds__(RN_THREADS)
 rms_bwd_dg_reduce_kernel(const float* __restrict__ part, TG* __restrict__ dg,
-                         long long n, int d, int nch) {
-    const long long i = (long long)blockIdx.x * RN_THREADS + threadIdx.x;
-    if (i >= n) return;
-    const long long v = i / d;
-    const int col = (int)(i % d);
+                         int d, int nch) {
+    constexpr int WARPS = RN_THREADS / 32;
+    __shared__ float red[WARPS][33];
+    const int lane = threadIdx.x % 32;
+    const int warp = threadIdx.x / 32;
+    const int col = blockIdx.x * 32 + lane;
+    const long long v = blockIdx.y;
     float acc = 0.f;
-    for (int ch = 0; ch < nch; ++ch)
-        acc += part[(v * nch + ch) * d + col];
-    from_f(&dg[i], acc);
+    if (col < d)
+        for (int ch = warp; ch < nch; ch += WARPS)
+            acc += part[(v * nch + ch) * d + col];
+    red[warp][lane] = acc;
+    __syncthreads();
+    if (warp == 0 && col < d) {
+        float t = 0.f;
+        for (int w = 0; w < WARPS; ++w) t += red[w][lane];
+        from_f(&dg[v * d + col], t);
+    }
 }
 
 static long long bwd_chunks(long long rpg) {
     return (rpg + RN_BWD_CHUNK - 1) / RN_BWD_CHUNK;
+}
+
+enum { BWD_TWO_PASS = 0, BWD_ONE_PASS = 1 };
+
+// the backward's route and, for the one pass, packs a lane
+template <typename TX, typename TG>
+static int bwd_plan(const void* x, const void* dy, const void* g,
+                    const void* dx, int d, long long sx, long long gs,
+                    int* P) {
+    *P = (d / (16 / (int)sizeof(TX)) + 31) / 32;
+    const bool one = in_packs<TX, TG>(x, g, dx, d, sx, gs)
+        && reinterpret_cast<uintptr_t>(dy) % 16 == 0 && *P <= RN_BWD_MAX_PACKS;
+    return one ? BWD_ONE_PASS : BWD_TWO_PASS;
+}
+
+template <typename TX, typename TG, int P>
+static void launch_bwd_rows(const TX* x, const TX* dy, const TG* g, TX* dx,
+                            float* part, long long blocks, int d, long long sx,
+                            long long gs, long long rpg, int nch, float eps,
+                            cudaStream_t s) {
+    rms_bwd_rows_kernel<TX, TG, P><<<(unsigned)blocks, RN_THREADS,
+                                      d * sizeof(float), s>>>(
+        x, dy, g, dx, part, d, sx, gs, rpg, nch, eps);
 }
 
 template <typename TX, typename TG>
@@ -461,24 +621,47 @@ static int launch_bwd(const void* xv, const void* dyv, const void* gv,
                       cudaStream_t s) {
     const TX* x = static_cast<const TX*>(xv);
     const TX* dy = static_cast<const TX*>(dyv);
+    const TG* g = static_cast<const TG*>(gv);
+    TX* dx = static_cast<TX*>(dxv);
     const long long V = T / rpg;
     const long long nch = bwd_chunks(rpg);
     const long long dx_blocks = (T + RN_THREADS / 32 - 1) / (RN_THREADS / 32);
-    if (dx_blocks > 2147483647LL || V * nch > 65535 || nch > 2147483647LL)
+    if (dx_blocks > 2147483647LL || V * nch > 2147483647LL || V > 65535)
         return (int)cudaErrorInvalidValue;
     float* rr = ws;
     float* part = ws + T;
-    rms_bwd_dx_kernel<TX, TG><<<(unsigned)dx_blocks, RN_THREADS, 0, s>>>(
-        x, dy, static_cast<const TG*>(gv), static_cast<TX*>(dxv), rr, T, d,
-        sx, gs, rpg, eps);
-    const dim3 pgrid((d + RN_THREADS - 1) / RN_THREADS, (unsigned)(V * nch));
-    rms_bwd_dg_part_kernel<TX><<<pgrid, RN_THREADS, 0, s>>>(
-        x, dy, rr, part, d, sx, rpg, (int)nch);
-    const long long n = V * d;
-    rms_bwd_dg_reduce_kernel<TG><<<(unsigned)((n + RN_THREADS - 1) / RN_THREADS),
-                                   RN_THREADS, 0, s>>>(
-        part, static_cast<TG*>(dgv), n, d, (int)nch);
+    int P = 1;
+    if (bwd_plan<TX, TG>(xv, dyv, gv, dxv, d, sx, gs, &P) == BWD_ONE_PASS) {
+        const long long nb = V * nch;
+        switch (P) {
+        case 1: launch_bwd_rows<TX, TG, 1>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 2: launch_bwd_rows<TX, TG, 2>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 3: launch_bwd_rows<TX, TG, 3>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 4: launch_bwd_rows<TX, TG, 4>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 5: launch_bwd_rows<TX, TG, 5>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 6: launch_bwd_rows<TX, TG, 6>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        case 7: launch_bwd_rows<TX, TG, 7>(x, dy, g, dx, part, nb, d, sx, gs, rpg, (int)nch, eps, s); break;
+        default: return (int)cudaErrorInvalidValue;
+        }
+    } else {
+        if (V * nch > 65535) return (int)cudaErrorInvalidValue;
+        rms_bwd_dx_kernel<TX, TG><<<(unsigned)dx_blocks, RN_THREADS, 0, s>>>(
+            x, dy, g, dx, rr, T, d, sx, gs, rpg, eps);
+        const dim3 pgrid((d + RN_THREADS - 1) / RN_THREADS, (unsigned)(V * nch));
+        rms_bwd_dg_part_kernel<TX><<<pgrid, RN_THREADS, 0, s>>>(
+            x, dy, rr, part, d, sx, rpg, (int)nch);
+    }
+    const dim3 rgrid((d + 31) / 32, (unsigned)V);
+    rms_bwd_dg_reduce_kernel<TG><<<rgrid, RN_THREADS, 0, s>>>(
+        part, static_cast<TG*>(dgv), d, (int)nch);
     return (int)cudaGetLastError();
+}
+
+template <typename TX, typename TG>
+static int bwd_route_of(const void* x, const void* dy, const void* g,
+                        const void* dx, int d, long long sx, long long gs) {
+    int P = 1;
+    return bwd_plan<TX, TG>(x, dy, g, dx, d, sx, gs, &P);
 }
 
 extern "C" {
@@ -521,11 +704,29 @@ int rmsnorm_route(const void* x, const void* g, const void* y, long long T,
     return -1;
 }
 
-// fp32 elements of the backward's workspace: r for each of the T rows, then
-// d partials for each chunk of each of the T / rpg segments
+// fp32 elements of the backward's workspace: r for each of the T rows (the
+// two-pass route's), then d partials for each RN_BWD_CHUNK-row chunk of each
+// of the T / rpg segments (both routes)
 long long rmsnorm_bwd_workspace(long long T, int d, long long rpg) {
     if (T <= 0 || d <= 0 || rpg <= 0 || T % rpg) return -1;
     return T + (T / rpg) * bwd_chunks(rpg) * (long long)d;
+}
+
+// The route rmsnorm_bwd_launch takes for these arguments: 0 two pass, 1 one
+// pass; -1 for dtypes it does not take.
+int rmsnorm_bwd_route(const void* x, const void* dy, const void* g,
+                      const void* dx, int d, long long sx, long long gs,
+                      int x_dtype, int g_dtype) {
+    if (x_dtype == 0 && g_dtype == 0)
+        return bwd_route_of<float, float>(x, dy, g, dx, d, sx, gs);
+    if (x_dtype == 0 && g_dtype == 1)
+        return bwd_route_of<float, __nv_bfloat16>(x, dy, g, dx, d, sx, gs);
+    if (x_dtype == 1 && g_dtype == 0)
+        return bwd_route_of<__nv_bfloat16, float>(x, dy, g, dx, d, sx, gs);
+    if (x_dtype == 1 && g_dtype == 1)
+        return bwd_route_of<__nv_bfloat16, __nv_bfloat16>(x, dy, g, dx, d, sx,
+                                                          gs);
+    return -1;
 }
 
 // The backward of rmsnorm_launch for the same x, g (gs, rpg; T % rpg == 0):

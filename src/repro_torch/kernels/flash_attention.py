@@ -25,8 +25,10 @@ call form):
 * :func:`flash_attention_bwd_plain` / :func:`flash_attention_bwd_cuda` —
   the backward, FlashAttention-2's algorithm (``D = rowsum(dO∘O)``, ``P =
   exp(S·scale − lse)``, ``dS = P∘(dO·Vᵀ − D)``), in plain PyTorch and as the
-  launch of the hand-written CUDA kernels of ``csrc/flash_attention_bwd.cu``;
-  it replaces no TPU kernel (the Pallas kernel has no VJP).
+  launch of the hand-written CUDA kernels of ``csrc/flash_attention_bwd.cu``
+  on the route :func:`bwd_route` picks from the dtype and the head dim
+  (bf16 at ``BWD_TC_HEAD_DIMS`` on the tensor cores, the rest on the CUDA
+  cores); it replaces no TPU kernel (the Pallas kernel has no VJP).
 
 The public wrapper (its autograd and vmap rules, and the launch counters)
 is ``ops.flash_attention``.
@@ -50,7 +52,15 @@ MAX_BH = 65535          # B*H rides on the fp32 kernel's grid y dimension
 # the route each dtype launches: bf16 on the tensor cores, fp32 on the CUDA
 # cores (TF32 would break the fp32 tolerances)
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
-# the tensor-core launcher's answer to a layout TMA cannot load
+# the bf16 head dims whose backward runs on the tensor cores; at hd 192 a
+# consumer thread's share of the dK and dV accumulators beside S and dP
+# would pass its registers (the kernel's note), so that backward (and every
+# fp32 one) runs on the CUDA cores
+BWD_TC_HEAD_DIMS = (16, 32, 64, 96, 128)
+# rows a tile of the tensor-core backward: its workspace pads each (b, h)
+# row block of lse and D to a whole tile
+BWD_TILE = 64
+# the tensor-core launchers' answer to a layout TMA cannot load
 # (cudaErrorMisalignedAddress)
 _RC_TMA_LAYOUT = 716
 
@@ -184,7 +194,40 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return route
 
 
-_bwd_launcher = None
+def bwd_route(dtype: torch.dtype, hd: int) -> str:
+    """The route of the backward for this dtype and head dim (one of
+    ``ROUTES``' values), by shape alone."""
+    return ("tensor_cores" if dtype == torch.bfloat16
+            and hd in BWD_TC_HEAD_DIMS else "cuda_cores")
+
+
+def bwd_workspace_numel(B: int, H: int, Sq: int) -> int:
+    """fp32 elements of the backward's workspace, for either route: the
+    tensor-core route's lse·log2(e) and D rows, each (b, h) padded to a
+    whole ``BWD_TILE`` (the CUDA-core route uses the first B·H·Sq for
+    D)."""
+    return 2 * B * H * (-(-Sq // BWD_TILE) * BWD_TILE)
+
+
+_bwd_launchers = {}
+
+
+def _bwd_launcher(route: str):
+    fn = _bwd_launchers.get(route)
+    if fn is None:
+        lib = _build.load("flash_attention_bwd")
+        if route == "tensor_cores":
+            fn = lib.flash_attention_bwd_bf16_launch
+            tail = [ctypes.c_float, ctypes.c_void_p]
+        else:
+            fn = lib.flash_attention_bwd_launch
+            tail = [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * 10
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8 + tail)
+        fn.restype = ctypes.c_int
+        _bwd_launchers[route] = fn
+    return fn
 
 
 def flash_attention_bwd_cuda(do: torch.Tensor, q: torch.Tensor,
@@ -192,36 +235,39 @@ def flash_attention_bwd_cuda(do: torch.Tensor, q: torch.Tensor,
                              o: torch.Tensor, lse: torch.Tensor,
                              dq: torch.Tensor, dk: torch.Tensor,
                              dv: torch.Tensor, ws: torch.Tensor, *,
-                             causal: bool, window: int) -> None:
-    """Launch the backward's three kernels on the current stream, writing
-    ``dq`` (q's shape) and ``dk``, ``dv`` (k's shape), all in q's dtype;
-    ``lse`` the forward's (B, H, Sq) fp32, ``ws`` (B, H, Sq) fp32 scratch.
-    Every tensor is read or written through its (batch, seq, head) strides
-    with a unit stride along hd.  The caller has checked the rest; raises if
+                             causal: bool, window: int) -> str:
+    """Launch the backward of :func:`bwd_route`'s route on the current
+    stream, writing ``dq`` (q's shape) and ``dk``, ``dv`` (k's shape), all
+    in q's dtype; ``lse`` the forward's (B, H, Sq) fp32, ``ws`` fp32
+    scratch of :func:`bwd_workspace_numel` elements.  Every tensor is read
+    or written through its (batch, seq, head) strides with a unit stride
+    along hd; the tensor-core route loads q, k, v and ``do`` with TMA and
+    reads ``o`` in 16-byte packs (a ValueError on a layout it cannot
+    load).  Returns the route; the caller has checked the rest; raises if
     the launch fails."""
-    global _bwd_launcher
-    if _bwd_launcher is None:
-        fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-        fn.argtypes = ([ctypes.c_void_p] * 10
-                       + [ctypes.POINTER(ctypes.c_longlong)]
-                       + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _bwd_launcher = fn
     B, Sq, H, hd = q.shape
+    route = bwd_route(q.dtype, hd)
     strides = [t.stride(a) for t in (q, k, v, o, do, dq, dk, dv)
                for a in (0, 1, 2)]
     arr = (ctypes.c_longlong * 24)(*strides)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), ws.data_ptr(), arr, B, H, k.shape[2], Sq,
+            k.shape[1], hd, int(causal), int(window), 1.0 / math.sqrt(hd)]
+    if route == "cuda_cores":
+        args.append(0 if q.dtype == torch.float32 else 1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bwd_launcher(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                           dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                           ws.data_ptr(), arr, B, H, k.shape[2], Sq,
-                           k.shape[1], hd, int(causal), int(window),
-                           1.0 / math.sqrt(hd),
-                           0 if q.dtype == torch.float32 else 1, stream)
+        rc = _bwd_launcher(route)(*args, stream)
+    if rc == _RC_TMA_LAYOUT and route == "tensor_cores":
+        raise ValueError(f"the bf16 backward needs q, k, v, o and dO at "
+                         f"16-byte aligned addresses with (batch, seq, head) "
+                         f"strides that are multiples of 8 elements (TMA and "
+                         f"16-byte loads), got strides {q.stride()}, "
+                         f"{k.stride()}, {v.stride()}, {o.stride()}, "
+                         f"{do.stride()}")
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: error "
                            f"{rc} (q {tuple(q.shape)}, kv {tuple(k.shape)}, "
-                           f"{q.dtype})")
+                           f"{q.dtype}, {route})")
+    return route

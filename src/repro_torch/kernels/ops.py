@@ -24,7 +24,10 @@ counterparts):
   block's leaves, or a ``(C, n)`` block as one segment).
 
 :data:`flash_route_launches` splits the flash launches by the kernel the
-dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32).
+dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32);
+:data:`flash_bwd_route_launches` the backward's by the route the dtype and
+head dim picked (``flash_attention.bwd_route``: bf16 on the tensor cores but
+at hd 192, fp32 on the CUDA cores).
 
 Gradients.  ``flash_attention`` and ``rmsnorm`` are differentiable through
 ``torch.autograd.Function``s whose backward is a hand-written kernel on a
@@ -76,6 +79,7 @@ flash_launches = 0
 flash_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 flash_bwd_dispatches = 0
 flash_bwd_launches = 0
+flash_bwd_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 ssm_scan_dispatches = 0
 ssm_scan_launches = 0
 rmsnorm_dispatches = 0
@@ -322,8 +326,9 @@ def reset_flash_counts() -> None:
     flash_launches = 0
     flash_bwd_dispatches = 0
     flash_bwd_launches = 0
-    for route in flash_route_launches:
-        flash_route_launches[route] = 0
+    for routes in (flash_route_launches, flash_bwd_route_launches):
+        for route in routes:
+            routes[route] = 0
 
 
 def _traced(*ts: torch.Tensor) -> bool:
@@ -423,10 +428,6 @@ def _flash_fwd(q, k, v, causal: bool, window: int, with_lse: bool):
     return (out, lse) if with_lse else out
 
 
-def _hd_unit(t: torch.Tensor) -> torch.Tensor:
-    return t if t.stride(3) == 1 else t.contiguous()
-
-
 def _flash_bwd(do, q, k, v, o, lse, causal: bool, window: int):
     """The backward on plain tensors -> (dq, dk, dv) in q's dtype."""
     global flash_bwd_dispatches, flash_bwd_launches
@@ -436,15 +437,18 @@ def _flash_bwd(do, q, k, v, o, lse, causal: bool, window: int):
         return _fa.flash_attention_bwd_plain(do, q, k, v, o, lse,
                                              causal=causal, window=window)
     _check_flash(q, k, v)
-    do, o = _hd_unit(do), _hd_unit(o)
+    do, o = do.contiguous(), o.contiguous()
     lse = lse.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    ws = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    _fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, dq, dk, dv, ws,
-                                 causal=causal, window=window)
+    B, Sq, H, _ = q.shape
+    ws = torch.empty(_fa.bwd_workspace_numel(B, H, Sq), dtype=torch.float32,
+                     device=q.device)
+    route = _fa.flash_attention_bwd_cuda(do, q, k, v, o, lse, dq, dk, dv, ws,
+                                         causal=causal, window=window)
     flash_bwd_launches += 1
+    flash_bwd_route_launches[route] += 1
     return dq, dk, dv
 
 

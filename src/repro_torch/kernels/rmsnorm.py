@@ -24,10 +24,13 @@ call is one launch.  This module holds the forms:
   x̂·mean(dy·g·x̂))`` and ``dg = Σ_rows dy·x̂`` in fp32, with ``x̂ = x·r``.
 * :func:`rmsnorm_cuda` / :func:`rmsnorm_bwd_cuda` — the launches of the CUDA
   kernels, which read rows of x through their stride and write contiguous
-  outputs.
+  outputs.  The backward reads x and dy once where a warp holds a row in
+  registers (``one_pass``: the forward's ``rows`` shapes) and twice
+  otherwise (``two_pass``); both sum dg's chunk partials in a fixed order.
 
-:func:`route` names the route a forward launch takes (the tests and
-``chip_smoke.py`` check it; the wrapper does not ask).
+:func:`route` and :func:`bwd_route` name the route a forward or backward
+launch takes (the tests and ``chip_smoke.py`` check them; the wrapper does
+not ask).
 
 The public wrapper (its autograd and vmap rules, and the launch counters)
 is ``ops.rmsnorm``.
@@ -42,6 +45,7 @@ from repro_torch.kernels import _build
 
 DTYPES = (torch.float32, torch.bfloat16)
 ROUTES = ("scalar", "rows", "few_rows", "looped")
+BWD_ROUTES = ("two_pass", "one_pass")
 
 
 def rmsnorm_plain(x: torch.Tensor, g: torch.Tensor,
@@ -104,7 +108,10 @@ def _launcher():
         ws = lib.rmsnorm_bwd_workspace
         ws.argtypes = [ll, i, ll]
         ws.restype = ll
-        _lib = (fn, which, bwd, ws)
+        bwd_which = lib.rmsnorm_bwd_route
+        bwd_which.argtypes = [p, p, p, p, i, ll, ll, i, i]
+        bwd_which.restype = i
+        _lib = (fn, which, bwd, ws, bwd_which)
     return _lib
 
 
@@ -142,7 +149,8 @@ def rmsnorm_cuda(x2: torch.Tensor, g: torch.Tensor, out: torch.Tensor,
 
 def bwd_workspace_numel(T: int, d: int, V: int) -> int:
     """fp32 elements of :func:`rmsnorm_bwd_cuda`'s workspace (r of each
-    row, then the dg partials of each chunk of each g row's rows)."""
+    row, which the ``two_pass`` route keeps, then the dg partials of each
+    32-row chunk of each g row's rows)."""
     n = _launcher()[3](T, d, T // V)
     if n < 0:
         raise ValueError(f"rmsnorm backward takes T % V == 0, got T={T}, "
@@ -184,3 +192,18 @@ def route(x2: torch.Tensor, g: torch.Tensor, out: torch.Tensor) -> str:
         raise ValueError(f"rmsnorm takes no route for x {x2.dtype}, "
                          f"g {g.dtype}")
     return ROUTES[code]
+
+
+def bwd_route(dy: torch.Tensor, x2: torch.Tensor, g_table: torch.Tensor,
+              dx: torch.Tensor) -> str:
+    """The route :func:`rmsnorm_bwd_cuda` takes for these tensors (one of
+    :data:`BWD_ROUTES`), as the launcher picks it."""
+    d = x2.shape[1]
+    code = _launcher()[4](x2.data_ptr(), dy.data_ptr(), g_table.data_ptr(),
+                          dx.data_ptr(), d, x2.stride(0),
+                          _table(g_table, x2.shape[0])[0], _code(x2.dtype),
+                          _code(g_table.dtype))
+    if not 0 <= code < len(BWD_ROUTES):
+        raise ValueError(f"the rmsnorm backward takes no route for x "
+                         f"{x2.dtype}, g {g_table.dtype}")
+    return BWD_ROUTES[code]

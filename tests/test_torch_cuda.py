@@ -1542,12 +1542,16 @@ def test_cuda_ganged_semi_sync_first_wave_is_one_dispatch(cuda):
 # ---------------------------------------------------------------------------
 
 # (B, Sq, Skv, H, KV, hd, causal, window): every head dim with KV < H,
-# windows, non-causal, ragged Sq and Skv, the training shape
+# windows, non-causal, ragged Sq and Skv, the training shape; then the
+# tensor-core tiling's edges at qwen2's heads: a ragged last key and query
+# tile (200), one key tile and half a dQ tile (64), a window of two tiles
 FLASH_BWD_CASES = [(2, 256, 256, 4, 2, hd, True, 0)
                    for hd in (16, 32, 64, 96, 128, 192)] + [
     (1, 77, 77, 2, 1, 96, True, 20), (2, 130, 100, 4, 2, 64, False, 0),
     (1, 100, 130, 4, 1, 128, True, 0), (1, 300, 300, 8, 2, 192, True, 100),
-    (4, 1024, 1024, 14, 2, 64, True, 0)]
+    (4, 1024, 1024, 14, 2, 64, True, 0),
+    (1, 200, 200, 14, 2, 64, True, 0), (2, 64, 64, 14, 2, 64, True, 0),
+    (1, 300, 300, 14, 2, 64, True, 128)]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
@@ -1555,9 +1559,11 @@ FLASH_BWD_CASES = [(2, 256, 256, 4, 2, hd, True, 0)
 def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     """The backward kernel against ``flash_attention_bwd_plain`` on the
     same (q, k, v, o, dO, lse), and the forward's log-sum-exp against the
-    plain one, at tests/test_kernels.py's tolerances; one launch a call."""
+    plain one, at tests/test_kernels.py's tolerances; one launch a call, on
+    the route ``bwd_route`` names (bf16 on the tensor cores but at hd
+    192)."""
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_plain, flash_attention_fwd_plain)
+        bwd_route, flash_attention_bwd_plain, flash_attention_fwd_plain)
     B, Sq, Skv, H, KV, hd, causal, window = case
     g = torch.Generator(device=cuda).manual_seed(Sq + hd + KV)
     q = torch.randn(B, Sq, H, hd, device=cuda, generator=g).to(dtype)
@@ -1568,11 +1574,16 @@ def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     _, want_lse = flash_attention_fwd_plain(q, k, v, causal=causal,
                                             window=window)
     launches = ops.flash_bwd_launches
+    routes = dict(ops.flash_bwd_route_launches)
     got = ops._flash_bwd(do, q, k, v, o, lse, causal, window)
     want = flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
                                      window=window)
     torch.cuda.synchronize()
     assert ops.flash_bwd_launches == launches + 1
+    routes[bwd_route(dtype, hd)] += 1
+    assert ops.flash_bwd_route_launches == routes
+    assert bwd_route(dtype, hd) == ("tensor_cores" if dtype == BF
+                                    and hd <= 128 else "cuda_cores")
     atol, rtol = (2e-5, 1e-3) if dtype == F32 else (2e-2, 1e-2)
     torch.testing.assert_close(lse, want_lse, atol=atol, rtol=rtol)
     for a, w, ref in zip(got, want, (q, k, v)):
@@ -1585,14 +1596,16 @@ def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
 # vmapped block (negative: one row shared at a stride of 0)
 RMS_BWD_CASES = [(100, 64, 1), (7, 33, 1), (4096, 896, 1), (4, 1600, 1),
                  (4, 40000, 1), (1000, 896, 4), (4096, 896, 8),
-                 (300, 5120, 3), (512, 896, -4)]
+                 (300, 5120, 3), (512, 896, -4), (4097, 896, 1),
+                 (130, 896, 2)]
 
 
 @pytest.mark.parametrize("case", RMS_BWD_CASES, ids=str)
 @pytest.mark.parametrize("dtype", [F32, BF])
 def test_cuda_rmsnorm_bwd_kernel_matches_plain(cuda, case, dtype):
     """The norm's forward with a g table and its backward kernel against
-    the plain versions; one launch a call."""
+    the plain versions; one launch a call.  The last two cases' rows do not
+    split into whole 32-row chunks (4097 rows; 65 a g row)."""
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain,
                                              rmsnorm_grouped_plain)
     T_, d, V = case
@@ -1613,6 +1626,33 @@ def test_cuda_rmsnorm_bwd_kernel_matches_plain(cuda, case, dtype):
         assert a.dtype == b.dtype and a.shape == b.shape
         torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                    rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_cuda_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
+    """Each backward kernel, called twice on the same inputs at qwen2's
+    training shape, gives the same bits: nothing is summed in an order
+    that depends on timing (no atomics); and the norm's backward takes its
+    one-pass route there."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    B, S, H, KV, hd = 4, 1024, 14, 2, 64
+    q = torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+    k, v = (torch.randn(B, S, KV, hd, device=cuda, generator=g).to(dtype)
+            for _ in range(2))
+    do = torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
+    o, lse = ops._flash_fwd(q, k, v, True, 0, True)
+    first = ops._flash_bwd(do, q, k, v, o, lse, True, 0)
+    second = ops._flash_bwd(do, q, k, v, o, lse, True, 0)
+    x, dy = (torch.randn(S * B, H * hd, device=cuda, generator=g).to(dtype)
+             for _ in range(2))
+    w = (1 + 0.1 * torch.randn(1, H * hd, device=cuda, generator=g)
+         ).to(dtype)
+    n1 = ops._rms_bwd(dy, x, w, 1e-5)
+    n2 = ops._rms_bwd(dy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(first + n1, second + n2):
+        assert torch.equal(a, b)
+    assert rms_kernel.bwd_route(dy, x, w, torch.empty_like(x)) == "one_pass"
 
 
 def _lm_cfg(impl="pallas", **kw):

@@ -1,6 +1,8 @@
 """The gradients of the port's LM kernels on the CPU: each plain backward
 (``flash_attention_bwd_plain``, ``rmsnorm_bwd_plain``) against
-``torch.autograd`` of its plain forward, and the ``torch.autograd.Function``s
+``torch.autograd`` of its plain forward and against ``jax.vjp`` of the JAX
+package's oracle (``repro/kernels/ref.py``), and the
+``torch.autograd.Function``s
 of ``ops.flash_attention`` and ``ops.rmsnorm`` -- the same
 ``setup_context``, saved tensors and ``vmap`` rules the card runs, with the
 plain versions in place of the kernels -- under ``torch.func.vmap`` of
@@ -10,9 +12,12 @@ Tolerances: fp32 2e-5 absolute / 1e-4 relative (the same fp32 math summed
 in another order); bf16 inputs 2e-2 / 1e-2 (``tests/test_kernels.py``'s
 bf16 bound: both sides compute in fp32 and round the result to bf16 once).
 """
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from repro.kernels.ref import flash_attention_ref, rmsnorm_ref
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
@@ -89,6 +94,67 @@ def test_rmsnorm_bwd_plain_matches_autograd_of_plain(case, dtype):
     assert dx.dtype == dtype and dg.dtype == dtype and dg.shape == (V, d)
     torch.testing.assert_close(dx.float(), wx.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(dg.float(), wg.float(), atol=atol, rtol=rtol)
+
+
+def _to_jax(t: torch.Tensor):
+    """The same values in JAX, in t's dtype (bf16 values are exact in
+    fp32)."""
+    a = jnp.asarray(t.float().numpy())
+    return a.astype(jnp.bfloat16) if t.dtype == BF else a
+
+
+def _from_jax(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_flash_bwd_plain_matches_jax_vjp_of_ref(case, dtype):
+    """The yardstick the backward kernels are held to, against the JAX
+    package: ``jax.vjp`` of ``flash_attention_ref`` on the same values
+    (KV heads repeated for the reference, its dk and dv summed over each
+    group)."""
+    B, Sq, Skv, H, KV, hd, causal, window = case
+    rng = np.random.default_rng(Sq + hd + 1)
+    q = _rand(rng, (B, Sq, H, hd), dtype)
+    k, v = (_rand(rng, (B, Skv, KV, hd), dtype) for _ in range(2))
+    do = _rand(rng, (B, Sq, H, hd), dtype)
+    o, lse = flash_attention_fwd_plain(q, k, v, causal=causal, window=window)
+    got = flash_attention_bwd_plain(do, q, k, v, o, lse, causal=causal,
+                                    window=window)
+    rep = H // KV
+    kr, vr = (torch.repeat_interleave(t, rep, dim=2) for t in (k, v))
+    _, vjp = jax.vjp(lambda a, b, c: flash_attention_ref(
+        a, b, c, causal=causal, window=window), *map(_to_jax, (q, kr, vr)))
+    dq, dk, dv = (_from_jax(t) for t in vjp(_to_jax(do)))
+    dk, dv = (t.reshape(B, Skv, KV, rep, hd).sum(dim=3) for t in (dk, dv))
+    atol, rtol = _tol(dtype)
+    for g, w, ref in zip(got, (dq, dk, dv), (q, k, v)):
+        assert g.dtype == dtype and g.shape == ref.shape
+        torch.testing.assert_close(g.float(), w, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", RMS_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [F32, BF])
+def test_rmsnorm_bwd_plain_matches_jax_vjp_of_ref(case, dtype):
+    """``rmsnorm_bwd_plain`` against ``jax.vjp`` of ``rmsnorm_ref`` on the
+    same values, one g row's rows at a time."""
+    T, d, V = case
+    rng = np.random.default_rng(T + d + 1)
+    x = _rand(rng, (T, d), dtype)
+    g = 1.0 + 0.1 * _rand(rng, (V, d), dtype)
+    dy = _rand(rng, (T, d), dtype)
+    dx, dg = rmsnorm_bwd_plain(dy, x, g, 1e-5)
+    atol, rtol = _tol(dtype)
+    rows = T // V
+    for i in range(V):
+        part = slice(i * rows, (i + 1) * rows)
+        _, vjp = jax.vjp(lambda a, b: rmsnorm_ref(a, b, 1e-5),
+                         _to_jax(x[part]), _to_jax(g[i]))
+        wx, wg = (_from_jax(t) for t in vjp(_to_jax(dy[part])))
+        torch.testing.assert_close(dx[part].float(), wx, atol=atol,
+                                   rtol=rtol)
+        torch.testing.assert_close(dg[i].float(), wg, atol=atol, rtol=rtol)
 
 
 def _attn_block(wq, g, x, k, v, causal=True, window=0, kernel=True):
