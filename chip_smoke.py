@@ -174,7 +174,6 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    params within 1e-6, every ganged wave one client-step dispatch, per
    window the dispatches and fold launches, and a profiled semi-sync gang
    window.
-
 13. LM client training: (a) the backward kernels of flash attention and
    RMSNorm against their plain versions on the card at fp32 and bf16 --
    flash over phase 6's shapes (causal and not, windows, KV heads in place
@@ -189,10 +188,11 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    training shape beside its plain version, its bound and the backward of
    the one PyTorch call (``scaled_dot_product_attention``, ``F.rms_norm``);
    (c) full-width qwen2-0.5b (bf16, the ``pallas`` route) in
-   ``launch/fl_train_lm.py``'s traffic: FedAvg, 2 rounds under the default
-   timer (the params are fp32 from round 1 on: FedAvg adds the fp32
-   aggregate, as the JAX package does, and flash follows their dtype's
-   route), then one round profiled on device activity only, with the eval
+   ``launch/fl_train_lm.py``'s traffic: FedAvg, 1 round under the default
+   timer (2 before phase 14; the params are fp32 from round 1 on: FedAvg
+   adds the fp32 aggregate, as the JAX package does, and flash follows
+   their dtype's route), then one round profiled on device activity only
+   (the fp32 round), with the eval
    loss before and after each round, peak device memory, the idle share,
    and each round's launches held exactly to the schedule (24 flash and 49
    norm launches forward and backward a local step of a client-step call,
@@ -204,13 +204,35 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    ``TickTimer``; (f) at full width in bf16 the gradients
    of the ``pallas`` route against the ``chunked`` route, each leaf's norm
    within 2e-2.
+14. Recurrent LM training: (a) the scan's backward kernel
+   (``csrc/ssm_scan_bwd.cu``) against ``ssm_scan_bwd_plain`` on phase 7's
+   grid (dh given on every other case), S % chunk != 0, folded vmapped
+   blocks of fl_train_lm's traffic and hymba's and xlstm's training
+   shapes, fp32 and bf16, an fp32 k, q and k shared by the heads, each case
+   twice for the same bits; (b) timed at hymba's (4, 1024, 8, 16, 400)
+   bf16 and xlstm's (4, 1024, 4, 384, 385) fp32-k training shapes beside
+   ``torch.autograd.grad`` of the plain scan and the bound (no library
+   call computes it); (c) one ``make_train_step`` at (4, 1024) of
+   full-width hymba-1.5b and xlstm-125m, bf16, the ``pallas`` route:
+   wall, train tokens/s, peak memory, launches exact (hymba 32 flash, 32
+   scan and 65 norm launches forward and as many backward; xlstm 6 scan
+   and 13 norm), a profiled step (idle share; xlstm's at 2 layers), and
+   at xlstm's 2 layers the peak beside a step whose sLSTM runs
+   ``slstm_apply_plain`` (4 recompute chunks of 256 against every step's
+   gates kept); (d) FedAvg in fl_train_lm's traffic: full-width
+   xlstm-125m, one round (bf16 params), and hymba-1.5b cut to 8 layers
+   (its widths whole: 32 layers would need ~77 GB), round 0 (bf16) and
+   round 1 (fp32); launches held exactly to the local steps, one
+   leaves-form fold a group, eval loss, peak;
+   (e) each arch cut to 2 layers, fp32, card against CPU: gradients leaf
+   by leaf within 1e-4 (relative 2-norms), loss 1e-5.
 
 Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
-gang rounds, 12(a)'s card runs, 12(c)'s gang runs and 13(c)'s rounds are
-the main path:
-kernel launch counters are set to 0 just before each and read just after,
-and every kernel of the path must have launched.  The second-to-last line is the ``{"kernels": [...]}``
+gang rounds, 12(a)'s card runs, 12(c)'s gang runs, 13(c)'s rounds, 14(c)'s
+steps and 14(d)'s rounds are the main path: kernel launch counters are set
+to 0 just before each and read just after, and every kernel of the path
+must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
@@ -954,7 +976,10 @@ def profile_round(srv):
 
 
 def profile_call(fn):
-    """``profile_round``'s record for one call of ``fn``."""
+    """``profile_round``'s record for one call of ``fn``: the device
+    operations summed by name straight from the trace's raw events (the
+    profiler's ``key_averages`` builds a tree of every event first, which
+    took 8b's profiled 45,000-launch windows from ~2-3 s to ~13 s)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -962,26 +987,29 @@ def profile_call(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    if busy_us <= 0:
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            n, ns = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (n + 1, ns + e.duration_ns())
+    busy_s = sum(ns for _, ns in by_name.values()) / 1e9
+    if busy_s <= 0:
         return None
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    fold = [e for e in kernels if any(k in e.key for k in FOLD_KERNELS)]
-    fold_us = sum(e.self_device_time_total for e in fold)
-    topk = [e for e in kernels if "topk_" in e.key]
-    return {"wall_s": wall, "device_busy_s": busy_us / 1e6,
-            "device_idle_share": 1.0 - busy_us / 1e6 / wall,
-            "kernel_launches": int(sum(e.count for e in kernels)),
-            "fold_device_s": fold_us / 1e6,
-            "fold_kernels": int(sum(e.count for e in fold)),
-            "topk_device_s": sum(e.self_device_time_total
-                                 for e in topk) / 1e6,
-            "topk_kernels": int(sum(e.count for e in topk)),
-            "top_kernels": [{"name": e.key[:80], "count": int(e.count),
-                             "device_s": e.self_device_time_total / 1e6}
-                            for e in top]}
+
+    def part(pick):
+        hits = [v for k, v in by_name.items() if pick(k)]
+        return (sum(ns for _, ns in hits) / 1e9, sum(n for n, _ in hits))
+
+    fold_s, fold_n = part(lambda k: any(f in k for f in FOLD_KERNELS))
+    topk_s, topk_n = part(lambda k: "topk_" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_s": wall, "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall,
+            "kernel_launches": int(sum(n for n, _ in by_name.values())),
+            "fold_device_s": fold_s, "fold_kernels": fold_n,
+            "topk_device_s": topk_s, "topk_kernels": topk_n,
+            "top_kernels": [{"name": k[:80], "count": n, "device_s": ns / 1e9}
+                            for k, (n, ns) in top]}
 
 
 def fold_block_profile(T, ops, timer):
@@ -1885,7 +1913,7 @@ def serve_main_run(label, ops, lm, tree, generate, make_prompt, cfg,
     counters = {"flash": ops.flash_launches, "ssm_scan": ops.ssm_scan_launches,
                 "rmsnorm": ops.rmsnorm_launches}
     backward = {k: t[f"{part}_{k}_launches"] for part in ("prefill", "decode")
-                for k in ("flash_bwd", "rmsnorm_bwd")}
+                for k in ("flash_bwd", "ssm_scan_bwd", "rmsnorm_bwd")}
     if any(backward.values()):
         raise AssertionError(f"{cfg.name}: serving launched a backward "
                              f"kernel: {backward}")
@@ -2065,7 +2093,7 @@ DES_FULL = {
     "async": {"staleness_lambda": 0.5, "chunk_size": 8},
 }
 DES_WINDOWS = 5        # the dynamic_env horizon of phases 8-10
-DES_TIMED = 3          # timed windows an engine in 8b
+DES_TIMED = 2          # timed windows an engine in 8b (3 before phase 14)
 DES_KEYS = ("carried_tasks", "landed_clients", "steals", "stale_folds",
             "mean_staleness", "in_system")
 
@@ -2750,7 +2778,7 @@ def phase_ckpt(T, ops, plain, make_population):
 # phase 10: the network, availability and fault model
 # ---------------------------------------------------------------------------
 
-NET_ROUNDS = 2         # 3 before phase 13 was paid for
+NET_ROUNDS = 1         # 3 before phase 13 was paid for, 2 before phase 14
 # engine -> engine_opts: phase 8b's options (BSP takes none)
 NET_ENGINES = {"bsp": None, "semi-sync": DES_FULL["semi-sync"],
                "async": DES_FULL["async"]}
@@ -3983,7 +4011,9 @@ RMS_BWD_GRID = ([(T, d, 1) for T, d in RMS_GRID]
                 + [(128, 896, 1), (512, 896, LM_FL_V)])
 TRAIN_RMS = (4096, 896)                     # qwen2's rows at (4, 1024)
 TRAIN_BATCH, TRAIN_SEQ = 4, 1024
-LM_FL_ROUNDS = 2
+# 13(c)'s timed rounds (bf16 params), before the profiled one (fp32): 2
+# before phase 14 was paid for
+LM_FL_ROUNDS = 1
 QWEN_PARAMS = 494032768
 # 13(f): each leaf's gradient norm, pallas route against chunked route, in
 # bf16 at full width: both routes round activations to bf16 at the same
@@ -4193,8 +4223,8 @@ def phase_vmap_grad_block(ops):
             got = torch.func.vmap(fn, in_dims=in_dims)(wq, g, x, k, v)
             torch.cuda.synchronize()
             block = ops.launch_counts()
-            want = {"flash": 1, "flash_bwd": 1, "ssm_scan": 0, "rmsnorm": 1,
-                    "rmsnorm_bwd": 1}
+            want = {"flash": 1, "flash_bwd": 1, "ssm_scan": 0,
+                    "ssm_scan_bwd": 0, "rmsnorm": 1, "rmsnorm_bwd": 1}
             case = f"{dt} g {'shared' if shared else 'per client'}"
             if block != want:
                 raise AssertionError(f"13a vmap(grad) {case}: launches "
@@ -4378,6 +4408,7 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
             want = {"flash": L * s, "flash_bwd": L * s,
                     "rmsnorm": (2 * L + 1) * s,
                     "rmsnorm_bwd": (2 * L + 1) * s, "ssm_scan": 0,
+                    "ssm_scan_bwd": 0,
                     "topk": 0, "fold": len(folds.sizes),
                     "fold_leaves": len(folds.sizes)}
             if got != want or set(folds.sizes) != {n} \
@@ -4456,8 +4487,8 @@ def phase_lm_step(ops, lm, tree, cfg, card):
     wall = time.perf_counter() - t0
     got = ops.launch_counts()
     L = cfg.n_layers
-    want = {"flash": L, "flash_bwd": L, "ssm_scan": 0, "rmsnorm": 2 * L + 1,
-            "rmsnorm_bwd": 2 * L + 1}
+    want = {"flash": L, "flash_bwd": L, "ssm_scan": 0, "ssm_scan_bwd": 0,
+            "rmsnorm": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
     loss = float(met["loss"])
     if got != want or not np.isfinite(loss) \
             or ops.flash_bwd_route_launches["tensor_cores"] != L:
@@ -4556,8 +4587,8 @@ def cut_grads(T, ops, lm, tree, cut, p_card, p_cpu, batch):
     _, g_cpu = vg(p_cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
     rel = [float((a.cpu() - b).norm()) / float(b.norm())
            for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu))]
-    want = {"flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
-            "rmsnorm_bwd": 5}
+    want = {"flash": 2, "flash_bwd": 2, "ssm_scan": 0, "ssm_scan_bwd": 0,
+            "rmsnorm": 5, "rmsnorm_bwd": 5}
     if launches != want or not max(rel) <= CUT_GRAD_RTOL:
         raise AssertionError(f"13e gradients: |g_card - g_cpu| / |g_cpu| per "
                              f"leaf {rel} (bound {CUT_GRAD_RTOL}); launches "
@@ -4666,6 +4697,422 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: recurrent LM training (hymba-1.5b and xlstm-125m)
+# ---------------------------------------------------------------------------
+
+# (B, S, H, N, P, chunk, q/v dtype, k dtype, q and k shared by the heads, dh
+# given): phase 7's forward grid (the JAX grid, S = 1 and 200, hymba's and
+# xlstm's serving shapes in bf16 and fp32, an fp32 k beside bf16 q and v,
+# ragged S and P with shared heads on both routes, N = 384 in bf16) with dh
+# given on every other case; S % chunk != 0 at hymba's widths (300 steps:
+# one plain chunk, five kernel chunks); a folded vmapped
+# block of fl_train_lm's traffic at each arch's widths (LM_FL_V clients of 4
+# x 32 tokens; the vmap rule hands q and k over contiguous); then the two
+# training shapes at (4, 1024)
+SCAN_BWD_GRID = ([case + (i % 2 == 0,) for i, case in enumerate(SCAN_GRID)]
+                 + [(1, 300, 8, 16, 400, 256, BF, BF, True, True),
+                    (LM_FL_V * 4, 32, 8, 16, 400, 256, BF, BF, False, False),
+                    (LM_FL_V * 4, 32, 4, 384, 385, 256, BF, F32, False,
+                     False),
+                    (4, 1024, 8, 16, 400, 256, BF, BF, True, False),
+                    (4, 1024, 4, 384, 385, 256, BF, F32, False, False)])
+HYMBA_TRAIN_SCAN = SCAN_BWD_GRID[-2]        # hymba's step at (4, 1024)
+XLSTM_TRAIN_SCAN = SCAN_BWD_GRID[-1]        # xlstm's, fp32 k
+# a local step's launches of each LM kernel, forward (and as many backward):
+# hymba's attention and SSD heads in every layer, two norms a layer and the
+# final one; xlstm's mLSTM in every other layer, one norm a layer and the
+# final one, no attention
+REC_STEP = {"hymba-1.5b": lambda L: {"flash": L, "ssm_scan": L,
+                                     "rmsnorm": 2 * L + 1},
+            "xlstm-125m": lambda L: {"flash": 0, "ssm_scan": L // 2,
+                                     "rmsnorm": L + 1}}
+# 14(d): full-width xlstm-125m's round (bf16 params; its 75 local steps run
+# the sLSTM's host loop, ~0.4 s a step, so one round);
+# hymba-1.5b's two rounds (round 0 on bf16 params, round 1 fp32) at
+# HYMBA_FL_LAYERS of its 32 layers, its widths whole: qwen2-0.5b's rounds
+# peaked at 20.7-25.9 GB for 494 M params (~47 B a param), so hymba's
+# 1,640,555,968 would need ~77 GB of the card's 80; 8 layers hold
+# 486,942,592 (jax.eval_shape leaf total)
+XLSTM_FL_ROUNDS = 1
+HYMBA_FL_ROUNDS = 2
+HYMBA_FL_LAYERS = 8
+HYMBA_FL_PARAMS = 486942592
+# 14(c): xlstm's profiled step and the peak-memory comparison with the
+# plain sLSTM loop run at 2 layers (one mLSTM, one sLSTM) and full width,
+# before the full step, which they warm: a first step of these shapes pays
+# one-off costs (~80 s where the next took ~7 s)
+XLSTM_PROFILE_LAYERS = 2
+# 14(e): the 2-layer fp32 cuts' batch: 160 tokens, three kernel chunks (the
+# last ragged) against one plain chunk
+REC_CUT_BATCH, REC_CUT_SEQ = 2, 160
+
+
+def scan_bwd_inputs(case, gen):
+    """scan_inputs, with dy in v's dtype and dh (fp32) or None."""
+    q, k, v, la, chunk = scan_inputs(case[:9], gen)
+    B, S, H, N, P = case[:5]
+    dy = torch.randn(B, S, H, P, device="cuda", generator=gen).to(v.dtype)
+    dh = (torch.randn(B, H, N, P, device="cuda", generator=gen) if case[9]
+          else None)
+    return q, k, v, la, chunk, dy, dh
+
+
+def scan_bwd_bound_ms(case):
+    """Least time for the scan's backward as a function of (q, k, v, log_a,
+    dy, dh): q and k read once (once for all heads where the heads share
+    them), v, dy and log_a read, dh read where given; dq and dk written
+    once (a shared q's gradient is one head's worth, the sum over the
+    heads), dv and dlog_a written; over the memory rate, vs the
+    recurrence's operations -- 5 multiply-adds a state element a step
+    (recompute h, the adjoint G, dq = h·dy, dk = G·v, dv = Gᵀ·k; dlog_a
+    takes O(N + P) a step as a reverse sum of q·dq − k·dk),
+    10·N·P·S·B·H -- over the bf16 tensor-core rate when q, k and v are all
+    bf16, else the fp32 rate; the larger bounds it.  Returns (bound, what
+    sets it, bytes, operations)."""
+    B, S, H, N, P, _, dt, kdt, shared, with_dh = case
+    isz, ksz = (2 if dt == BF else 4), (2 if kdt == BF else 4)
+    Hq = 1 if shared else H
+    nbytes = (2 * B * S * Hq * N * (isz + ksz) + 3 * B * S * H * P * isz
+              + 2 * B * S * H * 4 + (B * H * N * P * 4 if with_dh else 0))
+    flops = 10 * N * P * S * B * H
+    rate = BF16_FLOP_PER_S if dt == BF and kdt == BF else FP32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", nbytes, flops)
+
+
+def phase_scan_bwd_grid(ops, bwd_plain):
+    """14(a): the backward kernel against ``ssm_scan_bwd_plain`` over
+    SCAN_BWD_GRID within scan_tol, elementwise, each case called twice for
+    the same bits.  The plain version runs on the inputs cast to fp64 (fp64
+    inside), so the bounds hold the kernel's own error: in fp32 the plain
+    version's sums err as much as the kernel's (dlog_a: one 300-step chunk
+    of q·dq − k·dk plus a 153,600-term state product, ~5e-4 off where the
+    sum nearly cancels).  Returns the largest |kernel - plain| by output
+    dtype and of dlog_a."""
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    max_err = {"float32": 0.0, "bfloat16": 0.0, "dlog_a": 0.0}
+    for case in SCAN_BWD_GRID:
+        q, k, v, la, chunk, dy, dh = scan_bwd_inputs(case, gen)
+        got = ops._ssm_bwd(dy, dh, q, k, v, la, chunk)
+        again = ops._ssm_bwd(dy, dh, q, k, v, la, chunk)
+        want = bwd_plain(*(None if t is None else t.double()
+                           for t in (dy, dh, q, k, v, la)), chunk)
+        torch.cuda.synchronize()
+        for name, g, a, w, d in zip(("dq", "dk", "dv", "dlog_a"), got,
+                                    again, want,
+                                    (q.dtype, k.dtype, v.dtype, F32)):
+            atol, rtol = scan_tol(d)
+            diff = (g.double() - w).abs()
+            bad = diff > atol + rtol * w.abs()
+            if g.dtype != d or g.shape != w.shape \
+                    or not torch.equal(g, a) \
+                    or not bool(torch.isfinite(g).all()) or bool(bad.any()):
+                raise AssertionError(
+                    f"ssm_scan backward {case} {name}: {int(bad.sum())} "
+                    f"elements past tolerance, max err {float(diff.max())}, "
+                    f"same bits on a second call {torch.equal(g, a)}")
+            key = "dlog_a" if name == "dlog_a" else str(g.dtype)[6:]
+            max_err[key] = max(max_err[key], float(diff.max()))
+        del q, k, v, la, dy, dh, got, again, want
+    ops.reset_ssm_scan_counts()    # comparison launches do not count
+    log(f"phase 14a: the ssm_scan backward matches ssm_scan_bwd_plain "
+        f"(fp64 inside) within scan_tol elementwise on "
+        f"{len(SCAN_BWD_GRID)} cases (phase 7's grid with dh on every other"
+        f" case, S % chunk != 0, folded vmapped blocks, hymba's and xlstm's "
+        f"training shapes), each the same bits on a second call; max |err| "
+        f"fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}, "
+        f"dlog_a {max_err['dlog_a']:.3g}")
+    return max_err
+
+
+def time_scan_bwd(ops, plain, timer, case, label):
+    """14(b): the backward at a training shape (dh None, as in training)
+    beside ``torch.autograd.grad`` of ``ssm_scan_plain`` (its forward
+    untimed) and the bound; no single PyTorch call computes it."""
+    gen = torch.Generator(device="cuda").manual_seed(72)
+    q, k, v, la, chunk, dy, _ = scan_bwd_inputs(case, gen)
+    k_ms = timer.ms(lambda: ops._ssm_bwd(dy, None, q, k, v, la, chunk))
+    host_ms = timer.host_ms(lambda: ops._ssm_bwd(dy, None, q, k, v, la,
+                                                 chunk), reps=10)
+    B, S, H, N, P = case[:5]
+    q0, k0 = q[:, :, :1] if case[8] else q, k[:, :, :1] if case[8] else k
+    leaves = [t.detach().clone().requires_grad_() for t in (q0, k0, v, la)]
+    y, _ = plain(leaves[0].expand(B, S, H, N), leaves[1].expand(B, S, H, N),
+                 leaves[2], leaves[3], chunk)
+    p_ms = timer.ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                retain_graph=True), reps=5)
+    del y, leaves
+    bound, by, nbytes, flops = scan_bwd_bound_ms(case)
+    ops.reset_ssm_scan_counts()
+    row = {"shape": {"B": B, "S": S, "H": H, "N": N, "P": P,
+                     "dtype": str(v.dtype)[6:], "k_dtype": str(k.dtype)[6:],
+                     "shared_qk": case[8]},
+           "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
+           "library_ms": None, "bound_ms": bound, "bound_by": by,
+           "bound_share": bound / k_ms, "bytes": nbytes, "flops": flops}
+    log(f"phase 14b timing: ssm_scan backward {label} {case[:5]} "
+        f"{row['shape']['dtype']} (k {row['shape']['k_dtype']}): kernel "
+        f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), autograd of "
+        f"the plain version {p_ms:.4f} ms, no library call; bound "
+        f"{bound:.4f} ms ({by}: {nbytes} B, {flops} FLOP), kernel at "
+        f"{100 * bound / k_ms:.2f}% of the bound")
+    return row
+
+
+def rec_want(name, L, steps):
+    """The launches of ``steps`` local steps of an arch of L layers."""
+    per = REC_STEP[name](L)
+    want = {}
+    for key, n in per.items():
+        want[key] = n * steps
+        want[f"{key}_bwd"] = n * steps
+    return want
+
+
+def rec_step_run(ops, lm, cfg, params, batch, warm):
+    """One make_train_step (after a warm-up step when ``warm``), counts set
+    to 0 just before and held to REC_STEP just after: (wall, launches,
+    loss, peak)."""
+    step = lm.make_train_step(cfg, lr=0.05)
+    if warm:
+        params, _ = step(params, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    t0 = time.perf_counter()
+    params, met = step(params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    want = rec_want(cfg.name, cfg.n_layers, 1)
+    loss = float(met["loss"])
+    if got != want or not np.isfinite(loss):
+        raise AssertionError(f"14c {cfg.name} ({cfg.n_layers} layers): "
+                             f"launches {got}, expected {want}; loss {loss}")
+    return params, wall, got, loss, torch.cuda.max_memory_allocated()
+
+
+def log_profile(label, prof):
+    if prof is None:
+        log(f"{label}: the trace holds no device time (not measured)")
+        return
+    log(f"{label}: wall {prof['wall_s'] * 1e3:.2f} ms, device busy "
+        f"{prof['device_busy_s'] * 1e3:.2f} ms, idle share "
+        f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} kernel "
+        f"launches")
+    for k in prof["top_kernels"]:
+        log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
+            f"{k['name']}")
+
+
+def phase_rec_step(ops, lm, ssm, cfg, card):
+    """14(c): one make_train_step at (4, 1024), full width, bf16, the
+    pallas route: wall, train tokens/s, peak memory and launches (counts
+    set to 0 just before, held to REC_STEP).  hymba: after a warm-up step,
+    then one more step on the profiler.  xlstm (its step is the sLSTM's
+    host loop, three passes of 1,024 steps a layer): first, at
+    XLSTM_PROFILE_LAYERS layers, the peak memory of a step beside one
+    whose sLSTM runs ``slstm_apply_plain`` (every step's gates kept for
+    autograd) and a step on the profiler; then the full step once."""
+    batch = lm_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 3)
+    out = {"arch": cfg.name}
+    hymba = cfg.xlstm is None
+    if not hymba:
+        cut = dataclasses.replace(cfg, n_layers=XLSTM_PROFILE_LAYERS)
+        params = lm.init_params(
+            torch.Generator(device="cuda").manual_seed(1), cut)
+        peaks = {}
+        chunked = ssm.slstm_apply
+        for name, fn in (("chunked", chunked),
+                         ("plain", ssm.slstm_apply_plain)):
+            ssm.slstm_apply = fn
+            try:
+                *_, peaks[name] = rec_step_run(ops, lm, cut, params, batch,
+                                               warm=False)
+            finally:
+                ssm.slstm_apply = chunked
+        step = lm.make_train_step(cut, lr=0.05)
+        out["profile"] = profile_call(lambda: step(params, batch))
+        reset_counts(ops)           # the cut's steps are not the main path's
+        out["cut_layers"] = XLSTM_PROFILE_LAYERS
+        out["cut_max_memory_allocated"] = peaks
+        log(f"phase 14c [{card}]: xlstm-125m at {XLSTM_PROFILE_LAYERS} "
+            f"layers, full width, ({TRAIN_BATCH}, {TRAIN_SEQ}): "
+            f"max_memory_allocated {peaks['chunked']} B with the sLSTM in "
+            f"{TRAIN_SEQ // ssm._slstm_chunk(cfg, TRAIN_SEQ)} recompute "
+            f"chunks, {peaks['plain']} B with slstm_apply_plain")
+        log_profile(f"phase 14c xlstm profile ({XLSTM_PROFILE_LAYERS} "
+                    f"layers, one more step)", out["profile"])
+        del params, step
+        torch.cuda.empty_cache()
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg)
+    params, wall, got, loss, peak = rec_step_run(ops, lm, cfg, params, batch,
+                                                 warm=hymba)
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    out.update(wall_s=wall, tokens_per_s=tok / wall, loss=loss,
+               launches=got, max_memory_allocated=peak)
+    log(f"phase 14c [{card}]: {cfg.name} make_train_step at ({TRAIN_BATCH}, "
+        f"{TRAIN_SEQ}) full width bf16 pallas"
+        f"{'' if hymba else ' (warmed by the 2-layer steps)'}: "
+        f"{wall * 1e3:.2f} ms, {tok / wall:.0f} train tokens/s, loss "
+        f"{loss:.4f}, launches {got}, max_memory_allocated {peak} B")
+    if hymba:
+        step = lm.make_train_step(cfg, lr=0.05)
+        out["profile"] = profile_call(lambda: step(params, batch))
+        reset_counts(ops)          # the profiled step's launches do not count
+        log_profile("phase 14c hymba profile (one more step)", out["profile"])
+        del step
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rec_fl(T, ops, lm, tree, fl, cfg, card, rounds, n_params):
+    """14(d): FedAvg rounds of ``cfg`` (bf16, pallas) in ``fl_train_lm``'s
+    traffic under the default timer, counts set to 0 just before each round
+    and read just after, held exactly to REC_STEP times the local steps,
+    one leaves-form fold a group; the eval loss before and after; peak
+    memory.  Not profiled: a round is ~1e5-1e6 eager launches, and 14(c)'s
+    profiled steps give each arch's idle share."""
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            cfg)
+    n = sum(a.numel() for a in tree.leaves(params))
+    if n != n_params:
+        raise AssertionError(f"{cfg.name}: {n} params, expected {n_params}")
+    batch = fl.eval_batch(cfg)
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rec_") as sd:
+        srv = fl.build(cfg, params, torch.device("cuda", 0), sd)
+        del params
+        loss = fl.eval_loss(srv.params, batch, cfg)
+        torch.cuda.reset_peak_memory_stats()
+        for r in range(rounds):
+            dtype = srv.params["embed"]["w"].dtype
+            with StepCalls(T) as steps, FoldGroups(T) as folds:
+                reset_counts(ops)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                m = srv.run_round()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t1
+                got = lm_round_launches(ops)
+            s = sum(steps.calls)
+            want = rec_want(cfg.name, cfg.n_layers, s)
+            want.update(topk=0, fold=len(folds.sizes),
+                        fold_leaves=len(folds.sizes))
+            if got != want or set(folds.sizes) != {n}:
+                raise AssertionError(
+                    f"14d {cfg.name} round {r}: launches {got}, expected "
+                    f"{want} for {s} local steps in {len(steps.calls)} "
+                    f"client-step calls; fold sizes {folds.sizes}")
+            before, loss = loss, fl.eval_loss(srv.params, batch, cfg)
+            if not np.isfinite(loss):
+                raise AssertionError(f"14d {cfg.name} round {r}: eval loss "
+                                     f"{loss}")
+            rows.append({"round": r, "wall_s": wall,
+                         "params_dtype": str(dtype).replace("torch.", ""),
+                         "makespan_s": m.makespan, "clients": m.n_clients,
+                         "client_step_calls": len(steps.calls),
+                         "local_steps": s, "launches": got,
+                         "eval_loss_before": before,
+                         "eval_loss_after": loss})
+            log(f"phase 14d {cfg.name} round {r} [{card}]: "
+                f"{rows[-1]['params_dtype']} params, wall {wall:.3f} s, "
+                f"{m.n_clients} clients in {len(steps.calls)} client-step "
+                f"calls ({s} local steps, padded included); launches {got}; "
+                f"eval loss {before:.4f} -> {loss:.4f}")
+        peak = torch.cuda.max_memory_allocated()
+        del srv
+    reset_counts(ops)
+    torch.cuda.empty_cache()
+    log(f"phase 14d {cfg.name}: {n} params ({cfg.n_layers} layers), "
+        f"max_memory_allocated over the rounds {peak} B")
+    return {"arch": cfg.name, "n_layers": cfg.n_layers, "n_params": n,
+            "rows": rows, "max_memory_allocated": peak}
+
+
+def phase_rec_cut(T, ops, lm, tree, cfg, card):
+    """14(e): the arch cut to 2 layers, fp32, the pallas route: the
+    gradients of ``loss_and_aux`` on the card (kernels) against the CPU
+    (plain), leaf by leaf within CUT_GRAD_RTOL (relative 2-norms), at
+    REC_CUT_SEQ tokens; the card's launches exactly."""
+    cut = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    p_cpu = lm.init_params(torch.Generator().manual_seed(0), cut)
+    p_card = tree.map(lambda t: t.to("cuda"), p_cpu)
+    batch = lm_batch(cut, REC_CUT_BATCH, REC_CUT_SEQ, 5)
+    vg = T.value_and_grad(lambda p, b: lm.loss_and_aux(p, b, cut))
+    reset_counts(ops)
+    l_card, g_card = vg(p_card, {k: torch.as_tensor(v, device="cuda")
+                                 for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    l_cpu, g_cpu = vg(p_cpu, {k: torch.as_tensor(v) for k, v in batch.items()})
+    rel = [float((a.cpu() - b).norm()) / float(b.norm())
+           for a, b in zip(tree.leaves(g_card), tree.leaves(g_cpu))]
+    loss_err = abs(float(l_card) - float(l_cpu))
+    want = rec_want(cfg.name, 2, 1)
+    reset_counts(ops)
+    if launches != want or not max(rel) <= CUT_GRAD_RTOL or loss_err > 1e-5:
+        raise AssertionError(f"14e {cfg.name}: |g_card - g_cpu| / |g_cpu| "
+                             f"per leaf {rel} (bound {CUT_GRAD_RTOL}), loss "
+                             f"|diff| {loss_err}; launches {launches}, "
+                             f"expected {want}")
+    log(f"phase 14e [{card}]: {cfg.name} widths cut to 2 layers, fp32, "
+        f"({REC_CUT_BATCH}, {REC_CUT_SEQ}) tokens, card (kernels: "
+        f"{launches}) vs CPU (plain): loss |diff| {loss_err:.3g}, gradients "
+        f"of {len(rel)} leaves |g_card - g_cpu| / |g_cpu| up to "
+        f"{max(rel):.3g} <= {CUT_GRAD_RTOL}")
+    return {"arch": cfg.name, "grad_rel_err": rel, "loss_err": loss_err,
+            "launches": launches}
+
+
+def phase_rec_train(T, ops, lm, ssm, tree, fl, get_arch, card):
+    """Phase 14: recurrent LM training on the card -- (a) the scan's
+    backward kernel against its plain version, (b) timed at both training
+    shapes, (c) one full-width train step of each arch at (4, 1024), (d)
+    FedAvg rounds in fl_train_lm's traffic (full-width xlstm; hymba at
+    HYMBA_FL_LAYERS layers), (e) 2-layer fp32 cuts card vs CPU."""
+    from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_plain,
+                                              ssm_scan_plain)
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = round(time.perf_counter() - t, 1)
+
+    part("grid_err", phase_scan_bwd_grid, ops, ssm_scan_bwd_plain)
+    timer = Timer()
+    part("hymba_timing", time_scan_bwd, ops, ssm_scan_plain, timer,
+         HYMBA_TRAIN_SCAN, "hymba")
+    part("xlstm_timing", time_scan_bwd, ops, ssm_scan_plain, timer,
+         XLSTM_TRAIN_SCAN, "xlstm")
+    del timer
+    hymba = dataclasses.replace(get_arch("hymba-1.5b"),
+                                attention_impl="pallas")
+    xlstm = dataclasses.replace(get_arch("xlstm-125m"),
+                                attention_impl="pallas")
+    part("hymba_step", phase_rec_step, ops, lm, ssm, hymba, card)
+    part("xlstm_step", phase_rec_step, ops, lm, ssm, xlstm, card)
+    part("xlstm_fl", phase_rec_fl, T, ops, lm, tree, fl, xlstm, card,
+         XLSTM_FL_ROUNDS, XLSTM_PARAMS)
+    part("hymba_fl", phase_rec_fl, T, ops, lm, tree, fl,
+         dataclasses.replace(hymba, n_layers=HYMBA_FL_LAYERS), card,
+         HYMBA_FL_ROUNDS, HYMBA_FL_PARAMS)
+    part("hymba_cut", phase_rec_cut, T, ops, lm, tree, hymba, card)
+    part("xlstm_cut", phase_rec_cut, T, ops, lm, tree, xlstm, card)
+    out["part_seconds"] = secs
+    log(f"phase 14 parts: {secs} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_seconds(n, t0):
     """Log phase ``n``'s seconds since ``t0``; return the time now."""
     t = time.perf_counter()
@@ -4696,16 +5143,14 @@ def main() -> int:
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
     from repro_torch.launch import fl_train_lm
     from repro_torch.launch.serve import generate, make_prompt
-    from repro_torch.models import lm
+    from repro_torch.models import lm, ssm
 
     t_start = time.perf_counter()
     t_ph = time.perf_counter()
     card = phase_card()
     t_ph = phase_seconds(1, t_ph)
     t0 = time.perf_counter()
-    paths = _build.build(["agg_weighted_sum", "topk_compress",
-                          "flash_attention", "flash_attention_bwd",
-                          "ssm_scan", "rmsnorm"])
+    paths = _build.build(_build.KERNELS)
     log(f"phase 2: built {sorted(paths)} in {time.perf_counter() - t0:.1f} s")
     for name, path in paths.items():
         log(f"--- nvcc -Xptxas -v for {name} ---")
@@ -4757,6 +5202,9 @@ def main() -> int:
     lmt = phase_lm_train(T, ops, lm, tree, fl_train_lm, get_arch,
                          make_lm_clients, card)
     lm_rounds = lmt["fl"]["rows"]
+    rec = phase_rec_train(T, ops, lm, ssm, tree, fl_train_lm, get_arch, card)
+    rec_steps = (rec["hymba_step"]["launches"], rec["xlstm_step"]["launches"])
+    rec_rounds = rec["xlstm_fl"]["rows"] + rec["hymba_fl"]["rows"]
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -4940,6 +5388,40 @@ def main() -> int:
         "xlstm_launches": x_launch["prefill"][1] + x_launch["decode"][1],
         "serving_hymba": h_serve,
         "serving_xlstm": x_serve,
+        "train_step_launches": [c["ssm_scan"] for c in rec_steps],
+        "lm_training_launches": [r["launches"]["ssm_scan"]
+                                 for r in rec_rounds],
+    }, {
+        "name": "ssm_scan_bwd",
+        "route": "cuda",
+        "compute_units": "CUDA cores (fp32), every dtype",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan.py:22",
+        "replaces_note": "no TPU kernel: the Pallas scan kernel has no VJP "
+                         "(the JAX package trains through its jnp chunked "
+                         "scan); this is the backward of that kernel's "
+                         "port, which the port's recurrent training runs",
+        "launches": sum(r["launches"]["ssm_scan_bwd"] for r in rec_rounds),
+        "launches_per_round": [r["launches"]["ssm_scan_bwd"]
+                               for r in rec_rounds],
+        "train_step_launches": [c["ssm_scan_bwd"] for c in rec_steps],
+        "max_abs_err": max(rec["grid_err"].values()),
+        "max_abs_err_by_output": rec["grid_err"],
+        "ms": rec["hymba_timing"]["ms"],
+        "time_ms": rec["hymba_timing"]["ms"],
+        "host_ms": rec["hymba_timing"]["host_ms"],
+        "plain_ms": rec["hymba_timing"]["plain_ms"],
+        "bound_ms": rec["hymba_timing"]["bound_ms"],
+        "bound_by": rec["hymba_timing"]["bound_by"],
+        "library_ms": None,
+        "library_call": "none: no single PyTorch call computes the scan's "
+                        "backward",
+        "shape": rec["hymba_timing"]["shape"],
+        "timing": rec["hymba_timing"],
+        "xlstm_timing": rec["xlstm_timing"],
+        "recurrent_training": {k: v for k, v in rec.items()
+                               if k not in ("hymba_timing",
+                                            "xlstm_timing")},
     }, {
         "name": "rmsnorm",
         "route": "cuda",

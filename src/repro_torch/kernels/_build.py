@@ -29,6 +29,10 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+# every kernel source of the port, in csrc/<name>.cu
+KERNELS = ("agg_weighted_sum", "topk_compress", "flash_attention",
+           "flash_attention_bwd", "ssm_scan", "ssm_scan_bwd", "rmsnorm")
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 
 

@@ -29,21 +29,22 @@ dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32);
 head dim picked (``flash_attention.bwd_route``: bf16 on the tensor cores but
 at hd 192, fp32 on the CUDA cores).
 
-Gradients.  ``flash_attention`` and ``rmsnorm`` are differentiable through
-``torch.autograd.Function``s whose backward is a hand-written kernel on a
-CUDA tensor (its plain version on a CPU tensor), counted by
-:data:`flash_bwd_dispatches` / :data:`flash_bwd_launches` and
-:data:`rmsnorm_bwd_dispatches` / :data:`rmsnorm_bwd_launches` (one launch a
-call, whatever its kernels; reset with the forward's counters).  Each
+Gradients.  ``flash_attention``, ``rmsnorm`` and ``ssm_scan`` are
+differentiable through ``torch.autograd.Function``s whose backward is a
+hand-written kernel on a CUDA tensor (its plain version on a CPU tensor),
+counted by :data:`flash_bwd_dispatches` / :data:`flash_bwd_launches`,
+:data:`rmsnorm_bwd_dispatches` / :data:`rmsnorm_bwd_launches` and
+:data:`ssm_scan_bwd_dispatches` / :data:`ssm_scan_bwd_launches` (one launch
+a call, whatever its kernels; reset with the forward's counters).  Each
 Function has a ``vmap`` rule that folds the vmapped axis into the rows (the
-batch for flash, the rows and a g table for the norm), so ``torch.func.vmap``
-of ``torch.func.grad`` — the client engine — launches each kernel once for a
-block of clients.  A call takes the Function when an input requires grad or
-is a ``torch.func`` transform's tensor; a plain call (serving, under
-``no_grad``) launches the forward alone, and flash then writes no
-log-sum-exp.  ``ssm_scan`` has no backward kernel yet: on a CUDA tensor a
-gradient through it raises ``NotImplementedError`` (ROADMAP.md modules item
-17e); on a CPU tensor the plain version is ordinary PyTorch.
+batch for flash and the scan, the rows and a g table for the norm), so
+``torch.func.vmap`` of ``torch.func.grad`` — the client engine — launches
+each kernel once for a block of clients.  A call takes the Function when an
+input requires grad or is a ``torch.func`` transform's tensor; a plain call
+(serving, under ``no_grad``) launches the forward alone, and flash then
+writes no log-sum-exp.  The scan's Function saves its inputs alone: its
+backward kernel, like the plain backward on the CPU, recomputes every
+64-step chunk's starting state (in fp32).
 
 The fold and top-k counters are updated under a lock: executors that run
 in threads (``ParrotServer(parallel_dispatch=True)``) fold concurrently.
@@ -82,6 +83,8 @@ flash_bwd_launches = 0
 flash_bwd_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 ssm_scan_dispatches = 0
 ssm_scan_launches = 0
+ssm_scan_bwd_dispatches = 0
+ssm_scan_bwd_launches = 0
 rmsnorm_dispatches = 0
 rmsnorm_launches = 0
 rmsnorm_bwd_dispatches = 0
@@ -509,8 +512,11 @@ class _FlashBwdFn(torch.autograd.Function):
 
 def reset_ssm_scan_counts() -> None:
     global ssm_scan_dispatches, ssm_scan_launches
+    global ssm_scan_bwd_dispatches, ssm_scan_bwd_launches
     ssm_scan_dispatches = 0
     ssm_scan_launches = 0
+    ssm_scan_bwd_dispatches = 0
+    ssm_scan_bwd_launches = 0
 
 
 def _check_ssm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -545,30 +551,32 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     -> ``(y (B, S, H, P) in v's dtype, h_final (B, H, N, P) fp32)``, from
     h0 = 0 (the prefill; a carried state takes ``ssm_scan_plain``).
 
-    ``chunk`` is the model's chunk, which sets the plain version's
+    ``chunk`` is the model's chunk, which sets the plain versions'
     summation order; the kernels chunk by their own length (``CHUNK``).  A
     CPU tensor takes the plain version; a CUDA tensor launches the three
     kernels of the chunk-parallel scan (one launch on the counter), reading
     q, k, v and log_a through their strides (a stride of 0 along H
-    included), or raises on what it does not take."""
+    included), or raises on what it does not take.  A traced call (an
+    input requires grad, or is a ``torch.func`` tensor) goes through
+    :class:`_SsmScanFn` on either device."""
     global ssm_scan_dispatches
     ssm_scan_dispatches += 1
     if any(t.device != q.device for t in (k, v, log_a)):
         raise ValueError(f"q, k, v and log_a must lie on one device, got "
                          f"{q.device}, {k.device}, {v.device}, "
                          f"{log_a.device}")
-    if q.device.type == "cpu":
-        return _ssm.ssm_scan_plain(q, k, v, log_a, chunk)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no scan kernel for device {q.device}")
     if _traced(q, k, v, log_a):
-        return _SsmScanFn.apply(q, k, v, log_a)
-    return _ssm_fwd(q, k, v, log_a)
+        return _SsmScanFn.apply(q, k, v, log_a, int(chunk))
+    return _ssm_fwd(q, k, v, log_a, int(chunk))
 
 
-def _ssm_fwd(q, k, v, log_a):
-    """The kernel launch on plain CUDA tensors -> (y, h_final)."""
+def _ssm_fwd(q, k, v, log_a, chunk: int):
+    """The forward on plain tensors -> (y, h_final)."""
     global ssm_scan_launches
+    if q.device.type == "cpu":
+        return _ssm.ssm_scan_plain(q, k, v, log_a, chunk)
     _check_ssm(q, k, v, log_a)
     B, S, H, N = q.shape
     y = torch.empty(v.shape, dtype=v.dtype, device=q.device)
@@ -581,30 +589,93 @@ def _ssm_fwd(q, k, v, log_a):
     return y, h
 
 
+def _ssm_bwd(dy, dh, q, k, v, log_a, chunk: int):
+    """The backward on plain tensors -> (dq, dk, dv in the inputs' dtypes,
+    dlog_a fp32); ``dh`` None when h_final is unused.  On the card the
+    kernels recompute the chunks' starting states from q, k, v and
+    log_a."""
+    global ssm_scan_bwd_dispatches, ssm_scan_bwd_launches
+    ssm_scan_bwd_dispatches += 1
+    if dy is None:
+        dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
+    if q.device.type == "cpu":
+        return _ssm.ssm_scan_bwd_plain(dy, dh, q, k, v, log_a, chunk)
+    _check_ssm(q, k, v, log_a)
+    B, S, H, N = q.shape
+    P = v.shape[3]
+    if dy.shape != v.shape or (dh is not None and dh.shape != (B, H, N, P)):
+        raise ValueError(f"the scan's backward takes dy {tuple(v.shape)} and "
+                         f"dh {(B, H, N, P)} or None")
+    dy = dy.to(v.dtype)
+    if dy.stride(3) != 1:
+        dy = dy.contiguous()
+    if dh is not None:
+        dh = dh.to(torch.float32).contiguous()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    dla = torch.empty(log_a.shape, dtype=torch.float32, device=q.device)
+    bws = torch.empty(_ssm.bwd_workspace_numel(B, H, S, N, P),
+                      dtype=torch.float32, device=q.device)
+    _ssm.ssm_scan_bwd_cuda(dy, dh, q, k, v, log_a, dq, dk, dv, dla, bws)
+    ssm_scan_bwd_launches += 1
+    return dq, dk, dv, dla
+
+
 class _SsmScanFn(torch.autograd.Function):
-    """The scan kernel under autograd on the card: the forward runs; a
-    gradient through it raises (no backward kernel yet)."""
+    """``(y, h_final) = scan(q, k, v, log_a)`` from h0 = 0; the gradients
+    of y and h_final through the backward kernel, which needs the inputs
+    alone."""
 
     @staticmethod
-    def forward(q, k, v, log_a):
-        return _ssm_fwd(q, k, v, log_a)
+    def forward(q, k, v, log_a, chunk):
+        return _ssm_fwd(q, k, v, log_a, chunk)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, log_a, chunk = inputs
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(q, k, v, log_a)
+        ctx.chunk = chunk
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        dq, dk, dv, dla = _SsmScanBwdFn.apply(dy, dh, *ctx.saved_tensors,
+                                              ctx.chunk)
+        return dq, dk, dv, dla, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, log_a, chunk):
+        V = info.batch_size
+        args = [_fold(t, d, V) for t, d in zip((q, k, v, log_a), in_dims)]
+        out = _SsmScanFn.apply(*args, chunk)
+        return tuple(_unfold(t, V) for t in out), (0, 0)
+
+
+class _SsmScanBwdFn(torch.autograd.Function):
+    """``(dq, dk, dv, dlog_a)`` of :class:`_SsmScanFn`; not differentiable
+    again."""
+
+    @staticmethod
+    def forward(dy, dh, q, k, v, log_a, chunk):
+        return _ssm_bwd(dy, dh, q, k, v, log_a, chunk)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         pass
 
     @staticmethod
-    def backward(ctx, dy, dh):
-        raise NotImplementedError(
-            "no gradient through ops.ssm_scan on a CUDA tensor: its backward "
-            "kernel is ROADMAP.md modules item 17e (recurrent training)")
+    def backward(ctx, *grads):
+        raise RuntimeError("the scan's backward has no gradient")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, log_a):
+    def vmap(info, in_dims, dy, dh, q, k, v, log_a, chunk):
+        # the vmapped axis folded into the batch
         V = info.batch_size
-        args = [_fold(t, d, V) for t, d in zip((q, k, v, log_a), in_dims)]
-        y, h = _SsmScanFn.apply(*args)
-        return (_unfold(y, V), _unfold(h, V)), (0, 0)
+        args = [None if t is None else _fold(t, d, V)
+                for t, d in zip((dy, dh, q, k, v, log_a), in_dims)]
+        out = _SsmScanBwdFn.apply(*args, chunk)
+        return tuple(_unfold(t, V) for t in out), (0, 0, 0, 0)
 
 
 def reset_rmsnorm_counts() -> None:
@@ -767,5 +838,6 @@ def launch_counts() -> dict:
     """The launch counters of the LM kernels, by kernel name (forward and
     backward)."""
     return {"flash": flash_launches, "flash_bwd": flash_bwd_launches,
-            "ssm_scan": ssm_scan_launches, "rmsnorm": rmsnorm_launches,
-            "rmsnorm_bwd": rmsnorm_bwd_launches}
+            "ssm_scan": ssm_scan_launches,
+            "ssm_scan_bwd": ssm_scan_bwd_launches,
+            "rmsnorm": rmsnorm_launches, "rmsnorm_bwd": rmsnorm_bwd_launches}

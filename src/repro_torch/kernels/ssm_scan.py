@@ -19,8 +19,16 @@ q, k (B, S, H, N), v (B, S, H, P), log_a (B, S, H):
   ssm_scan_ref``, on its (BH, S, ·) layout, for the tests.
 * :func:`ssm_scan_cuda` — the launch of the CUDA kernels (h0 = 0, as the TPU
   kernel), which read q, k, v and log_a in place through their strides.
+* :func:`ssm_scan_bwd_plain` — the scan's backward written out in the
+  chunked form (the plain version of the backward kernel): the CPU route
+  under autograd, and what ``chip_smoke.py`` holds the kernel to.
+* :func:`ssm_scan_bwd_cuda` — the launch of ``csrc/ssm_scan_bwd.cu``,
+  hand-written CUDA C++ for Hopper (no TPU kernel: the Pallas kernel has no
+  VJP; JAX trains through its jnp chunked form), which recomputes the
+  chunks' starting states in fp32 and writes no atomics.
 
-The public wrapper (and the launch counter) is ``ops.ssm_scan``.
+The public wrapper (and the launch counters) is ``ops.ssm_scan``; its
+gradient goes through ``ops._SsmScanFn``.
 """
 from __future__ import annotations
 
@@ -43,6 +51,18 @@ def workspace_numel(B: int, H: int, S: int, N: int, P: int) -> int:
     elements (16 bytes), then the B·H·chunks chunk totals.  The launcher
     refuses a smaller buffer."""
     return B * H * (-(-S // CHUNK)) * (N * (-(-P // 4) * 4) + 1)
+
+
+def bwd_workspace_numel(B: int, H: int, S: int, N: int, P: int) -> int:
+    """fp32 elements of the backward kernels' workspace
+    (``csrc/ssm_scan_bwd.cu``): a state gradient and a starting state (N, P)
+    for each (b, h, chunk of CHUNK steps), the chunk totals, then each
+    chunk's parts of its boundary product (one for every 256 state
+    elements), then each chunk's parts of q·dq − k·dk (CHUNK steps for
+    every 64-wide N-tile)."""
+    nc = -(-S // CHUNK)
+    return B * H * nc * (2 * N * P + 1 + -(-N * P // 256)
+                         + -(-N // 64) * CHUNK)
 
 
 def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,6 +110,89 @@ def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return y.to(v.dtype), h
 
 
+def ssm_scan_bwd_plain(dy: torch.Tensor, dh: Optional[torch.Tensor],
+                       q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       log_a: torch.Tensor, chunk: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """The chunked backward of :func:`ssm_scan_plain` from h0 = 0, written
+    out: dy (B,S,H,P) and dh (B,H,N,P) (None: h_final unused) -> (dq, dk,
+    dv in the inputs' dtypes, dlog_a (B,S,H) fp32).
+
+    fp32 inside (fp64 inside, and dlog_a fp64, when q is fp64: an exact
+    reference for the kernel, whose error alone ``chip_smoke.py`` 14(a)
+    holds to its bounds), chunked as the forward (one chunk of the whole sequence
+    when ``S % chunk != 0``).  With cum the in-chunk inclusive prefix of
+    log_a, T_c its total, h_in(c) chunk c's starting state and G(c) the
+    gradient of h_in(c) (G(nc) = dh):
+
+    * G(c) = exp(T_c)·G(c+1) + Σ_t exp(cum_t)·q_t dy_tᵀ, last chunk first;
+    * dq_t = Σ_{s≤t} (dy_t·v_s)·e^{cum_t−cum_s}·k_s + e^{cum_t}·h_in(c) dy_t;
+      dk_s and dv_s are the transposed intra terms plus e^{T_c−cum_s}·G(c+1)
+      with v_s, or with k_s;
+    * dlog_a_t = Σ_{t'≥t in c} (q·dq − k·dk)_{t'} + ⟨G(c+1), h_in(c+1)⟩
+      (h_in(nc) = h_final): the reverse prefix of the whole sequence, cut at
+      the chunk's end, where the rest of it is that state product; 0 at
+      t = 0, a_0·⟨G_0, h0⟩ with h0 = 0, where the prefix would leave the
+      rounding of its cancelling terms."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    L = min(chunk, S)
+    if S % L:
+        L = S
+    nc = S // L
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(acc).reshape(B, nc, L, H, N)
+    kf = k.to(acc).reshape(B, nc, L, H, N)
+    vf = v.to(acc).reshape(B, nc, L, H, P)
+    dyf = dy.to(acc).reshape(B, nc, L, H, P)
+    cum = torch.cumsum(log_a.to(acc).reshape(B, nc, L, H), dim=2)
+    total = cum[:, :, -1]                                   # (B,nc,H)
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    # the chunks' starting states, as the forward computes them
+    h = torch.zeros((B, H, N, P), dtype=acc, device=q.device)
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        kdec = kf[:, c] * torch.exp(total[:, c, None] - cum[:, c])[..., None]
+        h = torch.exp(total[:, c])[..., None, None] * h + \
+            torch.einsum("bshn,bshp->bhnp", kdec, vf[:, c])
+    h_in.append(h)
+    G = (torch.zeros((B, H, N, P), dtype=acc, device=q.device) if dh is None
+         else dh.to(acc))
+    dq, dk, dv, dla = [None] * nc, [None] * nc, [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        qc, kc, vc, dyc, cc = qf[:, c], kf[:, c], vf[:, c], dyf[:, c], cum[:, c]
+        decay = cc[:, :, None, :] - cc[:, None, :, :]            # (B,t,s,H)
+        gate = torch.where(mask[None, :, :, None], torch.exp(decay),
+                           zero).permute(0, 3, 1, 2)             # (B,H,t,s)
+        D = torch.einsum("bthp,bshp->bhts", dyc, vc) * gate
+        Sc = torch.einsum("bthn,bshn->bhts", qc, kc) * gate
+        ecum = torch.exp(cc)[..., None]                          # (B,L,H,1)
+        erev = torch.exp(total[:, c, None] - cc)[..., None]
+        dq[c] = torch.einsum("bhts,bshn->bthn", D, kc) + \
+            ecum * torch.einsum("bthp,bhnp->bthn", dyc, h_in[c])
+        dk[c] = torch.einsum("bhts,bthn->bshn", D, qc) + \
+            erev * torch.einsum("bshp,bhnp->bshn", vc, G)
+        dv[c] = torch.einsum("bhts,bthp->bshp", Sc, dyc) + \
+            erev * torch.einsum("bshn,bhnp->bshp", kc, G)
+        x = (qc * dq[c]).sum(-1) - (kc * dk[c]).sum(-1)          # (B,L,H)
+        tail = torch.einsum("bhnp,bhnp->bh", G, h_in[c + 1])
+        dla[c] = torch.flip(torch.cumsum(torch.flip(x, [1]), 1), [1]) + \
+            tail[:, None]
+        G = torch.exp(total[:, c])[..., None, None] * G + \
+            torch.einsum("bthn,bthp->bhnp", qc * ecum, dyc)
+    dla[0][:, 0] = 0.0
+
+    def whole(parts, dtype):
+        return torch.stack(parts, dim=1).reshape(
+            (B, S) + tuple(parts[0].shape[2:])).to(dtype)
+
+    return (whole(dq, q.dtype), whole(dk, k.dtype), whole(dv, v.dtype),
+            whole(dla, acc))
+
+
 def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  log_a: torch.Tensor, h0: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -107,6 +210,7 @@ def ssm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _lib = None
+_bwd_lib = None
 
 
 def _launcher():
@@ -119,6 +223,18 @@ def _launcher():
         fn.restype = ctypes.c_int
         _lib = fn
     return _lib
+
+
+def _bwd_launcher():
+    global _bwd_lib
+    if _bwd_lib is None:
+        fn = _build.load("ssm_scan_bwd").ssm_scan_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong]
+                       + [ctypes.POINTER(ctypes.c_longlong)]
+                       + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_lib = fn
+    return _bwd_lib
 
 
 def _code(dtype: torch.dtype) -> int:
@@ -146,5 +262,34 @@ def ssm_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: error {rc} (q "
+                           f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} "
+                           f"{v.dtype})")
+
+
+def ssm_scan_bwd_cuda(dy: torch.Tensor, dh: Optional[torch.Tensor],
+                      q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_a: torch.Tensor, dq: torch.Tensor,
+                      dk: torch.Tensor, dv: torch.Tensor, dla: torch.Tensor,
+                      bws: torch.Tensor) -> None:
+    """Launch the backward's five kernels on the current stream: dy (B, S,
+    H, P) in v's dtype with a unit inner stride, dh (B, H, N, P) fp32
+    contiguous or None; writes the contiguous ``dq``, ``dk``, ``dv`` (the
+    inputs' dtypes) and ``dla`` (fp32) through the fp32 workspace ``bws``
+    (``bwd_workspace_numel`` elements).  The caller has checked devices,
+    dtypes and shapes (``ops._ssm_bwd``); raises if a launch fails."""
+    B, S, H, N = q.shape
+    P = v.shape[-1]
+    strides = [t.stride(a) for t in (q, k, v, log_a, dy) for a in (0, 1, 2)]
+    arr = (ctypes.c_longlong * 15)(*strides)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), log_a.data_ptr(),
+            dy.data_ptr(), None if dh is None else dh.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dla.data_ptr(),
+            bws.data_ptr(), bws.numel(), arr, B, S, H, N, P, _code(q.dtype),
+            _code(k.dtype), _code(v.dtype), stream)
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan backward launch failed: error {rc} (q "
                            f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} "
                            f"{v.dtype})")

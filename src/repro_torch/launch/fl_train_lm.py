@@ -11,9 +11,14 @@ mean_samples=8, seed=0)`` at the config's vocabulary, 12 clients a round, 4
 ``SequentialExecutor``s sharing a ``ClientStateManager``, ``make_algorithm(
 --algorithm, value_and_grad(loss), lr=0.1, local_epochs=1)``, and the eval
 loss on a fixed batch of 8 sequences printed after each round.  It runs on
-the card unless asked for the CPU; on the card every norm, and under
-``--attention-impl pallas`` (the default here) every attention layer, runs
-forward and backward through the hand-written kernels.
+the card unless asked for the CPU; on the card every norm, every SSD and
+mLSTM scan (hymba-1.5b, xlstm-125m) and, under ``--attention-impl pallas``
+(the default here), every attention layer runs forward and backward through
+the hand-written kernels, and the sLSTM recomputes each time chunk in its
+backward:
+
+  python -m repro_torch.launch.fl_train_lm --arch xlstm-125m --full-config
+  python -m repro_torch.launch.fl_train_lm --arch hymba-1.5b --full-config
 
 Intended differences from the JAX example: the eval batch comes from
 ``numpy.random.default_rng(0)`` (JAX draws it with ``jax.random``), the

@@ -62,7 +62,8 @@ def generate(params, prompt, cfg, gen: int,
     that each part made (``prefill_<name>_launches`` and
     ``decode_<name>_launches`` for each name of ``ops.launch_counts()``:
     ``flash``, ``ssm_scan``, ``rmsnorm`` and the backward kernels
-    ``flash_bwd`` and ``rmsnorm_bwd``, which serving never launches)."""
+    ``flash_bwd``, ``ssm_scan_bwd`` and ``rmsnorm_bwd``, which serving never
+    launches)."""
     from repro_torch.kernels import ops
     from repro_torch.models import lm
 

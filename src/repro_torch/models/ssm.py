@@ -6,8 +6,10 @@ state) goes through ``kernels/ops.ssm_scan`` — the hand-written Hopper
 kernel for a CUDA tensor, its plain version for a CPU one — and a decode
 step, which carries a state, runs the plain chunked form, as attention runs
 the flash kernel in the prefill and plain PyTorch over the cache in the
-decode.  The sLSTM mixes its hidden state at every step and is a plain time
-loop, as in JAX.
+decode.  Under autograd the scan's gradient goes through its backward
+kernel (``ops.ssm_scan``'s Function).  The sLSTM mixes its hidden state at
+every step and is a time loop, as in JAX, run in time chunks whose
+backward recomputes the chunk's steps (JAX's per-chunk ``jax.checkpoint``).
 
 All mixers expose, with the JAX package's names, param trees and dtypes:
   *_init(gen, cfg) -> params
@@ -255,22 +257,145 @@ def _slstm_cell(gx_t, wh, st):
     return {"c": c, "n": n, "h": h, "m": m_new}
 
 
+def _slstm_steps(gx, wh, st):
+    """The cell over gx's steps -> (hs (B,T,d), final state)."""
+    hs = []
+    for gx_t in gx.unbind(1):
+        st = _slstm_cell(gx_t, wh, st)
+        hs.append(st["h"])
+    return torch.stack(hs, dim=1), st
+
+
+def _tie_split(x, y):
+    """d max(x, y) / dx as JAX takes it: 1 where x > y, 0 where x < y and
+    0.5 at a tie (``torch.clamp_min`` would pass the whole gradient)."""
+    return torch.where(x > y, 1.0, torch.where(x == y, 0.5, 0.0))
+
+
+class _SlstmChunkFn(torch.autograd.Function):
+    """One time chunk of the sLSTM: ``(hs, c, n, h, m) = steps(gx, wh, c0,
+    n0, h0, m0)``, gx (B,T,4d) and wh (d,4d) fp32, the state (B,d) fp32.
+
+    JAX's per-chunk ``jax.checkpoint`` (``repro/models/ssm.py``
+    ``slstm_apply``): the forward saves the chunk's inputs and starting
+    state only, and the backward recomputes the chunk's steps and
+    back-propagates through them in closed form.  The BPTT is written out
+    because ``torch.utils.checkpoint`` and a nested ``torch.autograd.grad``
+    do not compose with ``torch.func.grad``.  ``wh`` differs per client
+    under the client engine's vmap, so the vmap rule is generated (the
+    backward's products batch over the clients)."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(gx, wh, c, n, h, m):
+        hs, st = _slstm_steps(gx, wh, {"c": c, "n": n, "h": h, "m": m})
+        return hs, st["c"], st["n"], st["h"], st["m"]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        # torch.func.grad differentiates with create_graph=True, which
+        # would record (and keep until the whole backward ends) every
+        # intermediate of this chunk's BPTT; the gradient is not
+        # differentiable again
+        with torch.no_grad():
+            return _slstm_chunk_bwd(ctx.saved_tensors, dhs, dc, dn, dh, dm)
+
+
+def _slstm_chunk_bwd(saved, dhs, dc, dn, dh, dm):
+    """:class:`_SlstmChunkFn`'s backward: recompute the chunk, then its
+    BPTT in closed form -> (dgx, dwh, dc0, dn0, dh0, dm0)."""
+    gx, wh, c, n, h, m = saved
+    T = gx.shape[1]
+    # recompute the chunk's steps, keeping each step's starting state
+    carries = [(c, n, h, m)]
+    for gx_t in gx.unbind(1)[:-1]:
+        st = _slstm_cell(gx_t, wh, dict(zip("cnhm", carries[-1])))
+        carries.append((st["c"], st["n"], st["h"], st["m"]))
+    c0, n0, h0, m0 = (torch.stack(x, dim=1) for x in zip(*carries))
+    # the cell's forward and every factor of its derivative that does
+    # not depend on the gradient carried back, for all T steps at once
+    gi, gf, gz, go = torch.chunk(gx + h0 @ wh, 4, dim=-1)
+    a = F.logsigmoid(gf) + m0
+    m1 = torch.maximum(a, gi)
+    i_p = torch.exp(gi - m1)
+    f_p = torch.exp(a - m1)
+    tz = torch.tanh(gz)
+    c1 = f_p * c0 + i_p * tz
+    n1 = f_p * n0 + i_p
+    sg = torch.sigmoid(go)
+    nc = torch.clamp_min(n1, 1.0)
+    wa = _tie_split(a, gi)
+    per_step = [x.unbind(1) for x in (
+        sg / nc,                                   # dh -> dc
+        sg * c1 / (nc * nc) * _tie_split(n1, 1.0),  # dh -> -dn
+        c1 / nc * sg * (1.0 - sg),                 # dh -> dgo
+        c0, n0, tz, f_p, i_p, wa, 1.0 - wa, torch.sigmoid(-gf),
+        i_p * (1.0 - tz * tz))]
+    dhs = dhs.unbind(1)
+    whT = wh.T
+    dgs = [None] * T
+    for t in reversed(range(T)):
+        (k_c, k_n, k_o, c0_t, n0_t, tz_t, f_t, i_t, wa_t, wg_t, sf_t,
+         k_z) = (x[t] for x in per_step)
+        dh_t = dhs[t] + dh
+        # h = sg·c / max(n, 1);  c = f·c0 + i·tanh(gz);  n = f·n0 + i
+        dc1 = torch.addcmul(dc, dh_t, k_c)
+        dn1 = dn - dh_t * k_n
+        d_f = torch.addcmul(dc1 * c0_t, dn1, n0_t) * f_t
+        d_i = torch.addcmul(dn1, dc1, tz_t) * i_t
+        dc, dn = dc1 * f_t, dn1 * f_t
+        # f = exp(a - m), i = exp(gi - m), m = max(a, gi)
+        dm1 = dm - d_f - d_i
+        dm = torch.addcmul(d_f, dm1, wa_t)                    # da
+        dgs[t] = torch.cat([torch.addcmul(d_i, dm1, wg_t), dm * sf_t,
+                            dc1 * k_z, dh_t * k_o], dim=-1)
+        dh = dgs[t] @ whT
+    dgx = torch.stack(dgs, dim=1)
+    dwh = torch.einsum("btd,bte->de", h0, dgx)
+    return dgx, dwh, dc, dn, dh, dm
+
+
+def _slstm_chunk(cfg, S: int) -> int:
+    """JAX's recompute chunk: ``xlstm.chunk_size`` (256 without an xlstm
+    config), or the whole sequence when it does not split into more than
+    one chunk."""
+    Tc = cfg.xlstm.chunk_size if cfg.xlstm else 256
+    return S if S % Tc or S <= Tc else Tc
+
+
 def slstm_apply(params, x, cfg, state=None):
-    """x: (B,S,d) -> (y, final state).  A Python loop over time; the input
-    projection of every step is one product before the loop (JAX computes
-    it inside its scan: the same values, another summation blocking).  The
-    JAX version's per-chunk ``jax.checkpoint`` is a training-memory device
-    and has no counterpart here."""
+    """x: (B,S,d) -> (y, final state).  The input projection of every step
+    is one product before the time loop (JAX computes it inside its scan:
+    the same values, another summation blocking); the loop runs in
+    :class:`_SlstmChunkFn` chunks, JAX's chunked-remat BPTT."""
     B, S, _ = x.shape
     st = state or slstm_init_state(cfg, B, x.dtype, x.device)
     gx = layers.dense(params["wx"], x).to(f32)               # (B,S,4d)
     wh = params["wh"]["w"].to(f32)
+    Tc = _slstm_chunk(cfg, S)
+    carry = (st["c"], st["n"], st["h"], st["m"])
     hs = []
-    for t in range(S):
-        st = _slstm_cell(gx[:, t], wh, st)
-        hs.append(st["h"])
-    y = torch.stack(hs, dim=1).to(x.dtype)
-    return layers.dense(params["out"], y), st
+    for c0 in range(0, S, Tc):
+        hc, *carry = _SlstmChunkFn.apply(gx[:, c0:c0 + Tc], wh, *carry)
+        hs.append(hc)
+    y = torch.cat(hs, dim=1).to(x.dtype)
+    return layers.dense(params["out"], y), dict(zip("cnhm", carry))
+
+
+def slstm_apply_plain(params, x, cfg, state=None):
+    """:func:`slstm_apply` as one plain time loop, differentiated by
+    autograd step by step (every step's gates stay alive for the
+    backward): the plain version the tests hold the chunk Function to."""
+    B, S, _ = x.shape
+    st = state or slstm_init_state(cfg, B, x.dtype, x.device)
+    gx = layers.dense(params["wx"], x).to(f32)
+    hs, st = _slstm_steps(gx, params["wh"]["w"].to(f32), st)
+    return layers.dense(params["out"], hs.to(x.dtype)), st
 
 
 def slstm_step(params, x_t, state, cfg):

@@ -1685,7 +1685,8 @@ def test_cuda_lm_forward_gives_every_param_a_gradient(cuda, dtype):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert ops.launch_counts() == {
-                "flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
+                "flash": 2, "flash_bwd": 2, "ssm_scan": 0,
+                "ssm_scan_bwd": 0, "rmsnorm": 5,
                 "rmsnorm_bwd": 5}
         grads[dev.type] = [t.grad for t in tree.leaves(p)]
     for gc, gp in zip(grads["cuda"], grads["cpu"]):
@@ -1716,7 +1717,8 @@ def test_cuda_vmapped_grad_launches_once_a_block_and_equals_cpu(cuda):
         if dev.type == "cuda":
             torch.cuda.synchronize()
             assert ops.launch_counts() == {
-                "flash": 2, "flash_bwd": 2, "ssm_scan": 0, "rmsnorm": 5,
+                "flash": 2, "flash_bwd": 2, "ssm_scan": 0,
+                "ssm_scan_bwd": 0, "rmsnorm": 5,
                 "rmsnorm_bwd": 5}
     torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
                                atol=1e-5, rtol=1e-5)
@@ -1724,28 +1726,103 @@ def test_cuda_vmapped_grad_launches_once_a_block_and_equals_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
 
 
-def test_cuda_gradient_through_ssm_scan_raises(cuda):
-    """The scan has no backward kernel yet: its forward runs under autograd
-    on the card, a gradient through it raises ``NotImplementedError``
-    (not a silent zero), and a no-grad call is the plain launch."""
+# (B, S, H, N, P, chunk, q/v dtype, k dtype, q and k shared by the heads,
+# dh given): several 64-step chunks and a ragged one, S % chunk != 0, the
+# heads sharing q and k, the mLSTM's fp32 k beside bf16 q and v
+SCAN_BWD_CASES = [(1, 256, 3, 16, 32, 64, torch.float32, torch.float32,
+                   False, True),
+                  (2, 200, 3, 16, 33, 64, torch.float32, torch.float32, True,
+                   False),
+                  (2, 130, 2, 16, 40, 64, torch.bfloat16, torch.bfloat16,
+                   True, True),
+                  (1, 100, 2, 70, 71, 16, torch.bfloat16, torch.float32,
+                   False, False)]
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=str)
+def test_cuda_gradient_through_ssm_scan_matches_the_plain_backward(cuda,
+                                                                   case):
+    """A gradient through ``ops.ssm_scan`` on the card launches the
+    backward kernel once; it equals ``ssm_scan_bwd_plain`` (fp32 2e-4 /
+    1e-3, bf16 2e-2 / 1e-2: ``tests/test_kernels.py``'s scan bounds), gives
+    the same bits on a second call, and ``torch.func.grad`` through the scan
+    takes the same kernels.  A no-grad call is the forward launch alone."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain
+    B, S, H, N, P, chunk, dt, kdt, shared, with_dh = case
     g = torch.Generator(device=cuda).manual_seed(3)
-    B, S, H, N, P = 1, 64, 2, 16, 32
-    q, k = (torch.randn(B, S, H, N, device=cuda, generator=g)
-            for _ in range(2))
-    v = torch.randn(B, S, H, P, device=cuda, generator=g)
-    la = -torch.rand(B, S, H, device=cuda, generator=g)
-    qq = q.clone().requires_grad_()
-    launches = ops.ssm_scan_launches
-    y, _ = ops.ssm_scan(qq, k, v, la, chunk=16)
-    assert ops.ssm_scan_launches == launches + 1
-    with pytest.raises(NotImplementedError, match="17e"):
-        y.sum().backward()
-    with pytest.raises(NotImplementedError, match="17e"):
-        torch.func.grad(lambda t: ops.ssm_scan(t, k, v, la, chunk=16)[0]
-                        .sum())(q)
+    Hq = 1 if shared else H
+    q = torch.randn(B, S, Hq, N, device=cuda, generator=g).to(dt)
+    k = (0.3 * torch.randn(B, S, Hq, N, device=cuda, generator=g)).to(kdt)
+    v = torch.randn(B, S, H, P, device=cuda, generator=g).to(dt)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, H, device=cuda, generator=g))
+    dy = torch.randn(B, S, H, P, device=cuda, generator=g).to(dt)
+    dh = (torch.randn(B, H, N, P, device=cuda, generator=g) if with_dh
+          else None)
+
+    def loss(q, k, v, la):
+        y, h = ops.ssm_scan(q.expand(B, S, H, N), k.expand(B, S, H, N), v,
+                            la, chunk=chunk)
+        out = (y.float() * dy.float()).sum()
+        return out + (h * dh).sum() if with_dh else out
+
+    ops.reset_ssm_scan_counts()
+    got = torch.func.grad(loss, argnums=(0, 1, 2, 3))(q, k, v, la)
+    again = torch.func.grad(loss, argnums=(0, 1, 2, 3))(q, k, v, la)
+    torch.cuda.synchronize()
+    assert (ops.ssm_scan_launches, ops.ssm_scan_bwd_launches) == (2, 2)
+    want = ssm_scan_bwd_plain(dy, dh, q.expand(B, S, H, N),
+                              k.expand(B, S, H, N), v, la, chunk)
+    want = (want[0].float().sum(2, keepdim=True).to(dt) if shared
+            else want[0],
+            want[1].float().sum(2, keepdim=True).to(kdt) if shared
+            else want[1], *want[2:])
+    for a, b, w, d in zip(got, again, want, (dt, kdt, dt, torch.float32)):
+        assert torch.equal(a, b) and a.dtype == d and a.shape == w.shape
+        atol, rtol = (2e-4, 1e-3) if d == torch.float32 else (2e-2, 1e-2)
+        torch.testing.assert_close(a.float(), w.float(), atol=atol * Hq
+                                   if shared else atol, rtol=rtol)
     with torch.no_grad():
-        y2, _ = ops.ssm_scan(q, k, v, la, chunk=16)
-    torch.testing.assert_close(y2, y.detach())
+        ops.ssm_scan(q.expand(B, S, H, N), k.expand(B, S, H, N), v, la,
+                     chunk=chunk)
+    assert (ops.ssm_scan_launches, ops.ssm_scan_bwd_launches) == (3, 2)
+
+
+@pytest.mark.parametrize("case", SCAN_BWD_CASES, ids=str)
+def test_cuda_scan_vjp_under_vmap_of_cotangents_equals_a_loop(cuda, case):
+    """The forward once outside vmap, its vjp vmapped over 3 cotangents
+    (what ``torch.func.jacrev`` does): the saved inputs are unbatched, the
+    cotangents batched.  One backward launch serves the block, and each
+    cotangent's gradient equals its own vjp call within the scan bounds."""
+    B, S, H, N, P, chunk, dt, kdt, shared, with_dh = case
+    V = 3
+    g = torch.Generator(device=cuda).manual_seed(4)
+    Hq = 1 if shared else H
+    q = torch.randn(B, S, Hq, N, device=cuda, generator=g).to(dt)
+    k = (0.3 * torch.randn(B, S, Hq, N, device=cuda, generator=g)).to(kdt)
+    v = torch.randn(B, S, H, P, device=cuda, generator=g).to(dt)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, H, device=cuda, generator=g))
+    dys = torch.randn(V, B, S, H, P, device=cuda, generator=g).to(dt)
+    dhs = torch.randn(V, B, H, N, P, device=cuda, generator=g) \
+        * float(with_dh)
+
+    def scan(q, k, v, la):
+        return ops.ssm_scan(q.expand(B, S, H, N), k.expand(B, S, H, N), v,
+                            la, chunk=chunk)
+
+    ops.reset_ssm_scan_counts()
+    _, vjp = torch.func.vjp(scan, q, k, v, la)
+    block = torch.func.vmap(vjp)((dys, dhs))
+    torch.cuda.synchronize()
+    assert (ops.ssm_scan_launches, ops.ssm_scan_bwd_launches) == (1, 1)
+    for i in range(V):
+        for got, want in zip(block, vjp((dys[i], dhs[i]))):
+            assert got[i].dtype == want.dtype and got[i].shape == want.shape
+            atol, rtol = ((2e-4, 1e-3) if want.dtype == torch.float32
+                          else (2e-2, 1e-2))
+            torch.testing.assert_close(got[i].float(), want.float(),
+                                       atol=atol, rtol=rtol)
 
 
 def test_cuda_serving_launches_no_backward_and_no_lse(cuda, monkeypatch):
@@ -1769,4 +1846,4 @@ def test_cuda_serving_launches_no_backward_and_no_lse(cuda, monkeypatch):
     assert t["prefill_flash_launches"] == cfg.n_layers
     assert seen == [None] * cfg.n_layers
     assert all(t[f"{part}_{k}_launches"] == 0 for part in ("prefill", "decode")
-               for k in ("flash_bwd", "rmsnorm_bwd"))
+               for k in ("flash_bwd", "ssm_scan_bwd", "rmsnorm_bwd"))

@@ -34,8 +34,8 @@ RECURRENT = ["hymba-1.5b", "xlstm-125m"]
 SERVED = DENSE + RECURRENT
 MOE = sorted(n for n, c in ARCHS.items() if c.moe is not None)
 LAUNCH_KEYS = {f"{part}_{k}_launches" for part in ("prefill", "decode")
-               for k in ("flash", "flash_bwd", "ssm_scan", "rmsnorm",
-                         "rmsnorm_bwd")}
+               for k in ("flash", "flash_bwd", "ssm_scan", "ssm_scan_bwd",
+                         "rmsnorm", "rmsnorm_bwd")}
 IMPLS = ["pallas", "chunked", "dense"]
 # (arch, attention impl): xlstm-125m has no attention, so one impl
 SERVED_IMPLS = ([(n, i) for n in DENSE + ["hymba-1.5b"] for i in IMPLS]
