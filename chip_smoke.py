@@ -184,18 +184,22 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    client and a folded block of 4; ``vmap(grad)`` of a client's norm,
    projection and flash over 4 clients at 13(c)'s shapes, g per client and
    shared, one launch of each kernel for the block, equal to a per-client
-   loop; (b) each timed at qwen2's
+   loop; each flash case on the route ``bwd_route`` names (bf16 wgmma,
+   fp32 three TF32 passes at hd <= 64, the CUDA cores past them); (b) each
+   timed at qwen2's
    training shape beside its plain version, its bound and the backward of
-   the one PyTorch call (``scaled_dot_product_attention``, ``F.rms_norm``);
+   the one PyTorch call (``scaled_dot_product_attention``, ``F.rms_norm``),
+   and the fp32 flash forward there beside SDPA's fp32 forward;
    (c) full-width qwen2-0.5b (bf16, the ``pallas`` route) in
    ``launch/fl_train_lm.py``'s traffic: FedAvg, 1 round under the default
    timer (2 before phase 14; the params are fp32 from round 1 on: FedAvg
    adds the fp32 aggregate, as the JAX package does, and flash follows
    their dtype's route), then one round profiled on device activity only
-   (the fp32 round), with the eval
+   (the fp32 round, every flash backward on ``tf32x3``), with the eval
    loss before and after each round, peak device memory, the idle share,
    and each round's launches held exactly to the schedule (24 flash and 49
    norm launches forward and backward a local step of a client-step call,
+   the flash backward's all on its dtype's route,
    padded steps included; one leaves-form fold a ``fold_block`` group at n
    = 494,032,768; no scan, no top-k); (d) one ``make_train_step`` at (4,
    1024): train tokens/s and its launches; (e) qwen2's widths cut to 2
@@ -209,21 +213,23 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    grid (dh given on every other case), S % chunk != 0, folded vmapped
    blocks of fl_train_lm's traffic and hymba's and xlstm's training
    shapes, fp32 and bf16, an fp32 k, q and k shared by the heads, each case
-   twice for the same bits; (b) timed at hymba's (4, 1024, 8, 16, 400)
+   twice for the same bits and its route logged (``bf16`` when q, k and v
+   are all bf16, else ``mixed``); (b) timed at hymba's (4, 1024, 8, 16, 400)
    bf16 and xlstm's (4, 1024, 4, 384, 385) fp32-k training shapes beside
    ``torch.autograd.grad`` of the plain scan and the bound (no library
    call computes it); (c) one ``make_train_step`` at (4, 1024) of
    full-width hymba-1.5b and xlstm-125m, bf16, the ``pallas`` route:
    wall, train tokens/s, peak memory, launches exact (hymba 32 flash, 32
    scan and 65 norm launches forward and as many backward; xlstm 6 scan
-   and 13 norm), a profiled step (idle share; xlstm's at 2 layers), and
+   and 13 norm; the scan and flash backwards all on their dtypes' routes),
+   a profiled step (idle share; xlstm's at 2 layers), and
    at xlstm's 2 layers the peak beside a step whose sLSTM runs
    ``slstm_apply_plain`` (4 recompute chunks of 256 against every step's
    gates kept); (d) FedAvg in fl_train_lm's traffic: full-width
    xlstm-125m, one round (bf16 params), and hymba-1.5b cut to 8 layers
    (its widths whole: 32 layers would need ~77 GB), round 0 (bf16) and
-   round 1 (fp32); launches held exactly to the local steps, one
-   leaves-form fold a group, eval loss, peak;
+   round 1 (fp32); launches held exactly to the local steps and the
+   backwards' routes, one leaves-form fold a group, eval loss, peak;
    (e) each arch cut to 2 layers, fp32, card against CPU: gradients leaf
    by leaf within 1e-4 (relative 2-norms), loss 1e-5.
 
@@ -1331,6 +1337,12 @@ def phase_full_width_topk(T, ops, plain):
 # ---------------------------------------------------------------------------
 
 BF16_FLOP_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
+# fp32-exact products on the tensor cores: three TF32 passes (494.7 TFLOP/s
+# dense) a product, the split of the port's fp32 flash backward (six bf16
+# passes, the scan backward's, run at the same 989 / 6); an fp32 function's
+# least time takes the faster of this and the CUDA cores' FP32_FLOP_PER_S
+FP32_EXACT_TC_FLOP_PER_S = 494.7e12 / 3
+FP32_BEST_FLOP_PER_S = max(FP32_FLOP_PER_S, FP32_EXACT_TC_FLOP_PER_S)
 
 # (B, S, H, KV, hd, causal, window, dtype): the JAX kernel grid of
 # tests/test_kernels.py:20-50 in fp32 and bf16, causal, KV = H; its windows;
@@ -1365,17 +1377,17 @@ def flash_tol(dtype):
     return (2e-5, 1e-3) if dtype == torch.float32 else (2e-2, 1e-2)
 
 
-def flash_bound_ms(B, S, H, KV, hd, itemsize):
+def flash_bound_ms(B, S, H, KV, hd, itemsize, rate=BF16_FLOP_PER_S):
     """Least time for causal attention: q read and o written at the H query
     heads, k and v read at the KV heads they are stored at (the kernel reads
     them in place), each once — (2·H + 2·KV)·B·S·hd·itemsize bytes — over the
     memory rate, vs 4·hd operations for each of the B·H·S(S+1)/2 unmasked
-    (q, k) pairs (q·k and p·v) over the bf16 tensor-core rate; the larger
-    bounds it."""
+    (q, k) pairs (q·k and p·v) over ``rate`` (the bf16 tensor-core rate;
+    FP32_BEST_FLOP_PER_S for fp32); the larger bounds it."""
     nbytes = (2 * H + 2 * KV) * B * S * hd * itemsize
     flops = 4 * hd * B * H * S * (S + 1) // 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, flops)
 
@@ -3251,7 +3263,8 @@ def phase_net_faults(T, ops, plain):
 # phase 11: placement, gang dispatch and collective comm
 # ---------------------------------------------------------------------------
 
-GANG_TIMED = 3        # timed rounds a variant, after one warm-up round
+GANG_TIMED = 2        # timed rounds a variant, after one warm-up round (3
+                      # before the backward kernels' builds grew)
 SHORT_TIMED = 1       # timed rounds of the nonblocking and parallel variants
 
 
@@ -4038,11 +4051,13 @@ def flash_bwd_bound_ms(B, S, H, KV, hd, itemsize):
     elements and 4·B·H·S bytes -- over the memory rate, vs 10·hd
     operations for each of the B·H·S(S+1)/2 unmasked pairs (S = q·k
     recomputed, dP = dO·v, dV, dQ, dK) over the peak rate of the inputs'
-    type (bf16 tensor cores; fp32 CUDA cores: TF32 would break the fp32
-    tolerances); the larger bounds it."""
+    type at their accuracy (bf16 tensor cores; fp32 the faster of three
+    TF32 passes on the tensor cores and the CUDA cores: one TF32 pass would
+    break the fp32 tolerances), whatever implements it; the larger bounds
+    it."""
     nbytes = (4 * H + 4 * KV) * B * S * hd * itemsize + 4 * B * H * S
     flops = 10 * hd * B * H * S * (S + 1) // 2
-    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_FLOP_PER_S
+    rate = BF16_FLOP_PER_S if itemsize == 2 else FP32_BEST_FLOP_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
@@ -4074,7 +4089,7 @@ def phase_flash_bwd_grid(ops, fwd_plain, bwd_plain, bwd_route):
     gives the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     max_err = {"float32": 0.0, "bfloat16": 0.0}
-    routes = {"tensor_cores": 0, "cuda_cores": 0}
+    routes = {route: 0 for route in ops.flash_bwd_route_launches}
     for B, Sq, Skv, H, KV, hd, causal, window in FLASH_BWD_GRID:
         for dt in (torch.float32, torch.bfloat16):
             q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen).to(dt)
@@ -4258,10 +4273,11 @@ def phase_vmap_grad_block(ops):
 
 def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16):
     """13(b): the backward at qwen2's training shape, causal, in ``dt``
-    (bf16: the tensor cores, round 0 of 13(c) and 13(d); fp32: the CUDA
-    cores, 13(c)'s later rounds), beside its plain version, its bound and
-    the backward of scaled_dot_product_attention(is_causal, enable_gqa)
-    (forward untimed; the port never calls it)."""
+    (bf16: wgmma, round 0 of 13(c) and 13(d); fp32: three TF32 passes a
+    product on the tensor cores, 13(c)'s later rounds), beside its plain
+    version, its bound and the backward of
+    scaled_dot_product_attention(is_causal, enable_gqa) (forward untimed;
+    the port never calls it)."""
     import torch.nn.functional as F
     B, S, H, KV, hd = TRAIN_FLASH
     gen = torch.Generator(device="cuda").manual_seed(15)
@@ -4300,6 +4316,46 @@ def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16):
         f"{lib_ms:.4f} ms (|diff| {lib_diff:.3g}); kernel_ms / library_ms "
         f"{k_ms / lib_ms:.2f}; bound {bound:.4f} ms ({by}: {nbytes} B, "
         f"{flops} FLOP), kernel at {100 * bound / k_ms:.2f}% of the bound")
+    return row
+
+
+def time_flash_fwd_fp32(ops, plain, timer):
+    """13(b): the fp32 forward at qwen2's training shape, causal, as every
+    FL round after round 0 runs it (the CUDA-core kernel, writing the
+    log-sum-exp for the backward), beside its plain version,
+    scaled_dot_product_attention's fp32 forward and a bound counted at the
+    fp32-exact rate (FP32_BEST_FLOP_PER_S; flash_bound_ms's default counts
+    bf16's)."""
+    import torch.nn.functional as F
+    B, S, H, KV, hd = TRAIN_FLASH
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = flash_inputs(B, S, H, KV, hd, torch.float32, gen)
+    k_ms = timer.ms(lambda: ops._flash_fwd(q, k, v, True, 0, True))
+    host_ms = timer.host_ms(lambda: ops._flash_fwd(q, k, v, True, 0, True))
+    p_ms = timer.ms(lambda: plain(q, k, v, causal=True, window=0), reps=5)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    lib_ms = timer.ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_diff = float((F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True).transpose(1, 2)
+        - ops._flash_fwd(q, k, v, True, 0, True)[0]).abs().max())
+    bound, by, nbytes, flops = flash_bound_ms(B, S, H, KV, hd, 4,
+                                              FP32_BEST_FLOP_PER_S)
+    nbytes += 4 * B * H * S                       # the log-sum-exp written
+    ops.reset_flash_counts()
+    row = {"shape": {"B": B, "S": S, "H": H, "KV": KV, "hd": hd,
+                     "dtype": "float32", "causal": True, "window": 0},
+           "ms": k_ms, "host_ms": host_ms, "plain_ms": p_ms,
+           "library_ms": lib_ms, "kernel_over_library": k_ms / lib_ms,
+           "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
+           "bytes": nbytes, "flops": flops, "library_max_abs_diff": lib_diff}
+    log(f"phase 13b timing: flash forward {TRAIN_FLASH} float32 causal with "
+        f"the log-sum-exp: kernel {k_ms:.4f} ms (wrapper host time "
+        f"{host_ms:.4f} ms), plain {p_ms:.4f} ms, "
+        f"scaled_dot_product_attention fp32 {lib_ms:.4f} ms (|diff| "
+        f"{lib_diff:.3g}); kernel_ms / library_ms {k_ms / lib_ms:.2f}; bound "
+        f"{bound:.4f} ms ({by} at the fp32-exact rate), kernel at "
+        f"{100 * bound / k_ms:.2f}% of the bound")
     return row
 
 
@@ -4366,12 +4422,20 @@ def lm_round_launches(ops):
     return c
 
 
+def on_route(routes, route, n):
+    """A route counter that holds n launches on ``route`` and none on the
+    others (its keys those of ``routes``)."""
+    return {r: n if r == route else 0 for r in routes}
+
+
 def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
     """13(c): full-width qwen2-0.5b, bf16, the pallas route, in
     ``fl_train_lm``'s traffic: FedAvg, LM_FL_ROUNDS rounds under the default
     timer, then one round profiled on device activity only.  Counts set to
     0 just before each round and read just after, held exactly to what
     the schedule implies; the eval loss before and after each round."""
+    from repro_torch.kernels.flash_attention import bwd_route
+    hd = cfg.hd
     t0 = time.perf_counter()
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                             cfg)
@@ -4390,12 +4454,13 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
         torch.cuda.reset_peak_memory_stats()
         for r in range(LM_FL_ROUNDS):
             # bf16 params take the tensor-core flash forward and backward,
-            # fp32 the CUDA-core ones: FedAvg's server update adds the fp32
-            # aggregate, so the model is fp32 from round 1 on, as in the
-            # JAX package
+            # fp32 the CUDA-core forward and the three-pass TF32 backward:
+            # FedAvg's server update adds the fp32 aggregate, so the model
+            # is fp32 from round 1 on, as in the JAX package
             dtype = srv.params["embed"]["w"].dtype
             route = ("tensor_cores" if dtype == torch.bfloat16
                      else "cuda_cores")
+            bwd = bwd_route(dtype, hd)
             with StepCalls(T) as steps, FoldGroups(T) as folds:
                 reset_counts(ops)
                 torch.cuda.synchronize()
@@ -4413,8 +4478,8 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
                     "fold_leaves": len(folds.sizes)}
             if got != want or set(folds.sizes) != {n} \
                     or ops.flash_route_launches[route] != got["flash"] \
-                    or ops.flash_bwd_route_launches[route] \
-                    != got["flash_bwd"]:
+                    or ops.flash_bwd_route_launches != on_route(
+                        ops.flash_bwd_route_launches, bwd, got["flash_bwd"]):
                 raise AssertionError(
                     f"13c round {r}: launches {got}, expected {want} for "
                     f"{s} local steps in {len(steps.calls)} client-step "
@@ -4426,20 +4491,32 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
                 raise AssertionError(f"13c round {r}: eval loss {loss}")
             rows.append({"round": r, "wall_s": wall, "params_dtype":
                          str(dtype).replace("torch.", ""), "flash_route": route,
+                         "flash_bwd_route": bwd,
                          "makespan_s": m.makespan, "clients": m.n_clients,
                          "client_step_calls": len(steps.calls),
                          "local_steps": s, "launches": got,
                          "eval_loss_before": before,
                          "eval_loss_after": loss})
             log(f"phase 13c round {r} [{card}]: {rows[-1]['params_dtype']} "
-                f"params (flash on the {route}), wall {wall:.3f} s, makespan "
+                f"params (flash on the {route}, its backward on {bwd}), wall "
+                f"{wall:.3f} s, makespan "
                 f"{m.makespan:.3f} s, {m.n_clients} clients in "
                 f"{len(steps.calls)} client-step calls ({s} local steps, "
                 f"padded included); launches {got} (== 24/49 a step "
                 f"forward and backward, one leaves-form fold a group at n = "
                 f"{n}); eval loss {before:.4f} -> {loss:.4f}")
         peak = torch.cuda.max_memory_allocated()
+        # the profiled round runs fp32 params: every flash backward on the
+        # three-pass TF32 route
+        dtype = srv.params["embed"]["w"].dtype
+        reset_counts(ops)
         prof = profile_round(srv)
+        prof_bwd = dict(ops.flash_bwd_route_launches)
+        if dtype != torch.float32 or ops.flash_bwd_launches == 0 \
+                or prof_bwd != on_route(prof_bwd, "tf32x3",
+                                        ops.flash_bwd_launches):
+            raise AssertionError(f"13c profiled round: {dtype} params, "
+                                 f"flash backward routes {prof_bwd}")
         after = fl.eval_loss(srv.params, batch, cfg)
         reset_counts(ops)          # the profile's launches do not count
         del srv
@@ -4459,7 +4536,8 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
     log(f"phase 13c: {n} params, set-up {set_up_s:.2f} s, "
         f"max_memory_allocated over the {LM_FL_ROUNDS} rounds {peak} B")
     return {"rows": rows, "profile": prof, "max_memory_allocated": peak,
-            "eval_loss_after_profiled_round": after, "n_params": n}
+            "eval_loss_after_profiled_round": after, "n_params": n,
+            "profiled_round_flash_bwd_routes": prof_bwd}
 
 
 def lm_batch(cfg, B, S, seed):
@@ -4659,7 +4737,8 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
     FedAvg rounds (the main path), (d) one train step at (4, 1024), (e)
     the 2-layer fp32 cut card vs CPU, (f) pallas vs chunked gradients."""
     from repro_torch.kernels.flash_attention import (
-        bwd_route, flash_attention_bwd_plain, flash_attention_fwd_plain)
+        bwd_route, flash_attention_bwd_plain, flash_attention_fwd_plain,
+        flash_attention_plain)
     from repro_torch.kernels.rmsnorm import bwd_route as rms_bwd_route
     from repro_torch.kernels.rmsnorm import (rmsnorm_bwd_plain,
                                              rmsnorm_grouped_plain)
@@ -4683,6 +4762,8 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
          timer)
     part("flash_fp32_timing", time_flash_bwd, ops,
          flash_attention_bwd_plain, timer, torch.float32)
+    part("flash_fwd_fp32_timing", time_flash_fwd_fp32, ops,
+         flash_attention_plain, timer)
     part("rms_timing", time_rms_bwd, ops, rmsnorm_bwd_plain, timer)
     del timer
     cfg = dataclasses.replace(get_arch("qwen2-0.5b"), attention_impl="pallas")
@@ -4764,21 +4845,30 @@ def scan_bwd_bound_ms(case):
     them), v, dy and log_a read, dh read where given; dq and dk written
     once (a shared q's gradient is one head's worth, the sum over the
     heads), dv and dlog_a written; over the memory rate, vs the
-    recurrence's operations -- 5 multiply-adds a state element a step
-    (recompute h, the adjoint G, dq = h·dy, dk = G·v, dv = Gᵀ·k; dlog_a
-    takes O(N + P) a step as a reverse sum of q·dq − k·dk),
-    10·N·P·S·B·H -- over the bf16 tensor-core rate when q, k and v are all
-    bf16, else the fp32 rate; the larger bounds it.  Returns (bound, what
-    sets it, bytes, operations)."""
+    recurrence's operations -- 5 products of 2·N·P FLOP a step (dlog_a
+    takes O(N + P) a step as a reverse sum of q·dq − k·dk), 10·N·P·S·B·H
+    in all -- each at the rate its operands allow at fp32's accuracy,
+    whatever implements it: a product with one operand exact in bf16 (an
+    input read as bf16) and one fp32 (a state, or a row scaled by its
+    decay) takes three bf16 tensor-core passes, one of two fp32 operands
+    six, or three TF32 ones (FP32_BEST_FLOP_PER_S, the faster).  The five:
+    recompute h from the decay-scaled k (or v) and v (or k); the adjoint G
+    from the scaled q (or dy) and dy (or q); dq = h·dy; dk = G·v;
+    dv = Gᵀ·k.  The larger time bounds it.  Returns (bound, what sets it,
+    bytes, operations)."""
     B, S, H, N, P, _, dt, kdt, shared, with_dh = case
     isz, ksz = (2 if dt == BF else 4), (2 if kdt == BF else 4)
     Hq = 1 if shared else H
     nbytes = (2 * B * S * Hq * N * (isz + ksz) + 3 * B * S * H * P * isz
               + 2 * B * S * H * 4 + (B * H * N * P * 4 if with_dh else 0))
     flops = 10 * N * P * S * B * H
-    rate = BF16_FLOP_PER_S if dt == BF and kdt == BF else FP32_FLOP_PER_S
+    q_bf = v_bf = dy_bf = dt == BF
+    k_bf = kdt == BF
+    exact = ((k_bf or v_bf), (q_bf or dy_bf), dy_bf, v_bf, k_bf)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
+    t_ops = sum(flops / 5 / (BF16_FLOP_PER_S / 3 if bf else
+                             max(BF16_FLOP_PER_S / 6, FP32_BEST_FLOP_PER_S))
+                for bf in exact) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
             "operations", nbytes, flops)
 
@@ -4790,14 +4880,25 @@ def phase_scan_bwd_grid(ops, bwd_plain):
     inside), so the bounds hold the kernel's own error: in fp32 the plain
     version's sums err as much as the kernel's (dlog_a: one 300-step chunk
     of q·dq − k·dk plus a 153,600-term state product, ~5e-4 off where the
-    sum nearly cancels).  Returns the largest |kernel - plain| by output
-    dtype and of dlog_a."""
+    sum nearly cancels).  Each case's route (``ops.ssm_scan_bwd_route_
+    launches``) is logged.  Returns the largest |kernel - plain| by output
+    dtype and of dlog_a, and the cases by route."""
     gen = torch.Generator(device="cuda").manual_seed(71)
     max_err = {"float32": 0.0, "bfloat16": 0.0, "dlog_a": 0.0}
+    cases_by_route = {route: [] for route in ops.ssm_scan_bwd_route_launches}
     for case in SCAN_BWD_GRID:
         q, k, v, la, chunk, dy, dh = scan_bwd_inputs(case, gen)
+        before = dict(ops.ssm_scan_bwd_route_launches)
         got = ops._ssm_bwd(dy, dh, q, k, v, la, chunk)
         again = ops._ssm_bwd(dy, dh, q, k, v, la, chunk)
+        route = [r for r, n in ops.ssm_scan_bwd_route_launches.items()
+                 if n == before[r] + 2]
+        if len(route) != 1:
+            raise AssertionError(f"ssm_scan backward {case}: routes "
+                                 f"{before} -> "
+                                 f"{ops.ssm_scan_bwd_route_launches}")
+        cases_by_route[route[0]].append(case[:9])
+        log(f"phase 14a case {case}: the {route[0]} route")
         want = bwd_plain(*(None if t is None else t.double()
                            for t in (dy, dh, q, k, v, la)), chunk)
         torch.cuda.synchronize()
@@ -4824,8 +4925,9 @@ def phase_scan_bwd_grid(ops, bwd_plain):
         f" case, S % chunk != 0, folded vmapped blocks, hymba's and xlstm's "
         f"training shapes), each the same bits on a second call; max |err| "
         f"fp32 {max_err['float32']:.3g}, bf16 {max_err['bfloat16']:.3g}, "
-        f"dlog_a {max_err['dlog_a']:.3g}")
-    return max_err
+        f"dlog_a {max_err['dlog_a']:.3g}; cases by route "
+        f"{ {r: len(c) for r, c in cases_by_route.items()} }")
+    return max_err, {r: len(c) for r, c in cases_by_route.items()}
 
 
 def time_scan_bwd(ops, plain, timer, case, label):
@@ -4872,6 +4974,21 @@ def rec_want(name, L, steps):
     return want
 
 
+def rec_routes(ops, name, dtype, got):
+    """Whether the backward launches of a recurrent step or round are all on
+    the routes the dtypes pick: the scan's bf16 route for hymba's bf16
+    params (Mamba's q, k and v take the params' dtype), its mixed route
+    otherwise (xlstm's k is fp32 at every dtype; fp32 params); flash's
+    wgmma route for bf16, tf32x3 for fp32 (hd 64)."""
+    scan = "bf16" if (name, dtype) == ("hymba-1.5b", torch.bfloat16) \
+        else "mixed"
+    flash = "tensor_cores" if dtype == torch.bfloat16 else "tf32x3"
+    return (ops.ssm_scan_bwd_route_launches == on_route(
+                ops.ssm_scan_bwd_route_launches, scan, got["ssm_scan_bwd"])
+            and ops.flash_bwd_route_launches == on_route(
+                ops.flash_bwd_route_launches, flash, got["flash_bwd"]))
+
+
 def rec_step_run(ops, lm, cfg, params, batch, warm):
     """One make_train_step (after a warm-up step when ``warm``), counts set
     to 0 just before and held to REC_STEP just after: (wall, launches,
@@ -4889,9 +5006,12 @@ def rec_step_run(ops, lm, cfg, params, batch, warm):
     got = ops.launch_counts()
     want = rec_want(cfg.name, cfg.n_layers, 1)
     loss = float(met["loss"])
-    if got != want or not np.isfinite(loss):
+    if got != want or not np.isfinite(loss) \
+            or not rec_routes(ops, cfg.name, params["embed"]["w"].dtype, got):
         raise AssertionError(f"14c {cfg.name} ({cfg.n_layers} layers): "
-                             f"launches {got}, expected {want}; loss {loss}")
+                             f"launches {got}, expected {want}; backward "
+                             f"routes {ops.ssm_scan_bwd_route_launches}, "
+                             f"{ops.flash_bwd_route_launches}; loss {loss}")
     return params, wall, got, loss, torch.cuda.max_memory_allocated()
 
 
@@ -5004,17 +5124,23 @@ def phase_rec_fl(T, ops, lm, tree, fl, cfg, card, rounds, n_params):
             want = rec_want(cfg.name, cfg.n_layers, s)
             want.update(topk=0, fold=len(folds.sizes),
                         fold_leaves=len(folds.sizes))
-            if got != want or set(folds.sizes) != {n}:
+            if got != want or set(folds.sizes) != {n} \
+                    or not rec_routes(ops, cfg.name, dtype, got):
                 raise AssertionError(
                     f"14d {cfg.name} round {r}: launches {got}, expected "
                     f"{want} for {s} local steps in {len(steps.calls)} "
-                    f"client-step calls; fold sizes {folds.sizes}")
+                    f"client-step calls; fold sizes {folds.sizes}; backward "
+                    f"routes {ops.ssm_scan_bwd_route_launches}, "
+                    f"{ops.flash_bwd_route_launches}")
+            routes = {"ssm_scan_bwd": dict(ops.ssm_scan_bwd_route_launches),
+                      "flash_bwd": dict(ops.flash_bwd_route_launches)}
             before, loss = loss, fl.eval_loss(srv.params, batch, cfg)
             if not np.isfinite(loss):
                 raise AssertionError(f"14d {cfg.name} round {r}: eval loss "
                                      f"{loss}")
             rows.append({"round": r, "wall_s": wall,
                          "params_dtype": str(dtype).replace("torch.", ""),
+                         "backward_routes": routes,
                          "makespan_s": m.makespan, "clients": m.n_clients,
                          "client_step_calls": len(steps.calls),
                          "local_steps": s, "launches": got,
@@ -5023,8 +5149,9 @@ def phase_rec_fl(T, ops, lm, tree, fl, cfg, card, rounds, n_params):
             log(f"phase 14d {cfg.name} round {r} [{card}]: "
                 f"{rows[-1]['params_dtype']} params, wall {wall:.3f} s, "
                 f"{m.n_clients} clients in {len(steps.calls)} client-step "
-                f"calls ({s} local steps, padded included); launches {got}; "
-                f"eval loss {before:.4f} -> {loss:.4f}")
+                f"calls ({s} local steps, padded included); launches {got}, "
+                f"backward routes {routes}; eval loss {before:.4f} -> "
+                f"{loss:.4f}")
         peak = torch.cuda.max_memory_allocated()
         del srv
     reset_counts(ops)
@@ -5087,6 +5214,7 @@ def phase_rec_train(T, ops, lm, ssm, tree, fl, get_arch, card):
         secs[key] = round(time.perf_counter() - t, 1)
 
     part("grid_err", phase_scan_bwd_grid, ops, ssm_scan_bwd_plain)
+    out["grid_err"], out["grid_cases_by_route"] = out["grid_err"]
     timer = Timer()
     part("hymba_timing", time_scan_bwd, ops, ssm_scan_plain, timer,
          HYMBA_TRAIN_SCAN, "hymba")
@@ -5327,12 +5455,16 @@ def main() -> int:
         "hymba_timing": rec_t["flash_hymba"],
         "lm_training_launches": [r["launches"]["flash"] for r in lm_rounds],
         "train_step_launches": lmt["step"]["launches"]["flash"],
+        "training_fp32_timing": lmt["flash_fwd_fp32_timing"],
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
-        "compute_units": "tensor cores (wgmma, TMA loads) for bf16 at hd <= "
-                         "128, the main path's first round and 13(d); CUDA "
-                         "cores (exact fp32) for fp32 and bf16 hd 192",
+        "compute_units": "tensor cores for bf16 at hd <= 128 (wgmma, TMA "
+                         "loads; route tensor_cores: the main path's first "
+                         "round and 13(d)) and for fp32 at hd <= 64 "
+                         "(mma.sync, three TF32 passes a product; route "
+                         "tf32x3: the rounds after round 0); CUDA cores for "
+                         "the rest (route cuda_cores)",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:29",
         "replaces_note": "no TPU kernel: the Pallas flash kernel has no VJP "
@@ -5357,11 +5489,17 @@ def main() -> int:
         "shape": lmt["flash_timing"]["shape"],
         "timing": lmt["flash_timing"],
         "fp32_timing": lmt["flash_fp32_timing"],
+        "routes": {"tensor_cores": lmt["flash_timing"],
+                   "tf32x3": lmt["flash_fp32_timing"]},
+        "launches_by_route": {
+            "round_0": {r["flash_bwd_route"]: r["launches"]["flash_bwd"]
+                        for r in lm_rounds},
+            "profiled_round": lmt["fl"]["profiled_round_flash_bwd_routes"]},
         "grid_cases_by_route": lmt["flash_grid"]["cases_by_route"],
         "train_step_launches": lmt["step"]["launches"]["flash_bwd"],
         "lm_training": {k: v for k, v in lmt.items()
                         if k not in ("flash_timing", "flash_fp32_timing",
-                                     "rms_timing")},
+                                     "flash_fwd_fp32_timing", "rms_timing")},
     }, {
         "name": "ssm_scan",
         "route": "cuda",
@@ -5394,7 +5532,15 @@ def main() -> int:
     }, {
         "name": "ssm_scan_bwd",
         "route": "cuda",
-        "compute_units": "CUDA cores (fp32), every dtype",
+        "compute_units": "tensor cores (wgmma) at fp32's accuracy, fp32 "
+                         "operands split into three bf16 terms: route bf16 "
+                         "when q, k, v are all bf16 (hymba, chunk-resident "
+                         "at N <= 16), route mixed otherwise (xlstm's fp32 "
+                         "k, tiled)",
+        "routes": {"bf16": rec["hymba_timing"], "mixed": rec["xlstm_timing"]},
+        "grid_cases_by_route": rec["grid_cases_by_route"],
+        "launches_by_route": [r["backward_routes"]["ssm_scan_bwd"]
+                              for r in rec_rounds],
         "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
         "replaces": "src/repro/kernels/ssm_scan.py:22",
         "replaces_note": "no TPU kernel: the Pallas scan kernel has no VJP "

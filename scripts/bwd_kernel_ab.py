@@ -1,6 +1,6 @@
-"""Device times of the port's two backward kernels (flash attention's and
-RMSNorm's) in one checkout of this repo, on a CUDA card, printed as one JSON
-line that starts with ``AB``.
+"""Device times of the port's three backward kernels (flash attention's,
+RMSNorm's and the scan's) in one checkout of this repo, on a CUDA card,
+printed as one JSON line that starts with ``AB``.
 
 To compare two checkouts (say a parent commit and a change) on the same
 card, unpack both and run this script once per checkout, back to back on
@@ -10,7 +10,8 @@ one machine, alternating them (parent, change, change, parent):
 
 ``--tree`` is the checkout whose ``src/repro_torch`` is imported (its
 kernels are built into its own ``build/kernels``); the timing code is this
-checkout's ``chip_smoke.py`` (``time_flash_bwd`` and ``time_rms_bwd``: its
+checkout's ``chip_smoke.py`` (``time_flash_bwd``, ``time_rms_bwd`` and
+``time_scan_bwd``: its
 ``Timer``, CUDA events, median of 30 after an L2 flush, a spin kernel ahead
 of each call), so both trees are measured alike.  It times:
 
@@ -22,6 +23,10 @@ of each call), so both trees are measured alike.  It times:
 * the norm backward at (4096, 896) in bf16 and fp32, beside
   ``F.rms_norm``'s backward, a ``copy_`` of the same bytes, the plain
   version and the bound, with its device operations;
+* the scan backward at hymba-1.5b's (4, 1024, 8, 16, 400) bf16 (q and k
+  shared by the heads) and xlstm-125m's (4, 1024, 4, 384, 385) fp32-k
+  training shapes, beside ``torch.autograd.grad`` of the plain scan and
+  the bound, with its device operations;
 * the card's name and power limit from ``nvidia-smi``.
 
 Exits non-zero without a card.
@@ -53,6 +58,7 @@ def main() -> int:
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -60,7 +66,7 @@ def main() -> int:
         check=True).stdout.strip()
     timer = cs.Timer()
     out = {"label": args.label, "card": card, "flash_bwd": {},
-           "rmsnorm_bwd": {}}
+           "rmsnorm_bwd": {}, "ssm_scan_bwd": {}}
     B, S, H, KV, hd = cs.TRAIN_FLASH
     T, d = cs.TRAIN_RMS
     for dt in (torch.bfloat16, torch.float32):
@@ -79,6 +85,14 @@ def main() -> int:
         row["device_ops"] = cs.device_ops(
             lambda: ops._rms_bwd(dy, x, g, 1e-5))
         out["rmsnorm_bwd"][name] = row
+    for label, case in (("hymba", cs.HYMBA_TRAIN_SCAN),
+                        ("xlstm", cs.XLSTM_TRAIN_SCAN)):
+        row = cs.time_scan_bwd(ops, ssm_scan_plain, timer, case, label)
+        gen = torch.Generator(device="cuda").manual_seed(72)
+        q, k, v, la, chunk, dy, _ = cs.scan_bwd_inputs(case, gen)
+        row["device_ops"] = cs.device_ops(
+            lambda: ops._ssm_bwd(dy, None, q, k, v, la, chunk))
+        out["ssm_scan_bwd"][label] = row
     print("AB " + json.dumps(out), flush=True)
     return 0
 

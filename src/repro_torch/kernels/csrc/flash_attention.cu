@@ -15,9 +15,11 @@
 // a fallback: each raises on what it does not take):
 //
 // * bf16: flash_tc_kernel, the products on the tensor cores (wgmma).
-// * fp32: flash_fp32_kernel, the products in fp32 on the CUDA cores.  TF32
-//   would keep ~3 decimal digits and break the fp32 tolerances (2e-5 against
-//   the plain version, 1e-4 on model logits), so fp32 stays exact fp32.
+// * fp32: flash_fp32_kernel, the products in fp32 on the CUDA cores.  One
+//   TF32 pass would keep ~3 decimal digits and break the fp32 tolerances
+//   (2e-5 against the plain version, 1e-4 on model logits); three passes a
+//   product, as the fp32 backward runs them (flash_attention_bwd.cu), keep
+//   fp32's accuracy and are this kernel's next redesign.
 //
 // What bounds it.  At the qwen2-0.5b serving shape (B=4, S=1024, H=14, KV=2,
 // hd=64, bf16, causal) one call must read q (at H heads), k and v (at KV

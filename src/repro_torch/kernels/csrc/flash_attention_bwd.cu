@@ -8,23 +8,31 @@
 // card runs the forward kernel, so its gradient is a kernel too.  The
 // algorithm is FlashAttention-2's: D = rowsum(dO * O), P = exp(S * scale -
 // lse), dP = dO V^T, dS = P * (dP - D), dV = P^T dO, dQ = scale dS K, dK =
-// scale dS^T Q.  Two routes, picked by the wrapper from the dtype and the
+// scale dS^T Q.  Three routes, picked by the wrapper from the dtype and the
 // head dim alone (each raises on what it does not take):
 //
-// * bf16, hd <= 128: the tensor cores (flash_attention_bwd_bf16_launch).
-// * fp32 at every head dim, and bf16 at hd 192: the CUDA cores
-//   (flash_attention_bwd_launch).  TF32 would break the fp32 tolerances (see
-//   the forward's note); at hd 192, split over the two consumer warpgroups
-//   as hd 128 is below, one warpgroup would hold two 64-column panels of dK
-//   and dV (128 fp32 a thread) beside S^T, dP^T (64) and their bf16
-//   fragments (32), past the 240 registers a consumer thread has.
+// * bf16, hd <= 128: wgmma and TMA (flash_attention_bwd_bf16_launch).
+// * fp32, hd <= 64: mma.sync on the tensor cores, every product as three
+//   TF32 passes (flash_attention_bwd_tf32_launch, route "tf32x3").  One
+//   TF32 pass keeps ~3 digits and would break the fp32 tolerances; the
+//   split a = a_b + a_s (a_b = tf32(a), a_s = tf32(a - a_b)) and a b ~ a_s
+//   b_b + a_b b_s + a_b b_b keeps fp32's accuracy (CUTLASS's 3xTF32).
+// * fp32 at hd 96 to 192, and bf16 at hd 192: the CUDA cores
+//   (flash_attention_bwd_launch).  The tf32x3 kernel's dK and dV
+//   accumulators beside S^T and dP^T spill past hd 64 (255 registers a
+//   thread); at hd 192, split over the two consumer warpgroups as hd 128
+//   is below, one wgmma warpgroup would hold two 64-column panels of dK and
+//   dV (128 fp32 a thread) beside S^T, dP^T (64) and their bf16 fragments
+//   (32), past the 240 registers a consumer thread has.
 //
 // What bounds it: at qwen2-0.5b's training shape (B=4, S=1024, H=14, KV=2,
 // hd=64, bf16, causal) it must read q, o, dO (at 14 heads), k, v (at 2) and
 // lse and write dq, dk, dv: 33.8 MB, 10.1 us at 3.35 TB/s; its five
 // products on the unmasked pairs (S = QK^T again, dP, dV, dQ, dK) are 18.8
 // GFLOP, 19.0 us on the bf16 tensor cores, so the tensor cores' rate sets
-// the least time and the products must run on them.
+// the least time and the products must run on them.  In fp32 the same
+// operations take 0.114 ms at three TF32 passes (494.7 / 3 TFLOP/s), 0.28
+// ms on the CUDA cores (67 TFLOP/s).
 //
 // Tensor-core design (bf16).  Two launches for one count on the wrapper's
 // counter:
@@ -75,7 +83,29 @@
 //   past Skv are not stored.  P and dS are rounded to bf16 for the second
 //   products, as FlashAttention-2 and -3 do.
 //
-// CUDA-core design (fp32, bf16 hd 192), three kernels for one count:
+// TF32 design (fp32, hd <= 64), two launches for one count: the CUDA-core
+// route's D kernel, then one grid of 256-thread blocks in the tensor-core
+// route's two roles (dK/dV blocks of 64 keys first, key tile 0 first; then
+// dQ blocks of 64 query rows, the rows with the most key tiles first).  A
+// block keeps its pair of 64-row fp32 tiles (K, V or Q, dO) in shared
+// memory; its two halves of four warps take the other side's tiles in turn,
+// each loading its own pair (and the rows' lse and D) with cp.async, and
+// add their sums at the end in a fixed order (no atomics).  A warp owns 16
+// rows of the block's tile: S and dP as m16n8k8 products over hd with both
+// fragments read from shared memory (row stride hd + 4 floats: 32 distinct
+// banks), P and dS in the accumulators, then the second products with P
+// and dS as A fragments straight from the accumulator registers: the
+// k-step j reduces over the other tile's rows 8 j + 2 t and + 1 in the
+// order a thread holds them, and the B fragment is read in that order.
+// Each tile's sum over its 64 rows is formed from 0 and added to the
+// running dK, dV or dQ with one rounded fp32 add: the tensor cores'
+// accumulation rounds with a bias that over the thousands of k-steps of
+// dK (7 heads x 1,024 queries) came to ~2e-4 of the running sum.  The dQ
+// role recomputes S and dP (7 products where the function has 5), as the
+// bf16 route does.
+//
+// CUDA-core design (fp32 at hd > 64, bf16 hd 192), three kernels for one
+// count:
 //
 //   D        a warp per row: D = rowsum(dO * O) in fp32 (the workspace).
 //   dK, dV   a block per (batch, KV head, 64-key tile) loops over the query
@@ -486,6 +516,423 @@ static int launch_bwd_hd(const FlashBwdParams& p, int hd, cudaStream_t s) {
         case 192: return launch_bwd<T, 192>(p, s);
         default: return (int)cudaErrorInvalidValue;
     }
+}
+
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores: every product as three TF32 passes
+// ---------------------------------------------------------------------------
+
+#define TF_THREADS 256       // two halves of four warps
+#define TF_TILE 64           // keys a key tile, query rows a query tile
+#define TF_GROUP 4           // n-tiles of 8 columns a rounded partial sum
+
+struct Tf32Params {
+    const float* q;
+    const float* k;
+    const float* v;
+    const float* dout;
+    float* dq;
+    float* dk;
+    float* dv;
+    const float* lse;        // (B, H, Sq)
+    const float* dd;         // (B, H, Sq): rowsum(dO * O)
+    long long sq[3], sk[3], sv[3], sdo[3], sdq[3], sdk[3], sdv[3];
+    int B, H, KV, group, Sq, Skv, causal, window;
+    int n_kv_blocks;         // the grid's first blocks take the dK/dV role
+    int vq, vk, vv, vdo;     // whether the tensor loads in 16-byte copies
+    float scale;
+};
+
+template <int HD>
+struct TfShape {
+    // a 64-row fp32 tile's row stride: 4 mod 32 floats, so the fragment
+    // loads of both layouts below hit 32 distinct banks
+    static constexpr int RS = HD + 4;
+    static constexpr int TILE = TF_TILE * RS;
+    // each tile as its two TF32 terms, big then small (TILE apart): the
+    // resident pair, each half's streamed pair; then the resident rows' lse
+    // and D and each half's
+    static constexpr size_t SMEM = sizeof(float) * (12 * (size_t)TILE + 6 * TF_TILE);
+};
+
+// the TF32 value nearest x (round to nearest, ties away), as mma reads it
+__device__ __forceinline__ uint32_t tf32_rn(float x) {
+    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r;
+}
+
+// x = big + small + (x's last ~2^-22 of itself): two TF32 terms
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+    big = tf32_rn(x);
+    small = tf32_rn(x - __uint_as_float(big));
+}
+
+// d (16 x 8) += a (16 x 8, row) . b (8 x 8, col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b at fp32's accuracy: the two cross terms first, then the big
+// one (CUTLASS's 3xTF32); the small x small term is below fp32's rounding
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], uint32_t b0b,
+                                           uint32_t b1b, uint32_t b0s, uint32_t b1s) {
+    mma_tf32(d, as, b0b, b1b);
+    mma_tf32(d, ab, b0s, b1s);
+    mma_tf32(d, ab, b0b, b1b);
+}
+
+// rows [r0, r0 + 64) of a (B, S, heads, HD) fp32 tensor at (b, head) into
+// a 64 x RS tile, zeros past S, by nthr threads from tid; 16-byte copies
+// where the layout allows (vec), else 4-byte ones
+template <int HD>
+__device__ __forceinline__ void tf_load(float* dst, const float* base,
+                                        const long long* st, int b, int head,
+                                        int r0, int S, int tid, int nthr,
+                                        int vec) {
+    constexpr int RS = TfShape<HD>::RS;
+    const float* g = base + b * st[0] + head * st[2];
+    if (vec) {
+        constexpr int C4 = HD / 4;
+        for (int e = tid; e < TF_TILE * C4; e += nthr) {
+            const int r = e / C4, c = e % C4 * 4, s = r0 + r;
+            cp_async16(dst + r * RS + c, g + (long long)min(s, S - 1) * st[1] + c,
+                       s < S ? 16 : 0);
+        }
+    } else {
+        for (int e = tid; e < TF_TILE * HD; e += nthr) {
+            const int r = e / HD, c = e % HD, s = r0 + r;
+            cp_async4(dst + r * RS + c, g + (long long)min(s, S - 1) * st[1] + c,
+                      s < S ? 4 : 0);
+        }
+    }
+}
+
+// a loaded tile's fp32 values (at big) as their TF32 terms: big, and small
+// TILE floats on; by nthr threads from tid.  Each element is split once a
+// load, not at each of its uses
+template <int HD>
+__device__ __forceinline__ void tf_split(float* big, int tid, int nthr) {
+    constexpr int RS = TfShape<HD>::RS;
+    constexpr int TILE = TfShape<HD>::TILE;
+    for (int e = tid; e < TF_TILE * HD; e += nthr) {
+        float* x = big + e / HD * RS + e % HD;
+        uint32_t b, sm;
+        split_tf32(*x, b, sm);
+        x[0] = __uint_as_float(b);
+        x[TILE] = __uint_as_float(sm);
+    }
+}
+
+// acc (16 x 64, fp32) = X[r0 .. r0 + 15] . Y^T over the head dim, X and Y
+// 64-row tiles held as their TF32 terms; acc[j][e] is (row r0 + g + 8 (e /
+// 2), Y row 8 j + 2 t + e % 2)
+__device__ __forceinline__ uint32_t f2u(float x) { return __float_as_uint(x); }
+
+template <int HD>
+__device__ __forceinline__ void tf_scores(float (&acc)[8][4], const float* X,
+                                          const float* Y, int r0, int g, int t) {
+    constexpr int RS = TfShape<HD>::RS;
+    constexpr int TILE = TfShape<HD>::TILE;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < HD / 8; ++kk) {
+        const float* xa = X + (r0 + g) * RS + 8 * kk + t;
+        const uint32_t ab[4] = {f2u(xa[0]), f2u(xa[8 * RS]), f2u(xa[4]),
+                                f2u(xa[8 * RS + 4])};
+        const uint32_t as[4] = {f2u(xa[TILE]), f2u(xa[TILE + 8 * RS]),
+                                f2u(xa[TILE + 4]), f2u(xa[TILE + 8 * RS + 4])};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            const float* yb = Y + (8 * j + g) * RS + 8 * kk + t;
+            mma_3xtf32(acc[j], ab, as, f2u(yb[0]), f2u(yb[4]), f2u(yb[TILE]),
+                       f2u(yb[TILE + 4]));
+        }
+    }
+}
+
+// acc (16 x HD) += M (16 x 64, held as tf_scores' accumulator) . Z, Z a
+// 64-row tile held as its TF32 terms.  k-step j reduces over Z's rows 8 j .. 8 j + 7 in the order
+// the accumulator holds them: the thread's columns 8 j + 2 t and + 1 are
+// its A fragment's k = t and t + 4, and its B fragment reads Z's rows 8 j
+// + 2 t and + 1 to match, so M needs no shuffle.  The tile's sum over its
+// 64 rows is formed from 0 in GW n-tiles at a time and added to acc with
+// one rounded fp32 add: the tensor cores' accumulation rounds with a bias,
+// which over the thousands of k-steps of a long sum (dK over 7 heads x
+// 1,024 queries) came to ~2e-4 of the running sum
+template <int HD>
+__device__ __forceinline__ void tf_accumulate(float (&acc)[HD / 8][4],
+                                              const float (&m)[8][4],
+                                              const float* Z, int g, int t) {
+    constexpr int RS = TfShape<HD>::RS;
+    constexpr int TILE = TfShape<HD>::TILE;
+    constexpr int NC = HD / 8;
+    constexpr int GW = NC < TF_GROUP ? NC : TF_GROUP;
+#pragma unroll
+    for (int n0 = 0; n0 < NC; n0 += GW) {
+        float tmp[GW][4];
+#pragma unroll
+        for (int nn = 0; nn < GW; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) tmp[nn][e] = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+            uint32_t ab[4], as[4];
+            split_tf32(m[j][0], ab[0], as[0]);
+            split_tf32(m[j][2], ab[1], as[1]);
+            split_tf32(m[j][1], ab[2], as[2]);
+            split_tf32(m[j][3], ab[3], as[3]);
+            const float* z = Z + (8 * j + 2 * t) * RS + g;
+#pragma unroll
+            for (int nn = 0; nn < GW; ++nn) {
+                if (n0 + nn >= NC) continue;
+                const float* zn = z + 8 * (n0 + nn);
+                mma_3xtf32(tmp[nn], ab, as, f2u(zn[0]), f2u(zn[RS]), f2u(zn[TILE]),
+                           f2u(zn[TILE + RS]));
+            }
+        }
+#pragma unroll
+        for (int nn = 0; nn < GW; ++nn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                if (n0 + nn < NC) acc[n0 + nn][e] += tmp[nn][e];
+    }
+}
+
+__device__ __forceinline__ bool tf_keep(const Tf32Params& p, int qpos, int kpos) {
+    bool keep = qpos < p.Sq && kpos < p.Skv;
+    if (p.causal) keep = keep && kpos <= qpos;
+    if (p.window > 0) keep = keep && kpos > qpos - p.window;
+    return keep;
+}
+
+__device__ __forceinline__ bool tf_need_mask(const Tf32Params& p, int q0, int k0) {
+    return q0 + TF_TILE > p.Sq || k0 + TF_TILE > p.Skv
+        || (p.causal && k0 + TF_TILE - 1 > q0)
+        || (p.window > 0 && k0 <= q0 + TF_TILE - 1 - p.window);
+}
+
+// the second half's accumulators to the first through shared memory (free
+// once both halves have left their loops), added in a fixed order; returns
+// false in the second half, which is then done
+template <int NC>
+__device__ __forceinline__ bool tf_fold_halves(float (&a)[NC][4], float (&c)[NC][4],
+                                               float* xfer, int hf, int ht) {
+    __syncthreads();
+    if (hf == 1) {
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                xfer[((2 * n) * 4 + e) * 128 + ht] = a[n][e];
+                xfer[((2 * n + 1) * 4 + e) * 128 + ht] = c[n][e];
+            }
+    }
+    __syncthreads();
+    if (hf == 1) return false;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            a[n][e] += xfer[((2 * n) * 4 + e) * 128 + ht];
+            c[n][e] += xfer[((2 * n + 1) * 4 + e) * 128 + ht];
+        }
+    return true;
+}
+
+// rows row0 and row0 + 8 of a 16 x HD accumulator (times mul) to an fp32
+// tensor with row stride rs, rows below n_rows
+template <int NC>
+__device__ __forceinline__ void tf_store(float* g, long long rs, const float (&acc)[NC][4],
+                                         float mul, int row0, int n_rows, int t) {
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int row = row0 + 8 * (e >> 1);
+            if (row < n_rows)
+                g[(long long)row * rs + 8 * n + 2 * t + (e & 1)] = acc[n][e] * mul;
+        }
+}
+
+// One grid, two roles, as the bf16 kernel: the first n_kv_blocks blocks own
+// 64 keys of a (batch, KV head) each, key tile 0 first, the rest 64 query
+// rows of a (batch, query head) each, the rows with the most key tiles
+// first.  A block keeps its pair of 64-row tiles (K, V or Q, dO) in shared
+// memory; its two halves of four warps take the other side's tiles in turn,
+// each loading its own pair with cp.async, and add their sums at the end.
+// A warp owns 16 rows of the block's tile.
+template <int HD>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_bwd_tf32_kernel(const Tf32Params p) {
+    using Sh = TfShape<HD>;
+    constexpr int NC = HD / 8;
+    extern __shared__ float4 tf_smem[];
+    float* sm = reinterpret_cast<float*>(tf_smem);
+    // tile i's big terms at sm + 2 i TILE, its small ones TILE on
+    float* X = sm;                                   // resident: K or Q
+    float* Y = X + 2 * Sh::TILE;                     // resident: V or dO
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    const int hf = warp / 4, ht = threadIdx.x % 128;
+    const int r0 = 16 * (warp % 4), g = lane >> 2, t = lane & 3;
+    float* A = sm + (4 + 4 * hf) * Sh::TILE;         // this half's: Q or K
+    float* Bt = A + 2 * Sh::TILE;                    // and dO or V
+    float* rrows = sm + 12 * Sh::TILE;               // resident rows' lse, D
+    float* hrows = rrows + 2 * TF_TILE + 2 * TF_TILE * hf;   // this half's
+    float* xfer = sm + 4 * Sh::TILE;
+    float c1[NC][4], c2[NC][4];
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c1[n][e] = c2[n][e] = 0.f;
+
+    if ((int)blockIdx.x < p.n_kv_blocks) {
+        // dK (c1) and dV (c2) of 64 keys of one (batch, KV head)
+        const int bkv = blockIdx.x % (p.B * p.KV);
+        const int b = bkv / p.KV, kvh = bkv % p.KV;
+        const int k0 = blockIdx.x / (p.B * p.KV) * TF_TILE;
+        tf_load<HD>(X, p.k, p.sk, b, kvh, k0, p.Skv, threadIdx.x, TF_THREADS, p.vk);
+        tf_load<HD>(Y, p.v, p.sv, b, kvh, k0, p.Skv, threadIdx.x, TF_THREADS, p.vv);
+        // query tiles whose rows see a key of this tile, for each head of
+        // the group: iteration it reads head kvh group + it / nq
+        const int k_last = min(k0 + TF_TILE, p.Skv) - 1;
+        const int qt_begin = p.causal ? k0 / TF_TILE : 0;
+        int qt_end = (p.Sq + TF_TILE - 1) / TF_TILE;
+        if (p.window > 0) qt_end = min(qt_end, (k_last + p.window - 1) / TF_TILE + 1);
+        const int nq = max(qt_end - qt_begin, 0);
+        const int n_it = p.group * nq;
+        cp_async_wait_all();
+        __syncthreads();
+        tf_split<HD>(X, threadIdx.x, TF_THREADS);
+        tf_split<HD>(Y, threadIdx.x, TF_THREADS);
+        __syncthreads();
+        for (int it = hf; it < n_it; it += 2) {
+            const int h = kvh * p.group + it / nq;
+            const int q0 = (qt_begin + it % nq) * TF_TILE;
+            const long long bh = (long long)b * p.H + h;
+            tf_load<HD>(A, p.q, p.sq, b, h, q0, p.Sq, ht, 128, p.vq);
+            tf_load<HD>(Bt, p.dout, p.sdo, b, h, q0, p.Sq, ht, 128, p.vdo);
+            if (ht < TF_TILE) {
+                const bool in = q0 + ht < p.Sq;
+                hrows[ht] = in ? p.lse[bh * p.Sq + q0 + ht] : 0.f;
+                hrows[TF_TILE + ht] = in ? p.dd[bh * p.Sq + q0 + ht] : 0.f;
+            }
+            cp_async_wait_all();
+            asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+            tf_split<HD>(A, ht, 128);
+            tf_split<HD>(Bt, ht, 128);
+            asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+            // S^T = K Q^T and dP^T = V dO^T: keys x queries
+            float s[8][4], dp[8][4];
+            tf_scores<HD>(s, X, A, r0, g, t);
+            tf_scores<HD>(dp, Y, Bt, r0, g, t);
+            const bool need_mask = tf_need_mask(p, q0, k0);
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int qc = 8 * j + 2 * t + (e & 1);
+                    float pr = expf(s[j][e] * p.scale - hrows[qc]);
+                    if (need_mask && !tf_keep(p, q0 + qc, k0 + r0 + g + 8 * (e >> 1)))
+                        pr = 0.f;
+                    s[j][e] = pr;
+                    dp[j][e] = pr * (dp[j][e] - hrows[TF_TILE + qc]);
+                }
+            // dV += P^T dO, dK += dS^T Q
+            tf_accumulate<HD>(c2, s, Bt, g, t);
+            tf_accumulate<HD>(c1, dp, A, g, t);
+            asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+        }
+        if (!tf_fold_halves<NC>(c1, c2, xfer, hf, ht)) return;
+        const int row0 = k0 + r0 + g;
+        tf_store<NC>(p.dk + b * p.sdk[0] + kvh * p.sdk[2], p.sdk[1], c1, p.scale,
+                     row0, p.Skv, t);
+        tf_store<NC>(p.dv + b * p.sdv[0] + kvh * p.sdv[2], p.sdv[1], c2, 1.f,
+                     row0, p.Skv, t);
+        return;
+    }
+
+    // dQ (c1) of 64 query rows of one (batch, query head)
+    const int idx = blockIdx.x - p.n_kv_blocks;
+    const int BH = p.B * p.H;
+    const int nqt = (p.Sq + TF_TILE - 1) / TF_TILE;
+    const int bh = idx % BH, b = bh / p.H, h = bh % p.H, kvh = h / p.group;
+    const int q0 = (nqt - 1 - idx / BH) * TF_TILE;          // heavy tiles first
+    tf_load<HD>(X, p.q, p.sq, b, h, q0, p.Sq, threadIdx.x, TF_THREADS, p.vq);
+    tf_load<HD>(Y, p.dout, p.sdo, b, h, q0, p.Sq, threadIdx.x, TF_THREADS, p.vdo);
+    if (threadIdx.x < TF_TILE) {
+        const bool in = q0 + threadIdx.x < p.Sq;
+        rrows[threadIdx.x] = in ? p.lse[(long long)bh * p.Sq + q0 + threadIdx.x] : 0.f;
+        rrows[TF_TILE + threadIdx.x] =
+            in ? p.dd[(long long)bh * p.Sq + q0 + threadIdx.x] : 0.f;
+    }
+    // key tiles that hold a key some row of this tile sees
+    const int q_last = min(q0 + TF_TILE, p.Sq) - 1;
+    int kt_end = (p.Skv + TF_TILE - 1) / TF_TILE;
+    if (p.causal) kt_end = min(kt_end, q_last / TF_TILE + 1);
+    const int kt_begin = p.window > 0 ? max(0, q0 - p.window + 1) / TF_TILE : 0;
+    const int n_tiles = max(kt_end - kt_begin, 0);
+    cp_async_wait_all();
+    __syncthreads();
+    tf_split<HD>(X, threadIdx.x, TF_THREADS);
+    tf_split<HD>(Y, threadIdx.x, TF_THREADS);
+    __syncthreads();
+    const int qr = r0 + g;                           // this thread's rows qr, qr + 8
+    const float l0 = rrows[qr], l1 = rrows[qr + 8];
+    const float d0 = rrows[TF_TILE + qr], d1 = rrows[TF_TILE + qr + 8];
+    for (int i = hf; i < n_tiles; i += 2) {
+        const int k0 = (kt_begin + i) * TF_TILE;
+        tf_load<HD>(A, p.k, p.sk, b, kvh, k0, p.Skv, ht, 128, p.vk);
+        tf_load<HD>(Bt, p.v, p.sv, b, kvh, k0, p.Skv, ht, 128, p.vv);
+        cp_async_wait_all();
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+        tf_split<HD>(A, ht, 128);
+        tf_split<HD>(Bt, ht, 128);
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+        // S = Q K^T and dP = dO V^T: queries x keys
+        float s[8][4], dp[8][4];
+        tf_scores<HD>(s, X, A, r0, g, t);
+        tf_scores<HD>(dp, Y, Bt, r0, g, t);
+        const bool need_mask = tf_need_mask(p, q0, k0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const bool lo = e < 2;
+                float pr = expf(s[j][e] * p.scale - (lo ? l0 : l1));
+                if (need_mask && !tf_keep(p, q0 + qr + (lo ? 0 : 8),
+                                          k0 + 8 * j + 2 * t + (e & 1)))
+                    pr = 0.f;
+                s[j][e] = pr * (dp[j][e] - (lo ? d0 : d1));
+            }
+        // dQ += dS K
+        tf_accumulate<HD>(c1, s, A, g, t);
+        asm volatile("bar.sync %0, 128;\n" :: "r"(1 + hf) : "memory");
+    }
+    if (!tf_fold_halves<NC>(c1, c2, xfer, hf, ht)) return;
+    tf_store<NC>(p.dq + b * p.sdq[0] + h * p.sdq[2], p.sdq[1], c1, p.scale,
+                 q0 + qr, p.Sq, t);
+}
+
+template <int HD>
+static int launch_bwd_tf32(const Tf32Params& p, cudaStream_t stream) {
+    constexpr size_t smem = TfShape<HD>::SMEM;
+    static bool smem_set[FA_MAX_DEVICES] = {};
+    const int err = raise_smem_once(flash_bwd_tf32_kernel<HD>, smem, smem_set);
+    if (err) return err;
+    const long long blocks = (long long)p.n_kv_blocks
+        + (long long)p.B * p.H * ((p.Sq + TF_TILE - 1) / TF_TILE);
+    if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+    flash_bwd_tf32_kernel<HD><<<(unsigned)blocks, TF_THREADS, smem, stream>>>(p);
+    return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1002,6 +1449,90 @@ int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
     if (dtype == 0) return launch_bwd_hd<float>(p, hd, s);
     if (dtype == 1) return launch_bwd_hd<__nv_bfloat16>(p, hd, s);
     return (int)cudaErrorInvalidValue;
+}
+
+// fp32 on the tensor cores (three TF32 passes a product), hd <= 64: ws
+// holds B H Sq fp32 (D).
+int flash_attention_bwd_tf32_launch(const void* q, const void* k,
+                                    const void* v, const void* o,
+                                    const void* dout, const float* lse,
+                                    void* dq, void* dk, void* dv, float* ws,
+                                    const long long* strides, int B, int H,
+                                    int KV, int Sq, int Skv, int hd,
+                                    int causal, int window, float scale,
+                                    void* stream) {
+    if (B <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || Sq <= 0 || Skv <= 0)
+        return (int)cudaErrorInvalidValue;
+    const long long n_kv = (long long)B * KV * ((Skv + TF_TILE - 1) / TF_TILE);
+    const long long rows = (long long)B * H * Sq;
+    const long long dot_blocks = (rows + FB_THREADS / 32 - 1) / (FB_THREADS / 32);
+    if (n_kv > 2147483647LL || dot_blocks > 2147483647LL)
+        return (int)cudaErrorInvalidValue;
+    FlashBwdParams fp;
+    fp.o = o;
+    fp.dout = dout;
+    fp.dd = ws;
+    for (int t = 0; t < 8; ++t)
+        for (int a = 0; a < 3; ++a) fp.st[t][a] = strides[3 * t + a];
+    fp.B = B;
+    fp.H = H;
+    fp.Sq = Sq;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    flash_bwd_dot_kernel<float><<<(unsigned)dot_blocks, FB_THREADS, 0, s>>>(fp, hd);
+
+    Tf32Params p;
+    p.q = static_cast<const float*>(q);
+    p.k = static_cast<const float*>(k);
+    p.v = static_cast<const float*>(v);
+    p.dout = static_cast<const float*>(dout);
+    p.dq = static_cast<float*>(dq);
+    p.dk = static_cast<float*>(dk);
+    p.dv = static_cast<float*>(dv);
+    p.lse = lse;
+    p.dd = ws;
+    // a tensor loads in 16-byte copies when its address and the strides of
+    // its dimensions longer than 1 are multiples of 4 floats
+    const void* ptrs[4] = {q, k, v, dout};
+    const int which[4] = {0, 1, 2, 4};
+    const int sizes[3][2] = {{B, B}, {Sq, Skv}, {H, KV}};
+    int vec[4];
+    for (int i = 0; i < 4; ++i) {
+        const long long* st = strides + 3 * which[i];
+        const bool kv = i == 1 || i == 2;
+        bool ok = ((uintptr_t)ptrs[i] & 15) == 0;
+        for (int a = 0; a < 3; ++a)
+            if (sizes[a][kv] > 1 && (st[a] & 3)) ok = false;
+        vec[i] = ok;
+    }
+    p.vq = vec[0];
+    p.vk = vec[1];
+    p.vv = vec[2];
+    p.vdo = vec[3];
+    for (int a = 0; a < 3; ++a) {
+        p.sq[a] = strides[a];
+        p.sk[a] = strides[3 + a];
+        p.sv[a] = strides[6 + a];
+        p.sdo[a] = strides[12 + a];
+        p.sdq[a] = strides[15 + a];
+        p.sdk[a] = strides[18 + a];
+        p.sdv[a] = strides[21 + a];
+    }
+    p.B = B;
+    p.H = H;
+    p.KV = KV;
+    p.group = H / KV;
+    p.Sq = Sq;
+    p.Skv = Skv;
+    p.causal = causal;
+    p.window = window;
+    p.n_kv_blocks = (int)n_kv;
+    p.scale = scale;
+    switch (hd) {
+        case 16: return launch_bwd_tf32<16>(p, s);
+        case 32: return launch_bwd_tf32<32>(p, s);
+        case 64: return launch_bwd_tf32<64>(p, s);
+        default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // bf16 on the tensor cores, hd <= 128: ws holds 2 B H Sq_pad fp32 (Sq_pad

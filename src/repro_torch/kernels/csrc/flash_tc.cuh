@@ -1,8 +1,9 @@
 // Hopper building blocks shared by the flash attention forward
-// (flash_attention.cu) and backward (flash_attention_bwd.cu): mbarriers, TMA
-// loads of 64 x 64 bf16 boxes into 128-byte-swizzled panels, wgmma
-// descriptors and the m64nNk16 products with fp32 accumulators, and the 4-D
-// (hd, S, heads, B) tensor maps over a caller's strides.
+// (flash_attention.cu) and backward (flash_attention_bwd.cu), and the scan
+// backward (ssm_scan_bwd.cu): mbarriers, TMA loads of 64 x 64 bf16 boxes
+// into 128-byte-swizzled panels, cp.async copies, wgmma descriptors and the
+// m64nNk16 products with fp32 accumulators, and the 4-D (hd, S, heads, B)
+// tensor maps over a caller's strides.
 //
 // A panel is 64 rows of 64 bf16 columns (128 bytes a row, 8 KB), written by
 // TMA with the 128-byte swizzle, 1 KB aligned.  A wgmma operand that is
@@ -151,7 +152,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T; both K-major
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) . B (64 x 16, smem)^T: K-major
+// operands, or MN-major where TA / TB sets the transpose bit (bf16 only)
+template <int TA = 0, int TB = 0>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
                                                uint64_t db, int accumulate) {
     asm volatile(
@@ -162,7 +165,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -171,7 +174,7 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
 // D (64 x 64, fp32) += A (64 x 16, registers) . B (16 x 64, smem, MN-major)
@@ -286,6 +289,23 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[32 * NP],
     if constexpr (NP == 1) wgmma_rs_m64n64(d, a, db, 1);
     else if constexpr (NP == 2) wgmma_rs_m64n128(d, a, db, 1);
     else wgmma_rs_m64n192(d, a, db, 1);
+}
+
+// cp.async of g bytes (4 or 16) from global memory into shared memory:
+// the first `valid` bytes copied, the rest zero (valid 0 reads nothing)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid) : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid) : "memory");
+}
+
+// returns once this thread's cp.async copies have landed
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (the

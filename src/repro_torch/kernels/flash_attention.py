@@ -27,8 +27,10 @@ call form):
   exp(S·scale − lse)``, ``dS = P∘(dO·Vᵀ − D)``), in plain PyTorch and as the
   launch of the hand-written CUDA kernels of ``csrc/flash_attention_bwd.cu``
   on the route :func:`bwd_route` picks from the dtype and the head dim
-  (bf16 at ``BWD_TC_HEAD_DIMS`` on the tensor cores, the rest on the CUDA
-  cores); it replaces no TPU kernel (the Pallas kernel has no VJP).
+  (bf16 at ``BWD_TC_HEAD_DIMS`` through wgmma, fp32 at
+  ``BWD_TF32_HEAD_DIMS`` on the tensor cores as three TF32 passes a
+  product, the rest on the CUDA cores); it replaces no TPU kernel (the
+  Pallas kernel has no VJP).
 
 The public wrapper (its autograd and vmap rules, and the launch counters)
 is ``ops.flash_attention``.
@@ -49,14 +51,18 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_BH = 65535          # B*H rides on the fp32 kernel's grid y dimension
-# the route each dtype launches: bf16 on the tensor cores, fp32 on the CUDA
-# cores (TF32 would break the fp32 tolerances)
+# the route each dtype's forward launches: bf16 on the tensor cores, fp32 on
+# the CUDA cores (one pass of TF32 would break the fp32 tolerances)
 ROUTES = {torch.bfloat16: "tensor_cores", torch.float32: "cuda_cores"}
-# the bf16 head dims whose backward runs on the tensor cores; at hd 192 a
-# consumer thread's share of the dK and dV accumulators beside S and dP
-# would pass its registers (the kernel's note), so that backward (and every
-# fp32 one) runs on the CUDA cores
+# the head dims whose backward runs on the tensor cores: bf16 through
+# wgmma, fp32 as three TF32 passes a product (route "tf32x3", which keeps
+# fp32's accuracy).  Past them a thread's share of the dK and dV
+# accumulators beside S and dP would pass its registers (the kernel's
+# note: the fp32 kernel spills at hd 96), so those backwards run on the
+# CUDA cores
 BWD_TC_HEAD_DIMS = (16, 32, 64, 96, 128)
+BWD_TF32_HEAD_DIMS = (16, 32, 64)
+BWD_ROUTES = ("tensor_cores", "tf32x3", "cuda_cores")
 # rows a tile of the tensor-core backward: its workspace pads each (b, h)
 # row block of lse and D to a whole tile
 BWD_TILE = 64
@@ -196,9 +202,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def bwd_route(dtype: torch.dtype, hd: int) -> str:
     """The route of the backward for this dtype and head dim (one of
-    ``ROUTES``' values), by shape alone."""
-    return ("tensor_cores" if dtype == torch.bfloat16
-            and hd in BWD_TC_HEAD_DIMS else "cuda_cores")
+    ``BWD_ROUTES``), by shape alone: bf16 ``tensor_cores`` at
+    ``BWD_TC_HEAD_DIMS``, fp32 ``tf32x3`` at ``BWD_TF32_HEAD_DIMS``, else
+    ``cuda_cores``."""
+    if dtype == torch.bfloat16:
+        return "tensor_cores" if hd in BWD_TC_HEAD_DIMS else "cuda_cores"
+    return "tf32x3" if hd in BWD_TF32_HEAD_DIMS else "cuda_cores"
 
 
 def bwd_workspace_numel(B: int, H: int, Sq: int) -> int:
@@ -216,8 +225,10 @@ def _bwd_launcher(route: str):
     fn = _bwd_launchers.get(route)
     if fn is None:
         lib = _build.load("flash_attention_bwd")
-        if route == "tensor_cores":
-            fn = lib.flash_attention_bwd_bf16_launch
+        if route in ("tensor_cores", "tf32x3"):
+            fn = (lib.flash_attention_bwd_bf16_launch
+                  if route == "tensor_cores"
+                  else lib.flash_attention_bwd_tf32_launch)
             tail = [ctypes.c_float, ctypes.c_void_p]
         else:
             fn = lib.flash_attention_bwd_launch

@@ -26,8 +26,9 @@ counterparts):
 :data:`flash_route_launches` splits the flash launches by the kernel the
 dtype picked: ``tensor_cores`` (bf16) and ``cuda_cores`` (fp32);
 :data:`flash_bwd_route_launches` the backward's by the route the dtype and
-head dim picked (``flash_attention.bwd_route``: bf16 on the tensor cores but
-at hd 192, fp32 on the CUDA cores).
+head dim picked (``flash_attention.bwd_route``: ``tensor_cores`` for bf16,
+``tf32x3`` for fp32 -- the tensor cores, three TF32 passes a product --
+and ``cuda_cores`` at hd 192).
 
 Gradients.  ``flash_attention``, ``rmsnorm`` and ``ssm_scan`` are
 differentiable through ``torch.autograd.Function``s whose backward is a
@@ -35,7 +36,10 @@ hand-written kernel on a CUDA tensor (its plain version on a CPU tensor),
 counted by :data:`flash_bwd_dispatches` / :data:`flash_bwd_launches`,
 :data:`rmsnorm_bwd_dispatches` / :data:`rmsnorm_bwd_launches` and
 :data:`ssm_scan_bwd_dispatches` / :data:`ssm_scan_bwd_launches` (one launch
-a call, whatever its kernels; reset with the forward's counters).  Each
+a call, whatever its kernels; reset with the forward's counters), the
+scan's split by route in :data:`ssm_scan_bwd_route_launches`
+(``ssm_scan.bwd_route``: ``bf16`` when q, k and v are all bf16, else
+``mixed``).  Each
 Function has a ``vmap`` rule that folds the vmapped axis into the rows (the
 batch for flash and the scan, the rows and a g table for the norm), so
 ``torch.func.vmap`` of ``torch.func.grad`` — the client engine — launches
@@ -80,11 +84,13 @@ flash_launches = 0
 flash_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
 flash_bwd_dispatches = 0
 flash_bwd_launches = 0
-flash_bwd_route_launches = {"tensor_cores": 0, "cuda_cores": 0}
+flash_bwd_route_launches = {route: 0 for route in _fa.BWD_ROUTES}
 ssm_scan_dispatches = 0
 ssm_scan_launches = 0
 ssm_scan_bwd_dispatches = 0
 ssm_scan_bwd_launches = 0
+# scan backward launches by route: q, k, v all bf16, or any other mix
+ssm_scan_bwd_route_launches = {route: 0 for route in _ssm.BWD_ROUTES}
 rmsnorm_dispatches = 0
 rmsnorm_launches = 0
 rmsnorm_bwd_dispatches = 0
@@ -517,6 +523,8 @@ def reset_ssm_scan_counts() -> None:
     ssm_scan_launches = 0
     ssm_scan_bwd_dispatches = 0
     ssm_scan_bwd_launches = 0
+    for route in ssm_scan_bwd_route_launches:
+        ssm_scan_bwd_route_launches[route] = 0
 
 
 def _check_ssm(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -589,6 +597,17 @@ def _ssm_fwd(q, k, v, log_a, chunk: int):
     return y, h
 
 
+def _rows_aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (B, S, H, P) bf16 with a unit inner stride, or a fresh
+    contiguous copy where its (batch, seq, head) rows do not all start at
+    16-byte aligned addresses (a dimension of size 1 is never stepped)."""
+    if t.data_ptr() % 16 == 0 and all(
+            n == 1 or st % 8 == 0 for n, st in zip(t.shape[:3],
+                                                    t.stride()[:3])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _ssm_bwd(dy, dh, q, k, v, log_a, chunk: int):
     """The backward on plain tensors -> (dq, dk, dv in the inputs' dtypes,
     dlog_a fp32); ``dh`` None when h_final is unused.  On the card the
@@ -609,6 +628,8 @@ def _ssm_bwd(dy, dh, q, k, v, log_a, chunk: int):
     dy = dy.to(v.dtype)
     if dy.stride(3) != 1:
         dy = dy.contiguous()
+    if _ssm.bwd_resident(q.dtype, k.dtype, v.dtype, N, P):
+        v, dy = _rows_aligned(v), _rows_aligned(dy)
     if dh is not None:
         dh = dh.to(torch.float32).contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -617,8 +638,10 @@ def _ssm_bwd(dy, dh, q, k, v, log_a, chunk: int):
     dla = torch.empty(log_a.shape, dtype=torch.float32, device=q.device)
     bws = torch.empty(_ssm.bwd_workspace_numel(B, H, S, N, P),
                       dtype=torch.float32, device=q.device)
-    _ssm.ssm_scan_bwd_cuda(dy, dh, q, k, v, log_a, dq, dk, dv, dla, bws)
+    route = _ssm.ssm_scan_bwd_cuda(dy, dh, q, k, v, log_a, dq, dk, dv, dla,
+                                   bws)
     ssm_scan_bwd_launches += 1
+    ssm_scan_bwd_route_launches[route] += 1
     return dq, dk, dv, dla
 
 

@@ -24,8 +24,11 @@ q, k (B, S, H, N), v (B, S, H, P), log_a (B, S, H):
   under autograd, and what ``chip_smoke.py`` holds the kernel to.
 * :func:`ssm_scan_bwd_cuda` — the launch of ``csrc/ssm_scan_bwd.cu``,
   hand-written CUDA C++ for Hopper (no TPU kernel: the Pallas kernel has no
-  VJP; JAX trains through its jnp chunked form), which recomputes the
-  chunks' starting states in fp32 and writes no atomics.
+  VJP; JAX trains through its jnp chunked form): every product on the
+  tensor cores (wgmma) with fp32's accuracy, its fp32 operands split into
+  three bf16 terms, on the route :func:`bwd_route` picks from the dtypes;
+  it recomputes the chunks' starting states in fp32, forms each chunk's
+  gated dY·Vᵀ and Q·Kᵀ tiles once, and writes no atomics.
 
 The public wrapper (and the launch counters) is ``ops.ssm_scan``; its
 gradient goes through ``ops._SsmScanFn``.
@@ -53,16 +56,48 @@ def workspace_numel(B: int, H: int, S: int, N: int, P: int) -> int:
     return B * H * (-(-S // CHUNK)) * (N * (-(-P // 4) * 4) + 1)
 
 
+# the backward's routes, by the inputs' dtypes alone (bwd_route)
+BWD_ROUTES = ("bf16", "mixed")
+
+
+def bwd_route(q_dtype: torch.dtype, k_dtype: torch.dtype,
+              v_dtype: torch.dtype) -> str:
+    """The backward kernel's route: ``bf16`` when q, k and v are all bf16
+    (every product one or three bf16 passes on the tensor cores), else
+    ``mixed`` (an fp32 operand on both sides of a product takes six)."""
+    return ("bf16" if q_dtype == k_dtype == v_dtype == torch.bfloat16
+            else "mixed")
+
+
+def bwd_resident(q_dtype: torch.dtype, k_dtype: torch.dtype,
+                 v_dtype: torch.dtype, N: int, P: int) -> bool:
+    """Whether the backward runs its chunk-resident design (a block per
+    (b, h, chunk) that copies the chunk's dy and v once, 16 bytes a copy):
+    the ``bf16`` route at N <= 16 and P <= 448 a multiple of 8, hymba's
+    heads; dy's and v's (batch, seq, head) rows must then start at 16-byte
+    aligned addresses.  Every other call runs the tiled design."""
+    return (bwd_route(q_dtype, k_dtype, v_dtype) == "bf16" and N <= 16
+            and P <= 448 and P % 8 == 0)
+
+
+def bwd_n_tile(N: int) -> int:
+    """The width of the backward's tiles along the state's N: 16 for N <=
+    16 (hymba's heads), else 64."""
+    return 16 if N <= 16 else 64
+
+
 def bwd_workspace_numel(B: int, H: int, S: int, N: int, P: int) -> int:
     """fp32 elements of the backward kernels' workspace
     (``csrc/ssm_scan_bwd.cu``): a state gradient and a starting state (N, P)
     for each (b, h, chunk of CHUNK steps), the chunk totals, then each
     chunk's parts of its boundary product (one for every 256 state
-    elements), then each chunk's parts of q·dq − k·dk (CHUNK steps for
-    every 64-wide N-tile)."""
+    elements), its parts of q·dq and of k·dk (CHUNK steps for every N-tile
+    of ``bwd_n_tile(N)``), then its gated (CHUNK, CHUNK) tiles of dY·Vᵀ and
+    Q·Kᵀ."""
     nc = -(-S // CHUNK)
     return B * H * nc * (2 * N * P + 1 + -(-N * P // 256)
-                         + -(-N // 64) * CHUNK)
+                         + 2 * -(-N // bwd_n_tile(N)) * CHUNK
+                         + 2 * CHUNK * CHUNK)
 
 
 def ssm_scan_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -270,13 +305,15 @@ def ssm_scan_bwd_cuda(dy: torch.Tensor, dh: Optional[torch.Tensor],
                       q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_a: torch.Tensor, dq: torch.Tensor,
                       dk: torch.Tensor, dv: torch.Tensor, dla: torch.Tensor,
-                      bws: torch.Tensor) -> None:
-    """Launch the backward's five kernels on the current stream: dy (B, S,
-    H, P) in v's dtype with a unit inner stride, dh (B, H, N, P) fp32
+                      bws: torch.Tensor) -> str:
+    """Launch the backward's four kernels on the current stream: dy (B, S,
+    H, P) in v's dtype with a unit inner stride (dy's and v's rows 16-byte
+    aligned where :func:`bwd_resident` holds), dh (B, H, N, P) fp32
     contiguous or None; writes the contiguous ``dq``, ``dk``, ``dv`` (the
     inputs' dtypes) and ``dla`` (fp32) through the fp32 workspace ``bws``
-    (``bwd_workspace_numel`` elements).  The caller has checked devices,
-    dtypes and shapes (``ops._ssm_bwd``); raises if a launch fails."""
+    (``bwd_workspace_numel`` elements).  Returns the route
+    (:func:`bwd_route`).  The caller has checked devices, dtypes and shapes
+    (``ops._ssm_bwd``); raises if a launch fails."""
     B, S, H, N = q.shape
     P = v.shape[-1]
     strides = [t.stride(a) for t in (q, k, v, log_a, dy) for a in (0, 1, 2)]
@@ -293,3 +330,4 @@ def ssm_scan_bwd_cuda(dy: torch.Tensor, dh: Optional[torch.Tensor],
         raise RuntimeError(f"ssm_scan backward launch failed: error {rc} (q "
                            f"{tuple(q.shape)} {q.dtype}, v {tuple(v.shape)} "
                            f"{v.dtype})")
+    return bwd_route(q.dtype, k.dtype, v.dtype)

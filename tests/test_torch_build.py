@@ -46,3 +46,11 @@ def test_flash_sources_share_their_header():
     for name in ("flash_attention", "flash_attention_bwd"):
         assert _build.sources(name) == [f"{name}.cu", "flash_tc.cuh"]
     assert _build.sources("rmsnorm") == ["rmsnorm.cu"]
+
+
+def test_scan_backward_keys_on_the_shared_header():
+    """The scan's backward builds its wgmma products from the same header,
+    so an edit there rebuilds it too; its forward includes none."""
+    assert _build.sources("ssm_scan_bwd") == ["ssm_scan_bwd.cu",
+                                              "flash_tc.cuh"]
+    assert _build.sources("ssm_scan") == ["ssm_scan.cu"]

@@ -1544,14 +1544,16 @@ def test_cuda_ganged_semi_sync_first_wave_is_one_dispatch(cuda):
 # (B, Sq, Skv, H, KV, hd, causal, window): every head dim with KV < H,
 # windows, non-causal, ragged Sq and Skv, the training shape; then the
 # tensor-core tiling's edges at qwen2's heads: a ragged last key and query
-# tile (200), one key tile and half a dQ tile (64), a window of two tiles
+# tile (200; 1000 near the training length), one key tile and half a dQ
+# tile (64), a window of two tiles, 13(c)'s folded block of 4 clients
 FLASH_BWD_CASES = [(2, 256, 256, 4, 2, hd, True, 0)
                    for hd in (16, 32, 64, 96, 128, 192)] + [
     (1, 77, 77, 2, 1, 96, True, 20), (2, 130, 100, 4, 2, 64, False, 0),
     (1, 100, 130, 4, 1, 128, True, 0), (1, 300, 300, 8, 2, 192, True, 100),
     (4, 1024, 1024, 14, 2, 64, True, 0),
     (1, 200, 200, 14, 2, 64, True, 0), (2, 64, 64, 14, 2, 64, True, 0),
-    (1, 300, 300, 14, 2, 64, True, 128)]
+    (1, 300, 300, 14, 2, 64, True, 128),
+    (3, 1000, 1000, 14, 2, 64, True, 0), (16, 32, 32, 14, 2, 64, True, 0)]
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
@@ -1560,8 +1562,8 @@ def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     """The backward kernel against ``flash_attention_bwd_plain`` on the
     same (q, k, v, o, dO, lse), and the forward's log-sum-exp against the
     plain one, at tests/test_kernels.py's tolerances; one launch a call, on
-    the route ``bwd_route`` names (bf16 on the tensor cores but at hd
-    192)."""
+    the route ``bwd_route`` names (bf16 on the tensor cores at hd <= 128,
+    fp32 as three TF32 passes at hd <= 64, the rest on the CUDA cores)."""
     from repro_torch.kernels.flash_attention import (
         bwd_route, flash_attention_bwd_plain, flash_attention_fwd_plain)
     B, Sq, Skv, H, KV, hd, causal, window = case
@@ -1582,8 +1584,9 @@ def test_cuda_flash_bwd_kernel_matches_plain(cuda, case, dtype):
     assert ops.flash_bwd_launches == launches + 1
     routes[bwd_route(dtype, hd)] += 1
     assert ops.flash_bwd_route_launches == routes
-    assert bwd_route(dtype, hd) == ("tensor_cores" if dtype == BF
-                                    and hd <= 128 else "cuda_cores")
+    assert bwd_route(dtype, hd) == (
+        "tensor_cores" if dtype == BF and hd <= 128
+        else "tf32x3" if dtype == F32 and hd <= 64 else "cuda_cores")
     atol, rtol = (2e-5, 1e-3) if dtype == F32 else (2e-2, 1e-2)
     torch.testing.assert_close(lse, want_lse, atol=atol, rtol=rtol)
     for a, w, ref in zip(got, want, (q, k, v)):
@@ -1628,12 +1631,37 @@ def test_cuda_rmsnorm_bwd_kernel_matches_plain(cuda, case, dtype):
                                    rtol=1e-2)
 
 
+def _scan_bwd_inputs(cuda, case, seed):
+    """dy, dh (or None), q, k, v, log_a of a SCAN_BWD_CASES-style case, q
+    and k expanded over the heads where shared."""
+    B, S, H, N, P, chunk, dt, kdt, shared, with_dh = case
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Hq = 1 if shared else H
+    q = torch.randn(B, S, Hq, N, device=cuda, generator=g).to(dt)
+    k = (0.3 * torch.randn(B, S, Hq, N, device=cuda, generator=g)).to(kdt)
+    v = torch.randn(B, S, H, P, device=cuda, generator=g).to(dt)
+    la = -torch.nn.functional.softplus(
+        torch.randn(B, S, H, device=cuda, generator=g))
+    dy = torch.randn(B, S, H, P, device=cuda, generator=g).to(dt)
+    dh = (torch.randn(B, H, N, P, device=cuda, generator=g) if with_dh
+          else None)
+    return dy, dh, q.expand(B, S, H, N), k.expand(B, S, H, N), v, la
+
+
+# the scan backward of each route at a training shape: hymba's all-bf16
+# (the chunk-resident design) and xlstm's fp32 k (the tiled one)
+SCAN_BWD_ROUTE_CASES = {
+    "bf16": (4, 1024, 8, 16, 400, 256, BF, BF, True, False),
+    "mixed": (4, 1024, 4, 384, 385, 256, BF, F32, False, False)}
+
+
 @pytest.mark.parametrize("dtype", [F32, BF])
 def test_cuda_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
     """Each backward kernel, called twice on the same inputs at qwen2's
-    training shape, gives the same bits: nothing is summed in an order
-    that depends on timing (no atomics); and the norm's backward takes its
-    one-pass route there."""
+    training shape (the scan's at the training shape of the route the dtype
+    names: bf16 hymba's, fp32 xlstm's fp32 k), gives the same bits: nothing
+    is summed in an order that depends on timing (no atomics); and the
+    norm's backward takes its one-pass route there."""
     g = torch.Generator(device=cuda).manual_seed(24)
     B, S, H, KV, hd = 4, 1024, 14, 2, 64
     q = torch.randn(B, S, H, hd, device=cuda, generator=g).to(dtype)
@@ -1649,10 +1677,66 @@ def test_cuda_bwd_kernels_repeat_bit_for_bit(cuda, dtype):
          ).to(dtype)
     n1 = ops._rms_bwd(dy, x, w, 1e-5)
     n2 = ops._rms_bwd(dy, x, w, 1e-5)
+    case = SCAN_BWD_ROUTE_CASES["bf16" if dtype == BF else "mixed"]
+    sargs = _scan_bwd_inputs(cuda, case, 25)
+    s1 = ops._ssm_bwd(*sargs, case[5])
+    s2 = ops._ssm_bwd(*sargs, case[5])
     torch.cuda.synchronize()
-    for a, b in zip(first + n1, second + n2):
+    for a, b in zip(first + n1 + s1, second + n2 + s2):
         assert torch.equal(a, b)
     assert rms_kernel.bwd_route(dy, x, w, torch.empty_like(x)) == "one_pass"
+
+
+def test_cuda_bwd_route_counters_move_by_one_a_call(cuda):
+    """A backward call adds one launch to its kernel's counter and one to
+    its route's, and nothing to the others: fp32 flash at qwen2's heads on
+    ``tf32x3``, the scan's all-bf16 and mixed routes."""
+    g = torch.Generator(device=cuda).manual_seed(26)
+    q = torch.randn(2, 128, 14, 64, device=cuda, generator=g)
+    k, v = (torch.randn(2, 128, 2, 64, device=cuda, generator=g)
+            for _ in range(2))
+    o, lse = ops._flash_fwd(q, k, v, True, 0, True)
+    ops.reset_flash_counts()
+    ops._flash_bwd(torch.randn_like(q), q, k, v, o, lse, True, 0)
+    assert ops.flash_bwd_launches == 1
+    assert ops.flash_bwd_route_launches == {"tensor_cores": 0, "tf32x3": 1,
+                                            "cuda_cores": 0}
+    for route, case in SCAN_BWD_ROUTE_CASES.items():
+        case = (1, 200) + case[2:]
+        args = _scan_bwd_inputs(cuda, case, 27)
+        ops.reset_ssm_scan_counts()
+        ops._ssm_bwd(*args, case[5])
+        torch.cuda.synchronize()
+        assert ops.ssm_scan_bwd_launches == 1
+        assert ops.ssm_scan_bwd_route_launches == {
+            r: int(r == route) for r in ("bf16", "mixed")}
+
+
+def test_cuda_scan_bwd_resident_design_takes_misaligned_rows(cuda):
+    """The scan backward's design follows dtypes and shapes alone: at
+    hymba's widths, dy and v whose rows start off 16-byte boundaries (views
+    at an odd offset) give the same bits as aligned copies, since the
+    wrapper copies them aligned; the launcher itself refuses such rows
+    rather than taking another design."""
+    from repro_torch.kernels import ssm_scan as ssm
+    case = (1, 200, 8, 16, 400, 64, BF, BF, True, False)
+    dy, dh, q, k, v, la = _scan_bwd_inputs(cuda, case, 28)
+    B, S, H, N, P = case[:5]
+    assert ssm.bwd_resident(q.dtype, k.dtype, v.dtype, N, P)
+    odd = [torch.empty(B, S, H, P + 1, dtype=BF, device=cuda)[..., 1:]
+           for _ in range(2)]
+    for t, src in zip(odd, (dy, v)):
+        t.copy_(src)
+    assert all(t.data_ptr() % 16 for t in odd)
+    want = ops._ssm_bwd(dy, dh, q, k, v, la, 64)
+    got = ops._ssm_bwd(odd[0], dh, q, k, odd[1], la, 64)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    outs = [torch.empty_like(t) for t in (q, k, v)]
+    outs.append(torch.empty_like(la))
+    bws = torch.empty(ssm.bwd_workspace_numel(B, H, S, N, P), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ssm.ssm_scan_bwd_cuda(odd[0], dh, q, k, odd[1], la, *outs, bws)
 
 
 def _lm_cfg(impl="pallas", **kw):
@@ -1728,7 +1812,11 @@ def test_cuda_vmapped_grad_launches_once_a_block_and_equals_cpu(cuda):
 
 # (B, S, H, N, P, chunk, q/v dtype, k dtype, q and k shared by the heads,
 # dh given): several 64-step chunks and a ragged one, S % chunk != 0, the
-# heads sharing q and k, the mLSTM's fp32 k beside bf16 q and v
+# heads sharing q and k, the mLSTM's fp32 k beside bf16 q and v; then the
+# new tilings' edges: hymba's widths over a ragged last chunk (the
+# chunk-resident design, a partial last P-panel), with q and k shared by
+# the heads as hymba has them and per head, and xlstm's widths (six
+# 64-wide N-tiles, a partial P-tile)
 SCAN_BWD_CASES = [(1, 256, 3, 16, 32, 64, torch.float32, torch.float32,
                    False, True),
                   (2, 200, 3, 16, 33, 64, torch.float32, torch.float32, True,
@@ -1736,6 +1824,12 @@ SCAN_BWD_CASES = [(1, 256, 3, 16, 32, 64, torch.float32, torch.float32,
                   (2, 130, 2, 16, 40, 64, torch.bfloat16, torch.bfloat16,
                    True, True),
                   (1, 100, 2, 70, 71, 16, torch.bfloat16, torch.float32,
+                   False, False),
+                  (1, 300, 8, 16, 400, 64, torch.bfloat16, torch.bfloat16,
+                   True, True),
+                  (1, 300, 8, 16, 400, 64, torch.bfloat16, torch.bfloat16,
+                   False, True),
+                  (2, 130, 4, 384, 385, 64, torch.bfloat16, torch.float32,
                    False, False)]
 
 
@@ -1744,9 +1838,13 @@ def test_cuda_gradient_through_ssm_scan_matches_the_plain_backward(cuda,
                                                                    case):
     """A gradient through ``ops.ssm_scan`` on the card launches the
     backward kernel once; it equals ``ssm_scan_bwd_plain`` (fp32 2e-4 /
-    1e-3, bf16 2e-2 / 1e-2: ``tests/test_kernels.py``'s scan bounds), gives
-    the same bits on a second call, and ``torch.func.grad`` through the scan
-    takes the same kernels.  A no-grad call is the forward launch alone."""
+    1e-3, bf16 2e-2 / 1e-2: ``tests/test_kernels.py``'s scan bounds; where
+    the heads share q and k, dq and dk are sums of H heads' gradients, each
+    rounded to its dtype, and take H times the absolute bound, as
+    ``tests/test_torch_recurrent_train.py`` holds the plain version to
+    JAX's), gives the same bits on a second call, and ``torch.func.grad``
+    through the scan takes the same kernels.  A no-grad call is the forward
+    launch alone."""
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_plain
     B, S, H, N, P, chunk, dt, kdt, shared, with_dh = case
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -1777,11 +1875,12 @@ def test_cuda_gradient_through_ssm_scan_matches_the_plain_backward(cuda,
             else want[0],
             want[1].float().sum(2, keepdim=True).to(kdt) if shared
             else want[1], *want[2:])
-    for a, b, w, d in zip(got, again, want, (dt, kdt, dt, torch.float32)):
+    for i, (a, b, w, d) in enumerate(zip(got, again, want,
+                                         (dt, kdt, dt, torch.float32))):
         assert torch.equal(a, b) and a.dtype == d and a.shape == w.shape
         atol, rtol = (2e-4, 1e-3) if d == torch.float32 else (2e-2, 1e-2)
-        torch.testing.assert_close(a.float(), w.float(), atol=atol * Hq
-                                   if shared else atol, rtol=rtol)
+        torch.testing.assert_close(a.float(), w.float(), atol=atol * H
+                                   if shared and i < 2 else atol, rtol=rtol)
     with torch.no_grad():
         ops.ssm_scan(q.expand(B, S, H, N), k.expand(B, S, H, N), v, la,
                      chunk=chunk)

@@ -148,6 +148,30 @@ def test_ssm_scan_bwd_plain_matches_jax_vjp(case):
                    (_tol(d)[0] * H, _tol(d)[1]))
 
 
+def test_scan_bwd_design_keys_on_shape_and_the_wrapper_aligns_rows():
+    """The backward's chunk-resident design is chosen by dtypes and shapes
+    alone (hymba's all-bf16 N = 16, P = 400; not xlstm's fp32 k, N = 384,
+    nor a P that is no multiple of 8), and the wrapper hands it dy and v
+    with 16-byte aligned rows: an aligned tensor as it is, a view at an odd
+    offset as an aligned copy of the same values."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssm_scan import bwd_resident
+    bf = torch.bfloat16
+    assert bwd_resident(bf, bf, bf, 16, 400)
+    assert not bwd_resident(bf, F32, bf, 384, 385)
+    assert not bwd_resident(bf, bf, bf, 16, 33)
+    assert not bwd_resident(F32, F32, F32, 16, 400)
+    base = torch.randn(2, 5, 3, 41, generator=torch.Generator().manual_seed(
+        0)).to(bf)
+    aligned = base[..., :40].contiguous()
+    assert ops._rows_aligned(aligned) is aligned
+    odd = base[..., 1:]
+    assert odd.data_ptr() % 16
+    copy = ops._rows_aligned(odd)
+    assert copy.data_ptr() % 16 == 0 and copy.is_contiguous()
+    assert torch.equal(copy, odd)
+
+
 def test_ssm_scan_bwd_plain_is_autograd_of_the_plain_forward():
     """At a sequence whose masked decays stay finite (autograd of the plain
     forward differentiates ``exp`` of the masked entries too, so a long
