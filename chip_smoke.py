@@ -232,16 +232,46 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    backwards' routes, one leaves-form fold a group, eval loss, peak;
    (e) each arch cut to 2 layers, fp32, card against CPU: gradients leaf
    by leaf within 1e-4 (relative 2-norms), loss 1e-5.
+15. The MoE FFN (``models/moe.py``): (a) one full-width MoE layer of
+   grok-1-314b (8 experts, top-2) and llama4-scout-17b-a16e (16, top-1) on
+   a (4, 1024, d) bf16 input under both dispatches: drops equal exactly,
+   outputs within a bf16 bound, the card's fp32 probabilities routed on
+   the card and on the CPU bit for bit, the tokens tied at the top-k
+   boundary counted, a planted tie (a router column duplicated) taking the
+   lower index; each dispatch timed with its device operations; (b)
+   grok-1-314b served at full width with 2 of its 64 layers (gshard,
+   phase 6's traffic): flash 2 a prefill and 0 a decode step, the norm 5 a
+   forward, prefill and decode tok/s, peak, idle share; (c) llama4-scout
+   served the same way (embeddings input, 2 of 48 layers), then one
+   ``make_train_step`` at (4, 1024) with its 4 micro-batches at 2 layers
+   (1 if the peak passes 70 GB): launches exact, the flash backward on the
+   tensor cores at hd 128 and the norm backward on ``two_pass`` at d
+   5120; (d) each config narrowed to d 1024, 8 / 2 heads at hd 128, d_ff
+   1024, vocab 4096, 2 layers, fp32 (published experts, top-k, capacity
+   factor and group size): card (kernels) against CPU (plain), logits
+   within 1e-4, greedy tokens and every layer call's drops equal; one FL
+   round of grok's cut in ``fl_train_lm``'s wiring under a ``TickTimer``,
+   params within 1e-4; then flash at grok's and scout's prefill shapes (hd
+   128) beside SDPA, its backward at scout's micro-batch beside SDPA's, the
+   norm at (4096, 6144) and (4096, 5120) beside ``F.rms_norm`` and a
+   ``copy_``, and its backward at scout's (1024, 5120) rows.
+16. ``launch/heterogeneous_cluster.py`` (the example's twin): every cell at
+   2 rounds on the card and on the CPU under a ``TickTimer``, makespans and
+   estimation errors equal exactly (fold and top-k launches on the card);
+   then the Hete. GPU section under the default timer at 6 rounds (3
+   measured after the example's 3 warm-up rounds), its speedup printed.
 
 Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
 gang rounds, 12(a)'s card runs, 12(c)'s gang runs, 13(c)'s rounds, 14(c)'s
-steps and 14(d)'s rounds are the main path: kernel launch counters are set
+steps, 14(d)'s rounds, 15(b)-(c)'s serving runs and train step and 16's
+card cells are the main path: kernel launch counters are set
 to 0 just before each and read just after, and every kernel of the path
 must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -1849,7 +1879,7 @@ def phase_recurrent_timing(ops, scan_plain, rms_plain, rms_route,
     return rows
 
 
-def time_rms(ops, plain, route, timer, T, d, gen):
+def time_rms(ops, plain, route, timer, T, d, gen, label="phase 7"):
     """The norm at (T, d) bf16: cold (L2 flushed) and warm (x in L2, as the
     decode finds it), beside its plain version, ``F.rms_norm`` and its
     bound."""
@@ -1874,7 +1904,7 @@ def time_rms(ops, plain, route, timer, T, d, gen):
            "library_ms": lib_ms, "library_warm_ms": lib_warm_ms,
            "library_max_abs_diff": lib_diff, "bound_ms": bound,
            "bound_by": by, "bytes": nbytes}
-    log(f"phase 7 timing: rmsnorm ({T}, {d}) bf16, {row['route']} route: "
+    log(f"{label} timing: rmsnorm ({T}, {d}) bf16, {row['route']} route: "
         f"kernel {k_ms:.4f} ms cold, {warm_ms:.4f} ms warm (wrapper host "
         f"time {host_ms:.4f} ms), plain {p_ms:.4f} ms, F.rms_norm {lib_ms} "
         f"ms cold, {lib_warm_ms} ms warm (|diff| {lib_diff}), bound "
@@ -4271,15 +4301,17 @@ def phase_vmap_grad_block(ops):
     return max_err
 
 
-def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16):
-    """13(b): the backward at qwen2's training shape, causal, in ``dt``
+def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16, shape=TRAIN_FLASH,
+                   label="phase 13b"):
+    """13(b): the backward at qwen2's training shape (``shape``), causal, in
+    ``dt``
     (bf16: wgmma, round 0 of 13(c) and 13(d); fp32: three TF32 passes a
     product on the tensor cores, 13(c)'s later rounds), beside its plain
     version, its bound and the backward of
     scaled_dot_product_attention(is_causal, enable_gqa) (forward untimed;
     the port never calls it)."""
     import torch.nn.functional as F
-    B, S, H, KV, hd = TRAIN_FLASH
+    B, S, H, KV, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(15)
     q, k, v = flash_inputs(B, S, H, KV, hd, dt, gen)
     do = torch.randn(B, S, H, hd, device="cuda", generator=gen).to(dt)
@@ -4310,7 +4342,7 @@ def time_flash_bwd(ops, plain, timer, dt=torch.bfloat16):
            "library_ms": lib_ms, "kernel_over_library": k_ms / lib_ms,
            "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
            "bytes": nbytes, "flops": flops, "library_max_abs_diff": lib_diff}
-    log(f"phase 13b timing: flash backward {TRAIN_FLASH} {name} causal: "
+    log(f"{label} timing: flash backward {shape} {name} causal: "
         f"kernel {k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, scaled_dot_product_attention's backward "
         f"{lib_ms:.4f} ms (|diff| {lib_diff:.3g}); kernel_ms / library_ms "
@@ -4359,12 +4391,13 @@ def time_flash_fwd_fp32(ops, plain, timer):
     return row
 
 
-def time_rms_bwd(ops, plain, timer, dt=torch.bfloat16):
-    """13(b): the norm's backward at qwen2's training rows in ``dt``, beside
-    its plain version, its bound and F.rms_norm's backward (forward
-    untimed)."""
+def time_rms_bwd(ops, plain, timer, dt=torch.bfloat16, shape=TRAIN_RMS,
+                 label="phase 13b"):
+    """13(b): the norm's backward at qwen2's training rows (``shape``) in
+    ``dt``, beside its plain version, its bound and F.rms_norm's backward
+    (forward untimed)."""
     import torch.nn.functional as F
-    T_, d = TRAIN_RMS
+    T_, d = shape
     gen = torch.Generator(device="cuda").manual_seed(16)
     x = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
     dy = torch.randn(T_, d, device="cuda", generator=gen).to(dt)
@@ -4384,7 +4417,7 @@ def time_rms_bwd(ops, plain, timer, dt=torch.bfloat16):
            "host_ms": host_ms, "plain_ms": p_ms, "library_ms": lib_ms,
            "bound_ms": bound, "bound_by": by, "bound_share": bound / k_ms,
            "bytes": nbytes, "copy_ms": copy_bytes_ms(timer, nbytes)}
-    log(f"phase 13b timing: rmsnorm backward {TRAIN_RMS} {name}: kernel "
+    log(f"{label} timing: rmsnorm backward {shape} {name}: kernel "
         f"{k_ms:.4f} ms (wrapper host time {host_ms:.4f} ms), plain "
         f"{p_ms:.4f} ms, F.rms_norm's backward {lib_ms:.4f} ms, a copy_ of "
         f"the same bytes {row['copy_ms']:.4f} ms; bound {bound:.4f} ms ({by}:"
@@ -5241,6 +5274,580 @@ def phase_rec_train(T, ops, lm, ssm, tree, fl, get_arch, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the MoE FFN (grok-1-314b and llama4-scout-17b-a16e)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("grok-1-314b", "llama4-scout-17b-a16e")
+MOE_IMPLS = ("gshard_einsum", "gather")
+# layers of the served models (of 64 / 48): 22.90 / 12.44 GB of bf16 params
+MOE_SERVE_LAYERS = 2
+# scout's train step: 2 layers unless the measured peak passes the cap
+# (reckoned ~55-60 GB: params 12.4, fp32 gradient accumulators 24.9, a
+# micro-batch's gradients 12.4, the head's fp32 update 4.1), else 1
+SCOUT_TRAIN_LAYERS = (2, 1)
+MOE_TRAIN_CAP = 70e9
+MOE_TIMED = 5             # timed calls of a full-width MoE layer
+# one layer's two dispatches in bf16: the same assignments and expert
+# products, the combine summed in another order (an einsum over the slots
+# against a scatter-add of k terms); tests/test_torch_moe.py's bound
+MOE_BF16_ATOL, MOE_BF16_RTOL = 2e-2, 2e-2
+# 15(d): the narrow fp32 cut of each config (published experts, top-k,
+# capacity factor and group size; hd 128)
+MOE_CUT = {"d_model": 1024, "n_heads": 8, "n_kv_heads": 2, "head_dim": 128,
+           "d_ff": 1024, "vocab_size": 4096, "n_layers": 2,
+           "dtype": "float32"}
+MOE_CUT_B, MOE_CUT_PROMPT, MOE_CUT_GEN = 2, 256, 8
+# hd 128 attention of the MoE prefills and of scout's micro-batch (B = 1 of
+# the (4, 1024) batch's 4); the norm's rows at d 6144 / 5120
+GROK_FLASH = (SERVE_BATCH, SERVE_PROMPT, 48, 8, 128)
+SCOUT_FLASH = (SERVE_BATCH, SERVE_PROMPT, 40, 8, 128)
+SCOUT_TRAIN_FLASH = (1, SERVE_PROMPT, 40, 8, 128)
+MOE_RMS = [(4096, 6144), (4096, 5120)]
+SCOUT_TRAIN_RMS = (1024, 5120)
+
+
+def moe_variant(cfg, impl):
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch_impl=impl))
+
+
+def moe_layer_bound(cfg, slots):
+    """Least time of one layer's expert products: the expert weights read
+    once over the memory rate vs 6·d·f operations a filled slot over the
+    bf16 rate."""
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    nbytes, flops = 3 * E * d * f * 2, 6 * slots * d * f
+    t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOP_PER_S * 1e3
+    return max(t_b, t_o), ("bytes" if t_b >= t_o else "operations"), flops
+
+
+def planted_tie(moe, p, x, cfg):
+    """Router column E-1 copied into column 0: experts 0 and E-1 tie on
+    every token, so wherever E-1 is selected 0 comes first in the token's
+    top-k, and a top-1 never takes E-1.  Returns the tokens that took the
+    pair and the card's selections, held bit for bit to the CPU's top-k of
+    the same probabilities."""
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    pt = dict(p, router=p["router"].clone())
+    pt["router"][:, 0] = p["router"][:, E - 1]
+    st = moe.routing_stats(pt, x, cfg)
+    idx = st["topk_idx"].reshape(-1, k)
+    cpu = moe.top_k(st["probs"].cpu(), k)[1].reshape(-1, k)
+    if not torch.equal(idx.cpu(), cpu):
+        raise AssertionError("15a planted tie: card and CPU top-k differ")
+    pos0 = torch.where(idx == 0, torch.arange(k, device=idx.device), k)
+    posl = torch.where(idx == E - 1, torch.arange(k, device=idx.device), k)
+    took = int((pos0.min(-1).values < k).sum())
+    bad = int(((posl.min(-1).values < k)
+               & (pos0.min(-1).values >= posl.min(-1).values)).sum())
+    if bad or took == 0 or (k == 1 and bool((idx == E - 1).any())):
+        raise AssertionError(f"15a planted tie: {bad} tokens took expert "
+                             f"{E - 1} before 0, {took} took the pair")
+    return took
+
+
+def phase_moe_layer(ops, moe, get_arch, card):
+    """15(a): one MoE layer of each config at full width on a (4, 1024, d)
+    bf16 input, both dispatches: the same drops, outputs within the bf16
+    bound, the card's routing of its own probabilities equal bit for bit
+    to the CPU's, the top-k boundary ties counted, a planted tie; each
+    dispatch timed with its device operations."""
+    timer = Timer()
+    out = {}
+    for name in MOE_ARCHS:
+        cfg = get_arch(name)
+        E, k = cfg.moe.n_experts, cfg.moe.top_k
+        gen = torch.Generator(device="cuda").manual_seed(20)
+        p = moe.moe_init(gen, cfg)
+        x = torch.randn(SERVE_BATCH, SERVE_PROMPT, cfg.d_model, device="cuda",
+                        generator=gen).to(BF)
+        st = moe.routing_stats(p, x, cfg)
+        G, gs = st["topk_idx"].shape[:2]
+        C = moe.capacity(cfg.moe, gs)
+        ys = {impl: moe.moe_ffn(p, x, moe_variant(cfg, impl))
+              for impl in MOE_IMPLS}
+        (yg, aux_g), (ya, aux_a) = ys["gshard_einsum"], ys["gather"]
+        diff = (yg.float() - ya.float()).abs()
+        bad = int((diff > MOE_BF16_ATOL
+                   + MOE_BF16_RTOL * ya.float().abs()).sum())
+        if bad or float(aux_g) != float(aux_a) \
+                or st["dropped"] != st["dropped_gather"] \
+                or not bool(torch.isfinite(yg).all()):
+            raise AssertionError(
+                f"15a {name}: {bad} elements past the bf16 bound (max |diff|"
+                f" {float(diff.max())}), aux {float(aux_g)} vs "
+                f"{float(aux_a)}, drops {st['dropped']} vs "
+                f"{st['dropped_gather']}")
+        # the card's probabilities routed on the card and on the CPU
+        idx_cpu = moe.top_k(st["probs"].cpu(), k)[1]
+        kept_cpu = moe._slots(idx_cpu, E)[1] < C
+        if not torch.equal(st["topk_idx"].cpu(), idx_cpu) \
+                or not torch.equal(st["kept"].cpu(), kept_cpu):
+            raise AssertionError(f"15a {name}: card and CPU routing of the "
+                                 f"same probabilities differ")
+        took = planted_tie(moe, p, x, cfg)
+        row = {"G": G, "group": gs, "capacity": C, "tokens": G * gs,
+               "dropped": st["dropped"], "boundary_ties": st["boundary_ties"],
+               "planted_tie_tokens": took, "max_abs_diff": float(diff.max()),
+               "aux": float(aux_g)}
+        bound, by, flops = moe_layer_bound(cfg, G * E * C)
+        row.update(expert_bound_ms=bound, expert_bound_by=by,
+                   expert_flops=flops)
+        for impl in MOE_IMPLS:
+            c = moe_variant(cfg, impl)
+            ms = timer.ms(lambda: moe.moe_ffn(p, x, c), reps=MOE_TIMED,
+                          warmup=1)
+            dev = {k: v for k, v in device_ops(
+                lambda: moe.moe_ffn(p, x, c)).items()
+                if not k.startswith("ProfilerStep")}
+            top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:5]
+            row[impl] = {"ms": ms, "device_ops_per_call": sum(
+                n for n, _ in dev.values()), "device_ms_per_call": sum(
+                t for _, t in dev.values()), "top_ops": [
+                {"name": n[:60], "per_call": c_, "ms": t}
+                for n, (c_, t) in top]}
+        del p, x, ys, yg, ya, diff, st
+        torch.cuda.empty_cache()
+        out[name] = row
+        log(f"phase 15a [{card}]: {name} one MoE layer at full width, x "
+            f"({SERVE_BATCH}, {SERVE_PROMPT}, {cfg.d_model}) bf16: {G} "
+            f"group(s) of {gs}, capacity {C}; {row['dropped']} of "
+            f"{G * gs * k} assignments dropped by both dispatches; outputs "
+            f"within {MOE_BF16_ATOL} + {MOE_BF16_RTOL}·|y| (max |diff| "
+            f"{row['max_abs_diff']:.4g}); card routing == CPU routing of the "
+            f"same fp32 probabilities bit for bit; {row['boundary_ties']} "
+            f"tokens tie at the top-k boundary; planted tie: {took} tokens "
+            f"took the tied pair, the lower index first")
+        for impl in MOE_IMPLS:
+            r = row[impl]
+            log(f"phase 15a timing: {name} {impl}: {r['ms']:.3f} ms a layer "
+                f"({r['device_ops_per_call']:.0f} device operations, "
+                f"{r['device_ms_per_call']:.3f} device ms a call; expert "
+                f"products' bound {bound:.3f} ms by {by}); top "
+                + "; ".join(f"{o['name']} x{o['per_call']:.0f} "
+                            f"{o['ms']:.3f} ms" for o in r["top_ops"]))
+    del timer
+    ops.reset_flash_counts()
+    ops.reset_rmsnorm_counts()
+    return out
+
+
+def moe_decode_bytes(params, tree):
+    """Bytes a decode step must read: every param but the embedding table
+    (a step reads B of its rows)."""
+    return sum(a.numel() * a.element_size() for a in tree.leaves(
+        {k: v for k, v in params.items() if k != "embed"}))
+
+
+def phase_moe_serve(ops, lm, tree, generate, make_prompt, cfg, label):
+    """15(b)/(c): ``cfg`` at full width, MOE_SERVE_LAYERS layers, bf16, the
+    pallas route, phase 6's traffic: launches exact (flash 2 a prefill and
+    0 a decode step, the norm 5 a forward), then a profiled prefill and
+    generate (busy, idle share)."""
+    cfg = dataclasses.replace(cfg, n_layers=MOE_SERVE_LAYERS,
+                              attention_impl="pallas")
+    B, P, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    L, n_norms = cfg.n_layers, 2 * cfg.n_layers + 1
+    params, prompt, toks, logits, t, serve = serve_main_run(
+        label, ops, lm, tree, generate, make_prompt, cfg, cfg.n_params(), B,
+        P, G,
+        {"prefill": (L, 0, n_norms), "decode": (0, 0, n_norms * (G - 1))})
+    # the prompt on the card first: scout's (4, 1024, 5120) fp32 embeddings
+    # would put an 84 MB host copy into the profiled prefill
+    profile_serve(label, generate, params, torch.as_tensor(prompt,
+                                                           device="cuda"),
+                  cfg, G, t, serve)
+    nbytes = moe_decode_bytes(params, tree)
+    step_ms = serve["decode_ms"] / (G - 1)
+    serve.update(layers=L, decode_step_ms=step_ms, decode_step_bytes=nbytes,
+                 decode_step_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    log(f"{label}: {cfg.name} at {L} of its layers: a decode step "
+        f"{step_ms:.3f} ms against {serve['decode_step_bound_ms']:.3f} ms "
+        f"to read its {nbytes} B of weights once")
+    del params, prompt, toks, logits
+    torch.cuda.empty_cache()
+    return serve
+
+
+class RmsRoutes:
+    """While active, records the route of every norm kernel launch, forward
+    and backward (``rmsnorm.route`` / ``bwd_route``, as the launcher picks
+    them); launches are not touched."""
+
+    def __init__(self, ops, rms):
+        self.ops, self.rms = ops, rms
+        self.fwd, self.bwd = {}, {}
+
+    def __enter__(self):
+        ops, rms = self.ops, self.rms
+        fwd, bwd = self.inner = ops._rms_fwd, ops._rms_bwd
+
+        def rms_fwd(x, g, eps):
+            if x.is_cuda:
+                x2 = x.reshape(-1, x.shape[-1])
+                r = rms.route(x2, g, torch.empty_like(x2))
+                self.fwd[r] = self.fwd.get(r, 0) + 1
+            return fwd(x, g, eps)
+
+        def rms_bwd(dy, x, g_table, eps):
+            if x.is_cuda:
+                x2 = x.reshape(-1, x.shape[-1])
+                r = rms.bwd_route(dy.to(x.dtype).reshape(x2.shape), x2,
+                                  g_table, torch.empty_like(x2))
+                self.bwd[r] = self.bwd.get(r, 0) + 1
+            return bwd(dy, x, g_table, eps)
+
+        ops._rms_fwd, ops._rms_bwd = rms_fwd, rms_bwd
+        return self
+
+    def __exit__(self, *exc):
+        self.ops._rms_fwd, self.ops._rms_bwd = self.inner
+
+
+def scout_step(ops, lm, rms, cfg, L):
+    """One make_train_step of scout at L layers on a (4, 1024) batch of
+    embeddings, after a warm-up step: wall, peak, loss, launches and the
+    routes of the flash and norm backwards."""
+    cfg = dataclasses.replace(cfg, n_layers=L, attention_impl="pallas")
+    params = lm.init_params(torch.Generator(device="cuda").manual_seed(1),
+                            cfg)
+    step = lm.make_train_step(cfg, lr=0.05)
+    rng = np.random.default_rng(3)
+    batch = {"inputs": torch.as_tensor(rng.standard_normal(
+        (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), dtype=np.float32),
+        device="cuda"),
+             "labels": torch.as_tensor(rng.integers(
+                 0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                 dtype=np.int32), device="cuda")}
+    params, _ = step(params, batch)                 # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(ops)
+    with RmsRoutes(ops, rms) as routes:
+        t0 = time.perf_counter()
+        params, met = step(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = ops.launch_counts()
+    flash_bwd = dict(ops.flash_bwd_route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(met["loss"])
+    prof = profile_call(lambda: step(params, batch))
+    reset_counts(ops)              # the profiled step's launches do not count
+    del params, batch, step
+    torch.cuda.empty_cache()
+    return {"layers": L, "wall_s": wall, "loss": loss, "launches": got,
+            "flash_bwd_routes": flash_bwd, "rmsnorm_routes": routes.fwd,
+            "rmsnorm_bwd_routes": routes.bwd, "max_memory_allocated": peak,
+            "profile": prof, "micro_batches": cfg.train_microbatches}
+
+
+def phase_scout_train(ops, lm, rms, cfg, card):
+    """15(c): one make_train_step of full-width llama4-scout, bf16, the
+    config's 4 micro-batches: at 2 layers, or at 1 when 2 take more than
+    MOE_TRAIN_CAP (or do not fit); launches exact and on their routes
+    (flash backward on the tensor cores at hd 128, the norm backward on
+    two_pass at d 5120)."""
+    # the earlier phases' servers sit in reference cycles that can hold
+    # GBs of card memory until the collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    log(f"phase 15c [{card}]: {base} B allocated before the train step")
+    why = f"the 2-layer step's peak stayed under {MOE_TRAIN_CAP:.0f} B"
+    res = None
+    for L in SCOUT_TRAIN_LAYERS:
+        try:
+            res = scout_step(ops, lm, rms, cfg, L)
+        except torch.cuda.OutOfMemoryError as e:
+            why = f"{L} layers ran out of memory ({str(e)[:80]})"
+        else:
+            if res["max_memory_allocated"] <= MOE_TRAIN_CAP:
+                break
+            why = (f"{L} layers peaked at {res['max_memory_allocated']} B, "
+                   f"past {MOE_TRAIN_CAP:.0f} B")
+        res = None
+        torch.cuda.empty_cache()
+        log(f"phase 15c [{card}]: {why}")
+    if res is None:
+        raise AssertionError(f"15c: no depth fits: {why}")
+    L, m = res["layers"], res["micro_batches"]
+    want = {"flash": L * m, "flash_bwd": L * m, "ssm_scan": 0,
+            "ssm_scan_bwd": 0, "rmsnorm": (2 * L + 1) * m,
+            "rmsnorm_bwd": (2 * L + 1) * m}
+    if res["launches"] != want or not np.isfinite(res["loss"]) \
+            or res["flash_bwd_routes"]["tensor_cores"] != L * m \
+            or res["rmsnorm_bwd_routes"] != {"two_pass": (2 * L + 1) * m}:
+        raise AssertionError(f"15c: launches {res['launches']}, expected "
+                             f"{want}; flash backward routes "
+                             f"{res['flash_bwd_routes']}, norm backward "
+                             f"routes {res['rmsnorm_bwd_routes']}; loss "
+                             f"{res['loss']}")
+    tok = TRAIN_BATCH * TRAIN_SEQ
+    res.update(tokens_per_s=tok / res["wall_s"], depth_reason=why,
+               allocated_before=base)
+    prof = res["profile"]
+    log(f"phase 15c [{card}]: llama4-scout make_train_step at "
+        f"({TRAIN_BATCH}, {TRAIN_SEQ}), {m} micro-batches, {L} of 48 layers "
+        f"({why}): {res['wall_s'] * 1e3:.2f} ms, {res['tokens_per_s']:.0f} "
+        f"train tokens/s, loss {res['loss']:.4f}, max_memory_allocated "
+        f"{res['max_memory_allocated']} B; launches {res['launches']}; flash "
+        f"backward routes {res['flash_bwd_routes']}; norm routes forward "
+        f"{res['rmsnorm_routes']}, backward {res['rmsnorm_bwd_routes']}")
+    if prof is None:
+        log("phase 15c profile: the trace holds no device time (not "
+            "measured)")
+    else:
+        log(f"phase 15c profile (one more step): wall "
+            f"{prof['wall_s'] * 1e3:.2f} ms, device busy "
+            f"{prof['device_busy_s'] * 1e3:.2f} ms, idle share "
+            f"{prof['device_idle_share']:.3f}, {prof['kernel_launches']} "
+            f"kernel launches")
+        for k in prof["top_kernels"]:
+            log(f"    {k['device_s'] * 1e3:9.3f} ms  x{k['count']:<6d} "
+                f"{k['name']}")
+    return res
+
+
+class MoeDrops:
+    """While active, records each MoE layer call's drops under both
+    dispatches' plans (``moe.routing_stats``) before running it."""
+
+    def __init__(self, moe):
+        self.moe, self.counts = moe, []
+
+    def __enter__(self):
+        moe, inner = self.moe, self.moe.moe_ffn
+        self.inner = inner
+
+        def moe_ffn(params, x, cfg):
+            st = moe.routing_stats(params, x, cfg)
+            self.counts.append((st["dropped"], st["dropped_gather"]))
+            return inner(params, x, cfg)
+
+        moe.moe_ffn = moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.moe_ffn = self.inner
+
+
+def phase_moe_cut(T, ops, lm, moe, tree, generate, make_prompt, get_arch,
+                  make_clients, card):
+    """15(d): each config's narrow fp32 cut, card (kernels) against CPU
+    (plain): B=2, prompt 256, 8 greedy tokens (logits within 1e-4, tokens
+    identical, each layer call's drops equal); one FL round of grok's cut in
+    fl_train_lm's wiring under a TickTimer (makespans exact, params within
+    1e-4 a leaf)."""
+    out = {}
+    for name in MOE_ARCHS:
+        cut = dataclasses.replace(get_arch(name), attention_impl="pallas",
+                                  **MOE_CUT)
+        p_cpu = lm.init_params(torch.Generator().manual_seed(0), cut)
+        p_card = tree.map(lambda t: t.to("cuda"), p_cpu)
+        prompt = make_prompt(cut, MOE_CUT_B, MOE_CUT_PROMPT, 0)
+        res = {}
+        for key, params, dev in (("card", p_card, "cuda"),
+                                 ("cpu", p_cpu, "cpu")):
+            reset_counts(ops)
+            with MoeDrops(moe) as drops:
+                toks, logits, t = generate(params, prompt, cut, MOE_CUT_GEN,
+                                           dev)
+            res[key] = (toks.cpu(), logits.cpu(), drops.counts,
+                        lm_launches(t))
+        diff = float((res["card"][1] - res["cpu"][1]).abs().max())
+        launches = res["card"][3]
+        if not diff <= 1e-4 or not torch.equal(res["card"][0], res["cpu"][0]) \
+                or res["card"][2] != res["cpu"][2] \
+                or any(a != b for a, b in res["card"][2]) \
+                or launches["prefill"] != (2, 0, 5):
+            raise AssertionError(f"15d {name}: logits |diff| {diff}, tokens "
+                                 f"{res['card'][0].tolist()} vs "
+                                 f"{res['cpu'][0].tolist()}, drops "
+                                 f"{res['card'][2]} vs {res['cpu'][2]}, "
+                                 f"launches {launches}")
+        dropped = sum(a for a, _ in res["card"][2])
+        out[name] = {"logit_max_diff": diff, "dropped": dropped,
+                     "launches": launches}
+        log(f"phase 15d [{card}]: {name} cut (d {cut.d_model}, "
+            f"{cut.n_heads}/{cut.n_kv_heads} heads at hd {cut.hd}, d_ff "
+            f"{cut.d_ff}, vocab {cut.vocab_size}, {cut.n_layers} layers, "
+            f"{cut.moe.n_experts} experts top-{cut.moe.top_k}, capacity "
+            f"{cut.moe.capacity_factor}, fp32), B={MOE_CUT_B} prompt="
+            f"{MOE_CUT_PROMPT} gen={MOE_CUT_GEN}: card (kernels, launches "
+            f"{launches}) vs CPU (plain): logits max |diff| {diff:.3g} (<= "
+            f"1e-4), tokens identical {res['card'][0][0].tolist()}, drops "
+            f"equal in every layer call ({dropped} in all)")
+        if name != "grok-1-314b":
+            continue
+        hist = {}
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as sd:
+            for key, params in (("card", p_card), ("cpu", p_cpu)):
+                reset_counts(ops)
+                ops.reset_agg_counts()
+                srv = cut_server(T, lm, cut, params,
+                                 params["embed"]["w"].device,
+                                 os.path.join(sd, key), make_clients)
+                with StepCalls(T) as steps:
+                    srv.run_round()
+                hist[key] = ([(m.round, m.makespan, m.n_clients)
+                              for m in srv.history], tree.leaves(srv.params),
+                             lm_round_launches(ops), list(steps.calls))
+                del srv
+        fl_err = max(float((a.cpu() - b).abs().max())
+                     for a, b in zip(hist["card"][1], hist["cpu"][1]))
+        got = hist["card"][2]
+        if hist["card"][0] != hist["cpu"][0] or fl_err > 1e-4 \
+                or got["flash_bwd"] == 0 or got["fold_leaves"] == 0:
+            raise AssertionError(f"15d FL: card {hist['card'][0]} vs CPU "
+                                 f"{hist['cpu'][0]}, params |diff| {fl_err}, "
+                                 f"launches {got}")
+        out[name].update(fl_params_err=fl_err, fl_launches=got,
+                         fl_makespans=[h[1] for h in hist["card"][0]])
+        log(f"phase 15d [{card}]: one FL round of {name}'s cut under a "
+            f"TickTimer ({CUT_PER_ROUND} of {CUT_CLIENTS} clients, "
+            f"client-step calls of {hist['card'][3]} local steps): makespan "
+            f"{hist['card'][0][0][1]} identical, params |card - CPU| "
+            f"{fl_err:.3g} <= 1e-4; card launches {got}")
+        del p_card, p_cpu
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_moe_timing(ops):
+    """Flash at grok's and scout's prefill shapes (hd 128) beside SDPA;
+    its backward at scout's training micro-batch beside SDPA's backward;
+    the norm at the MoE prefill rows beside F.rms_norm and a copy_, and its
+    backward at scout's training rows."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_plain, flash_attention_plain)
+    from repro_torch.kernels.rmsnorm import route as rms_route
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_plain, rmsnorm_plain
+    timer = Timer()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {"flash_grok": time_flash("phase 15", ops, flash_attention_plain,
+                                    timer, GROK_FLASH, 0, gen),
+           "flash_scout": time_flash("phase 15", ops, flash_attention_plain,
+                                     timer, SCOUT_FLASH, 0, gen),
+           "flash_bwd_scout": time_flash_bwd(
+               ops, flash_attention_bwd_plain, timer, shape=SCOUT_TRAIN_FLASH,
+               label="phase 15"),
+           "rms": [], "rms_bwd_scout": time_rms_bwd(
+               ops, rmsnorm_bwd_plain, timer, shape=SCOUT_TRAIN_RMS,
+               label="phase 15")}
+    for T_, d in MOE_RMS:
+        row = time_rms(ops, rmsnorm_plain, rms_route, timer, T_, d, gen,
+                       label="phase 15")
+        row["copy_ms"] = copy_bytes_ms(timer, row["bytes"])
+        log(f"phase 15 timing: a copy_ of the norm's {row['bytes']} B at "
+            f"({T_}, {d}): {row['copy_ms']:.4f} ms")
+        out["rms"].append(row)
+    del timer
+    reset_counts(ops)
+    return out
+
+
+def phase_moe(T, ops, lm, moe, tree, generate, make_prompt, get_arch,
+              make_clients, card):
+    """Phase 15: the MoE FFN on the card -- (a) one full-width layer of
+    each config, (b) grok-1-314b served at full width, (c) llama4-scout
+    served and trained at full width, (d) narrow fp32 cuts card vs CPU;
+    then the kernels timed at the MoE shapes."""
+    from repro_torch.kernels import rmsnorm as rms
+    t0 = time.perf_counter()
+    out, secs = {}, {}
+
+    def part(key, fn, *args):
+        t = time.perf_counter()
+        out[key] = fn(*args)
+        secs[key] = round(time.perf_counter() - t, 1)
+
+    part("layer", phase_moe_layer, ops, moe, get_arch, card)
+    part("grok_serve", phase_moe_serve, ops, lm, tree, generate, make_prompt,
+         get_arch("grok-1-314b"), "phase 15b")
+    part("scout_serve", phase_moe_serve, ops, lm, tree, generate, make_prompt,
+         get_arch("llama4-scout-17b-a16e"), "phase 15c")
+    part("scout_step", phase_scout_train, ops, lm, rms,
+         get_arch("llama4-scout-17b-a16e"), card)
+    part("cut", phase_moe_cut, T, ops, lm, moe, tree, generate, make_prompt,
+         get_arch, make_clients, card)
+    part("timing", phase_moe_timing, ops)
+    out["part_seconds"] = secs
+    log(f"phase 15 parts: {secs} s")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 15: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the heterogeneous cluster example's twin
+# ---------------------------------------------------------------------------
+
+HETERO_ROUNDS = 2      # rounds a cell, card against CPU under a TickTimer
+# the Hete. GPU section under the default timer: the example's 3 warm-up
+# rounds and 3 measured ones (the example runs 10)
+HETE_TIMED_ROUNDS = 6
+
+
+def phase_hetero(T, ops, hc, card):
+    """Every cell of ``launch/heterogeneous_cluster.py`` at HETERO_ROUNDS
+    rounds on the card and on the CPU under a ``TickTimer``: makespans and
+    estimation errors equal exactly (the fold and, in the top-k cell, the
+    top-k kernel on the card); then the Hete. GPU section under the default
+    timer at HETE_TIMED_ROUNDS rounds, its speedup printed."""
+    t0 = time.perf_counter()
+    res = {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        reset_counts(ops)
+        t = time.perf_counter()
+        res[key] = hc.run_all(HETERO_ROUNDS, dev, T.TickTimer(1.0),
+                              verbose=False)
+        res[key + "_s"] = time.perf_counter() - t
+        if key == "card":
+            torch.cuda.synchronize()
+            launches = {"fold": ops.agg_launches, "topk": ops.topk_launches}
+    cells = []
+    for section, rows in res["card"].items():
+        for name, r in rows.items():
+            c = res["cpu"][section][name]
+            if r["makespans"] != c["makespans"] \
+                    or r["estimation_errors"] != c["estimation_errors"]:
+                raise AssertionError(
+                    f"16 {section} {name}: card {r['makespans']} "
+                    f"{r['estimation_errors']} vs CPU {c['makespans']} "
+                    f"{c['estimation_errors']}")
+            cells.append({"section": section, "name": name,
+                          "makespans": r["makespans"],
+                          "estimation_errors": r["estimation_errors"]})
+    if launches["fold"] == 0 or launches["topk"] == 0:
+        raise AssertionError(f"16: card launches {launches}")
+    log(f"phase 16 [{card}]: heterogeneous_cluster's {len(cells)} cells, "
+        f"{HETERO_ROUNDS} rounds each under a TickTimer: card "
+        f"({res['card_s']:.1f} s; launches {launches}) == CPU "
+        f"({res['cpu_s']:.1f} s) makespans and estimation errors exactly: "
+        + "; ".join(f"{c['name']} {c['makespans']}" for c in cells))
+    reset_counts(ops)
+    t = time.perf_counter()
+    hete = hc.run_all(HETE_TIMED_ROUNDS, "cuda", sections=("hete",),
+                      verbose=False)["hete"]
+    hete_s = time.perf_counter() - t
+    speedup = (hete["unscheduled"]["mean_makespan"]
+               / hete["parrot"]["mean_makespan"])
+    log(f"phase 16 [{card}]: Hete. GPU under the default timer, "
+        f"{HETE_TIMED_ROUNDS} rounds ({hete_s:.1f} s): unscheduled mean "
+        f"makespan {hete['unscheduled']['mean_makespan']:.4f} s, parrot "
+        f"{hete['parrot']['mean_makespan']:.4f} s: speedup {speedup:.2f}x")
+    seconds = time.perf_counter() - t0
+    log(f"phase 16: {seconds:.1f} s")
+    return {"cells": cells, "card_launches": launches,
+            "card_s": res["card_s"], "cpu_s": res["cpu_s"],
+            "hete_default_timer": {k: {"makespans": v["makespans"],
+                                       "mean_makespan": v["mean_makespan"]}
+                                   for k, v in hete.items()},
+            "hete_speedup": speedup, "seconds": seconds}
+
+
 def phase_seconds(n, t0):
     """Log phase ``n``'s seconds since ``t0``; return the time now."""
     t = time.perf_counter()
@@ -5269,9 +5876,9 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     from repro_torch.kernels.topk_compress import blocks as topk_blocks
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
-    from repro_torch.launch import fl_train_lm
+    from repro_torch.launch import fl_train_lm, heterogeneous_cluster
     from repro_torch.launch.serve import generate, make_prompt
-    from repro_torch.models import lm, ssm
+    from repro_torch.models import lm, moe, ssm
 
     t_start = time.perf_counter()
     t_ph = time.perf_counter()
@@ -5333,6 +5940,14 @@ def main() -> int:
     rec = phase_rec_train(T, ops, lm, ssm, tree, fl_train_lm, get_arch, card)
     rec_steps = (rec["hymba_step"]["launches"], rec["xlstm_step"]["launches"])
     rec_rounds = rec["xlstm_fl"]["rows"] + rec["hymba_fl"]["rows"]
+    moe_run = phase_moe(T, ops, lm, moe, tree, generate, make_prompt,
+                        get_arch, make_lm_clients, card)
+    moe_t = moe_run["timing"]
+    moe_serve = {name: moe_run[key]["launches"] for name, key in
+                 (("grok-1-314b", "grok_serve"),
+                  ("llama4-scout-17b-a16e", "scout_serve"))}
+    moe_step = moe_run["scout_step"]["launches"]
+    hetero = phase_hetero(T, ops, heterogeneous_cluster, card)
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -5370,6 +5985,8 @@ def main() -> int:
         "full_width_rounds": fw_rows,
         "full_width_profile": fw_prof,
         "fold_block": fw_block,
+        "heterogeneous_cluster_launches": hetero["card_launches"]["fold"],
+        "heterogeneous_cluster": hetero,
         "des_quickstart_launches": {e: des["quickstart"][e]["fold_launches"]
                                     for e in DES_QUICKSTART},
         "des_full_width_launches": des_fold,
@@ -5427,6 +6044,7 @@ def main() -> int:
         "network_launches": {k: v["topk_launches"]
                              for k, v in nf_runs.items()},
         "fault_resume_launches": nf["resume"]["topk_launches"],
+        "heterogeneous_cluster_launches": hetero["card_launches"]["topk"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -5456,6 +6074,12 @@ def main() -> int:
         "lm_training_launches": [r["launches"]["flash"] for r in lm_rounds],
         "train_step_launches": lmt["step"]["launches"]["flash"],
         "training_fp32_timing": lmt["flash_fwd_fp32_timing"],
+        "moe_prefill_launches": {k: v["prefill"][0]
+                                 for k, v in moe_serve.items()},
+        "moe_train_step_launches": moe_step["flash"],
+        "hd128_timings": {"grok-1-314b": moe_t["flash_grok"],
+                          "llama4-scout-17b-a16e": moe_t["flash_scout"]},
+        "moe": {k: v for k, v in moe_run.items() if k != "timing"},
     }, {
         "name": "flash_attention_bwd",
         "route": "cuda",
@@ -5497,6 +6121,9 @@ def main() -> int:
             "profiled_round": lmt["fl"]["profiled_round_flash_bwd_routes"]},
         "grid_cases_by_route": lmt["flash_grid"]["cases_by_route"],
         "train_step_launches": lmt["step"]["launches"]["flash_bwd"],
+        "moe_train_step_launches": moe_step["flash_bwd"],
+        "moe_train_step_routes": moe_run["scout_step"]["flash_bwd_routes"],
+        "hd128_timing": moe_t["flash_bwd_scout"],
         "lm_training": {k: v for k, v in lmt.items()
                         if k not in ("flash_timing", "flash_fp32_timing",
                                      "flash_fwd_fp32_timing", "rms_timing")},
@@ -5593,6 +6220,10 @@ def main() -> int:
         "lm_training_launches": [r["launches"]["rmsnorm"]
                                  for r in lm_rounds],
         "train_step_launches": lmt["step"]["launches"]["rmsnorm"],
+        "moe_serving_launches": {k: v["prefill"][2] + v["decode"][2]
+                                 for k, v in moe_serve.items()},
+        "moe_train_step_launches": moe_step["rmsnorm"],
+        "moe_timings": moe_t["rms"],
     }, {
         "name": "rmsnorm_bwd",
         "route": "cuda",
@@ -5622,6 +6253,9 @@ def main() -> int:
         "timing": lmt["rms_timing"],
         "grid_cases_by_route": lmt["rms_grid"]["cases_by_route"],
         "train_step_launches": lmt["step"]["launches"]["rmsnorm_bwd"],
+        "moe_train_step_launches": moe_step["rmsnorm_bwd"],
+        "moe_train_step_routes": moe_run["scout_step"]["rmsnorm_bwd_routes"],
+        "d5120_timing": moe_t["rms_bwd_scout"],
     }]}
     log(f"chip_smoke: all phases held in "
         f"{time.perf_counter() - t_start:.1f} s")

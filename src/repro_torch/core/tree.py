@@ -21,23 +21,28 @@ from typing import Any, Callable, List, Tuple
 Treedef = Tuple
 
 
+# The recursive helpers are module functions, not closures: a nested
+# function that calls itself sits in a reference cycle with its closure
+# cell, which would keep the leaves it captured (a whole gradient tree)
+# alive until the cycle collector runs.
+
+def _walk(x, leaves: List[Any]) -> Treedef:
+    if x is None:
+        return ("none",)
+    if isinstance(x, dict):
+        keys = tuple(sorted(x))
+        return ("dict", keys, tuple(_walk(x[k], leaves) for k in keys))
+    if isinstance(x, (list, tuple)):
+        kind = "list" if isinstance(x, list) else "tuple"
+        return (kind, len(x), tuple(_walk(v, leaves) for v in x))
+    leaves.append(x)
+    return ("leaf",)
+
+
 def flatten(tree: Any) -> Tuple[List[Any], Treedef]:
     """(leaves in JAX order, hashable structure)."""
     leaves: List[Any] = []
-
-    def walk(x):
-        if x is None:
-            return ("none",)
-        if isinstance(x, dict):
-            keys = tuple(sorted(x))
-            return ("dict", keys, tuple(walk(x[k]) for k in keys))
-        if isinstance(x, (list, tuple)):
-            kind = "list" if isinstance(x, list) else "tuple"
-            return (kind, len(x), tuple(walk(v) for v in x))
-        leaves.append(x)
-        return ("leaf",)
-
-    treedef = walk(tree)
+    treedef = _walk(tree, leaves)
     return leaves, treedef
 
 
@@ -49,21 +54,21 @@ def structure(tree: Any) -> Treedef:
     return flatten(tree)[1]
 
 
+def _build(td: Treedef, it) -> Any:
+    kind = td[0]
+    if kind == "none":
+        return None
+    if kind == "leaf":
+        return next(it)
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(td[1], td[2])}
+    children = [_build(c, it) for c in td[2]]
+    return children if kind == "list" else tuple(children)
+
+
 def unflatten(treedef: Treedef, leaves_: List[Any]) -> Any:
     it = iter(leaves_)
-
-    def build(td):
-        kind = td[0]
-        if kind == "none":
-            return None
-        if kind == "leaf":
-            return next(it)
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(td[1], td[2])}
-        children = [build(c) for c in td[2]]
-        return children if kind == "list" else tuple(children)
-
-    out = build(treedef)
+    out = _build(treedef, it)
     rest = next(it, _SENTINEL)
     if rest is not _SENTINEL:
         raise ValueError("more leaves than the structure holds")

@@ -1,5 +1,5 @@
 """End-to-end run: federated training of an LM through Parrot, with any
-registry architecture but the MoE ones as the client model.  Port of
+registry architecture as the client model.  Port of
 ``examples/fl_train_lm.py``.
 
   python -m repro_torch.launch.fl_train_lm --device cpu [--arch qwen2-0.5b]
@@ -15,7 +15,8 @@ the card unless asked for the CPU; on the card every norm, every SSD and
 mLSTM scan (hymba-1.5b, xlstm-125m) and, under ``--attention-impl pallas``
 (the default here), every attention layer runs forward and backward through
 the hand-written kernels, and the sLSTM recomputes each time chunk in its
-backward:
+backward.  The MoE archs (grok-1-314b, llama4-scout-17b-a16e) add their
+routers' auxiliary loss to the client loss:
 
   python -m repro_torch.launch.fl_train_lm --arch xlstm-125m --full-config
   python -m repro_torch.launch.fl_train_lm --arch hymba-1.5b --full-config
@@ -25,7 +26,10 @@ Intended differences from the JAX example: the eval batch comes from
 params from a ``torch.Generator`` seeded with 0 on the target device,
 ``--attention-impl`` defaults to ``pallas`` (as ``launch/serve.py``), and
 ``--full-config`` runs the full-width config (the JAX example always takes
-the reduced one).
+the reduced one), and an embedding-input arch (llama4-scout-17b-a16e, whose
+early-fusion frontend is a stub) takes its clients' token ids through the
+token table, as ``launch/serve.py``'s decode does (the JAX example feeds it
+the ids as embeddings, which fails).
 """
 from __future__ import annotations
 
@@ -56,13 +60,22 @@ def lm_data(cfg) -> Dict[int, Any]:
                            batch_size=4, mean_samples=8, seed=0)
 
 
+def client_loss(params, batch, cfg):
+    """``lm.loss_and_aux`` on a client's token batch; an embedding-input
+    arch embeds the ids through the token table first."""
+    if cfg.input_kind == "embeddings":
+        batch = dict(batch, inputs=params["embed"]["w"][batch["inputs"]
+                                                       .long()])
+    return lm.loss_and_aux(params, batch, cfg)
+
+
 def build(cfg, params, device, state_dir: str, algorithm: str = "fedavg",
           data: Optional[Dict[int, Any]] = None, timer=None
           ) -> ParrotServer:
     """The example's server on ``device`` (``timer``: the executors' timer,
     their default ``perf_counter`` when None)."""
     def loss_fn(p, batch):
-        return lm.loss_and_aux(p, batch, cfg)
+        return client_loss(p, batch, cfg)
 
     algo = make_algorithm(algorithm, value_and_grad(loss_fn), lr=0.1,
                           local_epochs=1)
@@ -85,7 +98,7 @@ def eval_loss(params, batch, cfg) -> float:
     """The mean token loss of ``batch`` (numpy) under ``params``."""
     dev = params["embed"]["w"].device
     with torch.no_grad():
-        loss = lm.loss_and_aux(
+        loss = client_loss(
             params, {k: as_tensor(v, dev) for k, v in batch.items()}, cfg)
     return float(loss)
 

@@ -9,7 +9,9 @@ one:
   python -m repro_torch.launch.serve --full-config --batch 4 \\
       --prompt-len 1024 --gen 32 [--arch hymba-1.5b | --arch xlstm-125m]
 
-Every arch but the MoE ones (grok-1-314b, llama4-scout) is served.
+Every registry arch is served, the MoE ones (grok-1-314b,
+llama4-scout-17b-a16e) included; their full configs do not fit one card
+whole, so ``chip_smoke.py`` serves them at full width with fewer layers.
 ``--attention-impl`` sets ``ModelConfig.attention_impl`` for the prefill:
 ``pallas`` (the default here) runs the hand-written Hopper flash-attention
 kernel, ``chunked`` and ``dense`` the plain PyTorch paths.  The decode step

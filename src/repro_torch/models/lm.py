@@ -63,7 +63,8 @@ def _head(params, h, cfg):
 def forward(params, inputs, cfg, *, positions=None, caches=None,
             cache_index=None, decode=False):
     """inputs: (B,S) ids or (B,S,d) embeddings -> (hidden (B,S,d), caches,
-    aux); aux is the blocks' auxiliary loss, 0.0 for every ported block."""
+    aux); aux is the blocks' summed auxiliary loss: the MoE FFNs' in fp32,
+    0.0 for a model without one."""
     x = _embed_inputs(params, inputs, cfg)
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
@@ -132,9 +133,11 @@ def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
     params, {"loss": fp32 scalar})``; the batch may be numpy or tensors.
 
     ``micro_batches`` > 1 accumulates gradients over k slices of the batch
-    in fp32 (a Python loop in place of ``lax.scan``), then divides the loss
+    in fp32 (a Python loop in place of ``lax.scan``; the sums in place, each
+    slice's gradients freed before the next slice's), then divides the loss
     and the gradients by k.  The update is ``(p − lr·g)`` in fp32, cast
-    back to the parameter's dtype."""
+    back to the parameter's dtype, leaf by leaf, with at most one leaf's
+    fp32 buffer beyond the fp32 accumulators."""
     micro = micro_batches or getattr(cfg, "train_microbatches", 1) or 1
     grad_fn = torch.func.grad_and_value(loss_and_aux)
 
@@ -156,15 +159,23 @@ def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 g, l = grad_fn(params, mb, cfg)
                 loss = loss + l
-                grads = tree.map(lambda a, b: a + b.to(torch.float32),
-                                  grads, g)
+                for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):
+                    acc.add_(gi.to(torch.float32))
+                del g
             loss = loss / micro
-            grads = tree.map(lambda g: g / micro, grads)
-        new_params = tree.map(
-            lambda p, g: (p.to(torch.float32)
-                          - lr * g.to(torch.float32)).to(p.dtype),
-            params, grads)
-        return new_params, {"loss": loss}
+            for acc in tree.leaves(grads):
+                acc.div_(micro)
+        # −(lr·g) + p rounds as (p − lr·g) does, so it can be formed in one
+        # fp32 buffer: the accumulator itself, or a copy of the gradient
+        p_leaves, treedef = tree.flatten(params)
+        g_leaves = tree.leaves(grads)
+        del grads
+        new = []
+        for i, p in enumerate(p_leaves):
+            t = g_leaves[i].to(torch.float32, copy=micro <= 1)
+            g_leaves[i] = None
+            new.append(t.mul_(lr).neg_().add_(p).to(p.dtype))
+        return tree.unflatten(treedef, new), {"loss": loss}
 
     return train_step
 

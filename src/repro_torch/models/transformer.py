@@ -1,7 +1,8 @@
 """Decoder stack: block composition over a repeating unit of block kinds.
 
 Port of ``repro/models/transformer.py``.  Block kinds:
-  dense   — RMSNorm → GQA attention → residual → RMSNorm → SwiGLU → residual
+  dense   — RMSNorm → GQA attention → residual → RMSNorm → SwiGLU or MoE
+            → residual
   hybrid  — parallel attention + mamba(SSD) heads fused by averaging (Hymba)
   mlstm   — RMSNorm → mLSTM mixer → residual (xLSTM, no FFN)
   slstm   — RMSNorm → sLSTM mixer → residual
@@ -13,10 +14,9 @@ straight across.  A Python loop over the repetitions takes the place of
 ``lax.scan``; ``cfg.remat`` and ``cfg.scan_layers`` have no effect here.
 Caches are updated in place: the attention layer writes its ring buffer,
 and the recurrent states, which the mixers return as new tensors (as in
-JAX), are copied into the stacked cache's views.
-
-Not ported yet: the MoE FFN raises ``NotImplementedError`` (ROADMAP.md
-modules item 17d).
+JAX), are copied into the stacked cache's views.  A ``dense`` block of an
+MoE config (``cfg.moe`` set) runs the MoE FFN (``models/moe.py``) and
+returns its auxiliary loss; every other block's is 0.0.
 """
 from __future__ import annotations
 
@@ -25,10 +25,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.core import tree
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 
-_MOE_NOT_PORTED = ("the MoE FFN is not ported yet (ROADMAP.md modules item "
-                   "17d)")
 KINDS = ("dense", "hybrid", "mlstm", "slstm")
 
 
@@ -46,11 +44,9 @@ def n_rep(cfg) -> int:
     return cfg.n_layers // len(pat)
 
 
-def _check_kind(cfg, kind: str) -> None:
+def _check_kind(kind: str) -> None:
     if kind not in KINDS:
         raise ValueError(kind)
-    if cfg.moe is not None and kind == "dense":
-        raise NotImplementedError(_MOE_NOT_PORTED)
 
 
 # ---------------------------------------------------------------------------
@@ -58,7 +54,7 @@ def _check_kind(cfg, kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     dtype = layers.dtype_of(cfg.dtype)
     d = cfg.d_model
     p = {"norm1": layers.rmsnorm_init(d, dtype, gen.device)}
@@ -68,7 +64,10 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
             p["mamba"] = ssm.mamba_init(gen, cfg)
         if cfg.d_ff > 0:
             p["norm2"] = layers.rmsnorm_init(d, dtype, gen.device)
-            p["ffn"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype)
+            if cfg.moe is not None and kind == "dense":
+                p["ffn"] = moe.moe_init(gen, cfg)
+            else:
+                p["ffn"] = layers.swiglu_init(gen, d, cfg.d_ff, dtype)
     elif kind == "mlstm":
         p["mixer"] = ssm.mlstm_init(gen, cfg)
     else:
@@ -79,7 +78,7 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> dict:
 def block_cache(cfg, kind: str, batch: int, seq_len: int, dtype,
                 device=None) -> dict:
     """Decode cache/state pytree for one block."""
-    _check_kind(cfg, kind)
+    _check_kind(kind)
     c = {}
     if kind in ("dense", "hybrid"):
         c["attn"] = attention.init_cache(cfg, batch, seq_len, dtype, device)
@@ -110,9 +109,11 @@ def _conv_tail(p, h, cfg):
 
 def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
                 cache_index=None, decode: bool = False):
-    """Returns (x_out, cache, aux); the cache is updated in place.  No
-    ported block has an auxiliary loss: aux is 0.0."""
-    _check_kind(cfg, kind)
+    """Returns (x_out, cache, aux); the cache is updated in place.  aux is
+    the MoE FFN's auxiliary loss, an fp32 scalar tensor, for a ``dense``
+    block of an MoE config, and 0.0 for every other block."""
+    _check_kind(kind)
+    aux = 0.0
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ("dense", "hybrid"):
         attn_cache = cache.get("attn") if cache else None
@@ -134,7 +135,11 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
         x = x + a_out
         if cfg.d_ff > 0:
             h2 = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
-            x = x + layers.swiglu(p["ffn"], h2)
+            if cfg.moe is not None and kind == "dense":
+                f_out, aux = moe.moe_ffn(p["ffn"], h2, cfg)
+            else:
+                f_out = layers.swiglu(p["ffn"], h2)
+            x = x + f_out
     elif kind == "mlstm":
         if decode:
             m_out, st = ssm.mlstm_step(p["mixer"], h, cache["mixer"], cfg)
@@ -152,7 +157,7 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
         if cache is not None:
             _store(cache["mixer"], st)
         x = x + m_out
-    return x, cache, 0.0
+    return x, cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -191,8 +196,9 @@ def stack_apply(params, x, cfg, *, positions, caches=None, cache_index=None,
                 decode: bool = False):
     """params/caches: tuple over pattern positions of stacked pytrees.
 
-    Returns (x, caches, aux_total); each repetition's cache is a view of
-    the stacked one and is updated in place."""
+    Returns (x, caches, aux_total): the blocks' auxiliary losses summed
+    over the repetitions (0.0 without an MoE block); each repetition's
+    cache is a view of the stacked one and is updated in place."""
     pat = unit_pattern(cfg)
     has_cache = caches is not None
     aux_tot = 0.0

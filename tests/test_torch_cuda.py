@@ -1946,3 +1946,99 @@ def test_cuda_serving_launches_no_backward_and_no_lse(cuda, monkeypatch):
     assert seen == [None] * cfg.n_layers
     assert all(t[f"{part}_{k}_launches"] == 0 for part in ("prefill", "decode")
                for k in ("flash_bwd", "ssm_scan_bwd", "rmsnorm_bwd"))
+
+
+MOE_ARCHS = ["grok-1-314b", "llama4-scout-17b-a16e"]
+
+
+def _moe_cut(name, impl, dtype="bfloat16"):
+    """The arch's reduced widths at the full configs' capacity 1.25."""
+    c = ARCHS[name].reduced()
+    return dataclasses.replace(c, dtype=dtype, moe=dataclasses.replace(
+        c.moe, dispatch_impl=impl, capacity_factor=1.25))
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_cuda_moe_routing_breaks_ties_to_the_lower_index(cuda, name):
+    """Router column 2 copied over column 0 and 1 over 3: every token's two
+    copies tie, and the card's top-k takes the lower index first; the
+    card's probabilities routed on the CPU give the same selections and
+    slots bit for bit (the bf16 router product itself rounds otherwise on
+    the card than on the CPU)."""
+    from repro_torch.models import moe
+    cfg = _moe_cut(name, "gather")
+    k = cfg.moe.top_k
+    p = moe.moe_init(torch.Generator().manual_seed(0), cfg)
+    p["router"][:, 0] = p["router"][:, 2]
+    p["router"][:, 3] = p["router"][:, 1]
+    x = torch.randn(2, 48, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1)).to(
+                        torch.bfloat16)
+    st = moe.routing_stats(tree.map(lambda a: a.to(cuda), p), x.to(cuda), cfg)
+    idx_cpu = moe.top_k(st["probs"].cpu(), k)[1]
+    assert torch.equal(st["topk_idx"].cpu(), idx_cpu)
+    C = moe.capacity(cfg.moe, st["topk_idx"].shape[1])
+    assert torch.equal(st["kept"].cpu(),
+                       moe._slots(idx_cpu, cfg.moe.n_experts)[1] < C)
+    # the 96 real tokens (the rest is the group's zero pad)
+    real = st["topk_idx"].reshape(-1, k)[:96].cpu()
+    assert set(real[:, 0].tolist()) <= {0, 1}
+    if k == 2:
+        assert torch.equal(real[:, 1], real[:, 0] + 2)
+    probs = torch.tensor([.25, .5, .25, .5, .1, .5, 0, .3], device=cuda)
+    assert moe.top_k(probs, 2)[1].tolist() == [1, 3]
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_dispatches_agree_and_match_cpu(cuda, name, dtype):
+    """On the card the gshard and gather dispatches keep the same
+    assignments and agree (fp32 1e-5; bf16 2e-2 + 2e-2 relative), and each
+    equals the CPU's within the same bounds."""
+    from repro_torch.models import moe
+    tol = (dict(atol=1e-5, rtol=0) if dtype == "float32"
+           else dict(atol=2e-2, rtol=2e-2))
+    cfgs = [_moe_cut(name, impl, dtype) for impl in
+            ("gshard_einsum", "gather")]
+    p = moe.moe_init(torch.Generator().manual_seed(2), cfgs[0])
+    x = torch.randn(2, 48, cfgs[0].d_model,
+                    generator=torch.Generator().manual_seed(3)).to(
+                        getattr(torch, dtype))
+    pc = tree.map(lambda a: a.to(cuda), p)
+    outs = []
+    for cfg in cfgs:
+        y, aux = moe.moe_ffn(pc, x.to(cuda), cfg)
+        y_cpu, aux_cpu = moe.moe_ffn(p, x, cfg)
+        torch.testing.assert_close(y.cpu().float(), y_cpu.float(), **tol)
+        assert abs(float(aux) - float(aux_cpu)) <= 1e-6
+        outs.append(y)
+    torch.testing.assert_close(outs[0].float(), outs[1].float(), **tol)
+    st = moe.routing_stats(pc, x.to(cuda), cfgs[0])
+    assert st["dropped"] > 0
+    assert st["dropped"] == moe.routing_stats(p, x, cfgs[1])["dropped"]
+
+
+@pytest.mark.parametrize("name", MOE_ARCHS)
+def test_cuda_moe_lm_vmapped_grad_equals_cpu(cuda, name):
+    """A reduced MoE model's gradients under the client engine's form
+    (``vmap(grad)`` over 2 clients, the gather dispatch) on the card equal
+    the CPU's within 1e-4 relative a leaf."""
+    cfg = dataclasses.replace(_moe_cut(name, "gather", "float32"),
+                              attention_impl="pallas")
+    p = lm.init_params(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(5)
+    shape = (2, 2, 32) + ((cfg.d_model,) if cfg.input_kind == "embeddings"
+                          else ())
+    inputs = (rng.standard_normal(shape).astype(np.float32)
+              if cfg.input_kind == "embeddings"
+              else rng.integers(0, cfg.vocab_size, shape).astype(np.int64))
+    labels = rng.integers(0, cfg.vocab_size, (2, 2, 32)).astype(np.int64)
+    grad = torch.func.vmap(torch.func.grad(
+        lambda q, b: lm.loss_and_aux(q, b, cfg)), in_dims=(None, 0))
+    res = {}
+    for dev in ("cpu", cuda):
+        b = {"inputs": torch.as_tensor(inputs, device=dev),
+             "labels": torch.as_tensor(labels, device=dev)}
+        res[str(dev)] = grad(tree.map(lambda a: a.to(dev), p), b)
+    for a, b in zip(tree.leaves(res[str(cuda)]), tree.leaves(res["cpu"])):
+        assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7
