@@ -260,18 +260,40 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    estimation errors equal exactly (fold and top-k launches on the card);
    then the Hete. GPU section under the default timer at 6 rounds (3
    measured after the example's 3 warm-up rounds), its speedup printed.
+17. The training CLI ``launch/train.py`` and the two last example twins,
+   (a)-(d) on the card and on the CPU under a ``TickTimer``, each held to
+   equal makespans, selected clients, executor counts, failures and comm
+   bytes exactly and params within 1e-5: (a) ``train.run`` with the MLP at
+   the CLI's defaults but ``--rounds 3``, once for each of the six
+   algorithms; (b) ``--compression topk`` and ``int8`` (top-k launches
+   under topk, none under int8); (c) SCAFFOLD through the CLI's
+   checkpoint: ``--ckpt-every 2 --rounds 2``, then a fresh ``run`` with
+   ``--resume --rounds 3``, whose ``params_digest`` and rows equal (a)'s
+   uninterrupted SCAFFOLD run's on the card; (d) ``launch/quickstart.py``'s 10 rounds and
+   ``launch/stateful_scaffold.py`` at 4 rounds (executor 5 failing in
+   round 3: K 7 and one failure there; spills equal and nonzero), then the
+   restart restored at round 4 onto 6 executors for 2; (e) on the card
+   only, under the default timer: ``--model lm --arch qwen2-0.5b
+   --full-config --attention-impl pallas --clients 8 --clients-per-round 4
+   --executors 4 --local-epochs 1 --rounds 1``: the round wall, the local
+   steps, launches by kernel and route held exactly to the steps (flash
+   and the norm forward and backward, the fold), the peak and the eval
+   loss before and after.
 
 Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
 gang rounds, 12(a)'s card runs, 12(c)'s gang runs, 13(c)'s rounds, 14(c)'s
-steps, 14(d)'s rounds, 15(b)-(c)'s serving runs and train step and 16's
-card cells are the main path: kernel launch counters are set
+steps, 14(d)'s rounds, 15(b)-(c)'s serving runs and train step, 16's
+card cells and 17's card runs (in (c) the resumed run) are the main path:
+kernel launch counters are set
 to 0 just before each and read just after, and every kernel of the path
 must have launched.  The second-to-last line is the ``{"kernels": [...]}``
 record; the last line is ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import shutil
@@ -5848,6 +5870,299 @@ def phase_hetero(T, ops, hc, card):
             "hete_speedup": speedup, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the training CLI (launch/train.py) and the two example twins
+# ---------------------------------------------------------------------------
+
+CLI_CARD = "cuda:0"
+CLI_ALGOS = ("fedavg", "fedprox", "fednova", "mime", "scaffold", "feddyn")
+CLI_ROUNDS = 3
+CLI_TOL = 1e-5
+# cut to keep phase 17 under its 60 s: SCAFFOLD through a checkpoint,
+# rounds before it and rounds in all (4, then 6 uncut; in all, 17(a)'s
+# rounds, so 17(a)'s SCAFFOLD run is the uninterrupted one); the stateful
+# twin's rounds before and after the restart (the example's: 6, 2; 4 still
+# holds the round-3 failure and a checkpoint after it)
+CLI_RESUME = (2, CLI_ROUNDS)
+QUICKSTART_ROUNDS = 10
+SCAFFOLD_ROUNDS = (4, 2)
+CLI_FULL = ["--model", "lm", "--arch", "qwen2-0.5b", "--full-config",
+            "--attention-impl", "pallas", "--clients", "8",
+            "--clients-per-round", "4", "--executors", "4",
+            "--local-epochs", "1", "--rounds", "1"]
+
+
+class Cohorts:
+    """While active, records each ``ParrotServer.select_clients`` call's
+    client ids."""
+
+    def __init__(self, T):
+        self.cls, self.seen = T.ParrotServer, []
+
+    def __enter__(self):
+        inner = self.inner = self.cls.select_clients
+
+        def select_clients(srv, *a, **kw):
+            tasks = inner(srv, *a, **kw)
+            self.seen.append([t.client for t in tasks])
+            return tasks
+
+        self.cls.select_clients = select_clients
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.select_clients = self.inner
+
+
+def cli_rows(history):
+    return [(m.round, m.makespan, m.n_clients, m.n_executors, m.failures,
+             m.comm_bytes, m.comm_trips) for m in history]
+
+
+def quiet(fn, *a, **kw):
+    """``fn``'s result and what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def cli_run(train, argv):
+    """A ``run(device, timer)`` of ``train.run`` on ``argv``: (history,
+    params); its printed lines held to one a round and the closing one."""
+    def run(device, timer):
+        (hist, srv), out = quiet(train.run, argv + ["--device", device],
+                                 timer=timer)
+        lines = out.splitlines()
+        want = int(argv[argv.index("--rounds") + 1])
+        if lines[-1] != "[train] done" or sum(
+                ln.startswith("[round ") for ln in lines) != want:
+            raise AssertionError(f"17 {argv}: printed {lines}")
+        return hist, srv.params
+    return run
+
+
+def tree_gap(tree, a, b):
+    """The largest |a - b| over two param trees' leaves."""
+    return max(float((x.detach().float().cpu() - y.detach().float().cpu())
+                     .abs().max()) for x, y in zip(tree.leaves(a),
+                                                   tree.leaves(b)))
+
+
+def cli_card_vs_cpu(T, ops, tree, label, run, card):
+    """``run(device, timer) -> (history, params)`` on the card, its launch
+    counts set to 0 just before and read just after, then on the CPU, each
+    under a fresh ``TickTimer(1.0)``: the rows (round, makespan, clients,
+    executors, failures, comm bytes and trips) and the cohorts equal
+    exactly, params within CLI_TOL, at least one fold launched."""
+    res = []
+    for dev in (CLI_CARD, "cpu"):
+        with Cohorts(T) as cohorts:
+            if not res:
+                reset_counts(ops)
+            t = time.perf_counter()
+            hist, params = run(dev, T.TickTimer(1.0))
+            if not res:
+                torch.cuda.synchronize()
+                launches = lm_round_launches(ops)
+            wall = time.perf_counter() - t
+        res.append((cli_rows(hist), cohorts.seen, params, wall))
+    (rows, sel, params, wall), (c_rows, c_sel, c_params, c_wall) = res
+    from repro_torch.checkpoint import params_digest
+    gap = tree_gap(tree, params, c_params)
+    if rows != c_rows or sel != c_sel or not gap <= CLI_TOL \
+            or launches["fold"] == 0 \
+            or launches["fold_leaves"] != launches["fold"]:
+        raise AssertionError(
+            f"17 {label}: card rows {rows} cohorts {sel} vs CPU {c_rows} "
+            f"{c_sel}; params gap {gap}; launches {launches}")
+    log(f"phase 17 {label} [{card}]: card == CPU under a TickTimer, "
+        f"makespans {[r[1] for r in rows]}, K {[r[3] for r in rows]}, "
+        f"comm bytes {[r[5] for r in rows]}; params |diff| {gap:.3g} <= "
+        f"{CLI_TOL}; launches {launches}; wall {wall:.2f} s card, "
+        f"{c_wall:.2f} s CPU")
+    return {"label": label, "makespans": [r[1] for r in rows],
+            "n_executors": [r[3] for r in rows],
+            "comm_bytes": [r[5] for r in rows], "params_gap": gap,
+            "launches": launches, "card_s": wall, "cpu_s": c_wall,
+            "rows": rows, "digest": params_digest(params)}
+
+
+def cli_resume(T, ops, tree, train, card, work, straight):
+    """17(c): SCAFFOLD through the CLI's checkpoint: CLI_RESUME[0] rounds
+    with ``--ckpt-every 2``, then a fresh ``run`` with ``--resume`` up to
+    CLI_RESUME[1], card == CPU; on the card its params_digest and rows
+    equal those of ``straight``, 17(a)'s uninterrupted SCAFFOLD run (the
+    same flags without a checkpoint)."""
+    first, total = CLI_RESUME
+    base = ["--algorithm", "scaffold", "--ckpt-every", "2"]
+    resumed_once = []
+
+    def resumed(dev, timer):
+        d = tempfile.mkdtemp(dir=work)
+        quiet(train.run, base + ["--device", dev, "--ckpt-dir", d,
+                                 "--rounds", str(first)],
+              timer=T.TickTimer(1.0))
+        if not resumed_once:
+            reset_counts(ops)         # the resumed run is the measured one
+        resumed_once.append(dev)
+        (hist, srv), out = quiet(train.run, base + [
+            "--device", dev, "--ckpt-dir", d, "--resume", "--rounds",
+            str(total)], timer=timer)
+        if f"[train] resumed from round {first}" not in out:
+            raise AssertionError(f"17(c) {dev}: {out}")
+        return hist, srv.params
+
+    rec = cli_card_vs_cpu(T, ops, tree, f"(c) scaffold resumed at round "
+                          f"{first}", resumed, card)
+    if rec["digest"] != straight["digest"] or rec["rows"] != straight["rows"]:
+        raise AssertionError(
+            f"17(c): resumed digest {rec['digest']} rows {rec['rows']} != "
+            f"uninterrupted {straight['digest']} {straight['rows']}")
+    log(f"phase 17(c) [{card}]: resumed params_digest and rows == the "
+        f"uninterrupted {total}-round run's of 17(a) on the card "
+        f"({rec['digest'][:16]})")
+    return rec
+
+
+def cli_twins(T, ops, tree, quickstart, scaffold, card):
+    """17(d): the quickstart twin's QUICKSTART_ROUNDS rounds and the
+    stateful_scaffold twin (SCAFFOLD_ROUNDS: before and after the restart)
+    card == CPU; the failure in round 3 (K 7), spills, the restart on 6."""
+    qs = cli_card_vs_cpu(T, ops, tree, "(d) quickstart twin",
+                         lambda dev, timer: quickstart.run(
+                             dev, QUICKSTART_ROUNDS, timer), card)
+    first, more = SCAFFOLD_ROUNDS
+    runs = []                 # the card's, then the CPU's
+
+    def stateful(dev, timer):
+        runs.append(scaffold.run(dev, first, more, timer))
+        r = runs[-1]
+        return (r["history"] + r["history2"][r["restored"]:],
+                {"pre": r["params"], "post": r["params2"]})
+
+    sc = cli_card_vs_cpu(T, ops, tree, "(d) stateful_scaffold twin",
+                         stateful, card)
+    r, c = runs
+    ks = [(m.n_executors, m.failures) for m in r["history"]]
+    after = [m.n_executors for m in r["history2"][r["restored"]:]]
+    spills = r["stats"]["spills"]
+    if ks[3] != (7, 1) or sum(f for _, f in ks) != 1 or after != [6] * more \
+            or not spills > 0 or spills != c["stats"]["spills"] \
+            or r["restored"] != first:
+        raise AssertionError(f"17(d) stateful_scaffold: K/failures {ks}, "
+                             f"after the restart {after}, spills {spills} "
+                             f"(CPU {c['stats']['spills']}), restored at "
+                             f"{r['restored']}")
+    log(f"phase 17(d) [{card}]: stateful_scaffold twin: executor 5 fails in "
+        f"round 3 (K/failures {ks}), restored at round {r['restored']} onto "
+        f"K {after}, {spills} spills (== CPU), state on disk "
+        f"{r['disk_bytes']} B")
+    sc.update(spills=spills, restored=r["restored"], k_failures=ks,
+              k_after_restart=after)
+    return {"quickstart": qs, "stateful_scaffold": sc}
+
+
+def cli_full_width(T, ops, tree, train, fl, card):
+    """17(e): the CLI at full width on the card under the default timer:
+    qwen2-0.5b, bf16, the pallas route, FedAvg, one round of 4 of 8
+    clients.  Launches held to the local steps (24 flash and 49 norm
+    forward and backward a step, on the bf16 routes) and one leaves-form
+    fold a group; the eval loss of ``fl_train_lm``'s batch before and
+    after, the round wall and the peak."""
+    from repro_torch.kernels.flash_attention import bwd_route
+    args = train.parser().parse_args(CLI_FULL)
+    cfg = train.lm_config(args.arch, args.full_config, args.attention_impl)
+    batch = fl.eval_batch(cfg)
+    _, p0 = train.build_grad_fn(args.model, args.arch, args.lr,
+                                device=torch.device(CLI_CARD),
+                                full_config=args.full_config)
+    n = sum(a.numel() for a in tree.leaves(p0))
+    # bf16 params: the tensor-core flash forward and its bf16 backward
+    dtype = p0["embed"]["w"].dtype
+    route = "tensor_cores" if dtype == torch.bfloat16 else "cuda_cores"
+    bwd = bwd_route(dtype, cfg.hd)
+    before = fl.eval_loss(p0, batch, cfg)
+    del p0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with StepCalls(T) as steps, FoldGroups(T) as folds:
+        reset_counts(ops)
+        t = time.perf_counter()
+        (hist, srv), out = quiet(train.run, CLI_FULL)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = lm_round_launches(ops)
+        flash_routes = dict(ops.flash_route_launches)
+        bwd_routes = dict(ops.flash_bwd_route_launches)
+    peak = torch.cuda.max_memory_allocated()
+    L, s = cfg.n_layers, sum(steps.calls)
+    want = {"flash": L * s, "flash_bwd": L * s, "rmsnorm": (2 * L + 1) * s,
+            "rmsnorm_bwd": (2 * L + 1) * s, "ssm_scan": 0,
+            "ssm_scan_bwd": 0, "topk": 0, "fold": len(folds.sizes),
+            "fold_leaves": len(folds.sizes)}
+    after = fl.eval_loss(srv.params, batch, cfg)
+    m = hist[-1]
+    if n != QWEN_PARAMS or got != want or s == 0 \
+            or set(folds.sizes) != {n} \
+            or flash_routes[route] != got["flash"] \
+            or bwd_routes != on_route(bwd_routes, bwd, got["flash_bwd"]) \
+            or not (np.isfinite(before) and np.isfinite(after)) \
+            or "[train] done" not in out:
+        raise AssertionError(
+            f"17(e): {n} params, launches {got}, expected {want} for {s} "
+            f"local steps; fold sizes {folds.sizes}; flash routes "
+            f"{flash_routes}, backward {bwd_routes}; eval loss {before} -> "
+            f"{after}")
+    del srv
+    torch.cuda.empty_cache()
+    log(f"phase 17(e) [{card}]: {' '.join(CLI_FULL)}: {n} params, round "
+        f"wall {m.wall_time:.3f} s (run {wall:.3f} s with set-up), makespan "
+        f"{m.makespan:.3f} s, {m.n_clients} clients in {len(steps.calls)} "
+        f"client-step calls ({s} local steps); launches {got} (flash on "
+        f"{route} {flash_routes[route]}, its backward on {bwd} "
+        f"{bwd_routes[bwd]}); max_memory_allocated {peak} B; eval loss "
+        f"{before:.4f} -> {after:.4f}")
+    return {"argv": CLI_FULL, "n_params": n, "round_wall_s": m.wall_time,
+            "run_s": wall, "makespan_s": m.makespan,
+            "client_step_calls": len(steps.calls), "local_steps": s,
+            "params_dtype": str(dtype).replace("torch.", ""),
+            "launches": got, "flash_routes": flash_routes,
+            "flash_bwd_routes": bwd_routes,
+            "max_memory_allocated": peak, "eval_loss_before": before,
+            "eval_loss_after": after}
+
+
+def phase_cli(T, ops, tree, train, quickstart, scaffold, fl, card):
+    """Phase 17: ``launch/train.py``, ``launch/quickstart.py`` and
+    ``launch/stateful_scaffold.py`` on the card; (a)-(d) card == CPU
+    under a ``TickTimer``, (e) at full width under the default timer."""
+    t0 = time.perf_counter()
+    algos = {a: cli_card_vs_cpu(T, ops, tree, f"(a) --algorithm {a}",
+                                cli_run(train, ["--algorithm", a, "--rounds",
+                                                str(CLI_ROUNDS)]), card)
+             for a in CLI_ALGOS}
+    codecs = {c: cli_card_vs_cpu(T, ops, tree, f"(b) --compression {c}",
+                                 cli_run(train, ["--compression", c,
+                                                 "--rounds",
+                                                 str(CLI_ROUNDS)]), card)
+              for c in ("topk", "int8")}
+    if codecs["topk"]["launches"]["topk"] == 0 \
+            or codecs["int8"]["launches"]["topk"] != 0:
+        raise AssertionError(f"17(b): top-k launches "
+                             f"{codecs['topk']['launches']} / "
+                             f"{codecs['int8']['launches']}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as work:
+        resume = cli_resume(T, ops, tree, train, card, work,
+                            algos["scaffold"])
+    twins = cli_twins(T, ops, tree, quickstart, scaffold, card)
+    full = cli_full_width(T, ops, tree, train, fl, card)
+    seconds = time.perf_counter() - t0
+    log(f"phase 17: {seconds:.1f} s")
+    return {"algorithms": algos, "codecs": codecs, "resume": resume,
+            "twins": twins, "full_width": full, "seconds": seconds}
+
+
 def phase_seconds(n, t0):
     """Log phase ``n``'s seconds since ``t0``; return the time now."""
     t = time.perf_counter()
@@ -5876,7 +6191,8 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     from repro_torch.kernels.topk_compress import blocks as topk_blocks
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
-    from repro_torch.launch import fl_train_lm, heterogeneous_cluster
+    from repro_torch.launch import (fl_train_lm, heterogeneous_cluster,
+                                    quickstart, stateful_scaffold, train)
     from repro_torch.launch.serve import generate, make_prompt
     from repro_torch.models import lm, moe, ssm
 
@@ -5948,6 +6264,15 @@ def main() -> int:
                   ("llama4-scout-17b-a16e", "scout_serve"))}
     moe_step = moe_run["scout_step"]["launches"]
     hetero = phase_hetero(T, ops, heterogeneous_cluster, card)
+    cli = phase_cli(T, ops, tree, train, quickstart, stateful_scaffold,
+                    fl_train_lm, card)
+    cli_full = cli["full_width"]["launches"]
+    cli_fold = {run["label"]: run["launches"]["fold"] for part in
+                ("algorithms", "codecs") for run in cli[part].values()}
+    cli_fold.update({cli["resume"]["label"]: cli["resume"]["launches"]["fold"],
+                     "(e) full width": cli_full["fold"]})
+    cli_fold.update({run["label"]: run["launches"]["fold"]
+                     for run in cli["twins"].values()})
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -5987,6 +6312,8 @@ def main() -> int:
         "fold_block": fw_block,
         "heterogeneous_cluster_launches": hetero["card_launches"]["fold"],
         "heterogeneous_cluster": hetero,
+        "train_cli_launches": cli_fold,
+        "train_cli": cli,
         "des_quickstart_launches": {e: des["quickstart"][e]["fold_launches"]
                                     for e in DES_QUICKSTART},
         "des_full_width_launches": des_fold,
@@ -6045,6 +6372,7 @@ def main() -> int:
                              for k, v in nf_runs.items()},
         "fault_resume_launches": nf["resume"]["topk_launches"],
         "heterogeneous_cluster_launches": hetero["card_launches"]["topk"],
+        "train_cli_launches": cli["codecs"]["topk"]["launches"]["topk"],
     }, {
         "name": "flash_attention",
         "route": "cuda",
@@ -6077,6 +6405,7 @@ def main() -> int:
         "moe_prefill_launches": {k: v["prefill"][0]
                                  for k, v in moe_serve.items()},
         "moe_train_step_launches": moe_step["flash"],
+        "train_cli_launches": cli_full["flash"],
         "hd128_timings": {"grok-1-314b": moe_t["flash_grok"],
                           "llama4-scout-17b-a16e": moe_t["flash_scout"]},
         "moe": {k: v for k, v in moe_run.items() if k != "timing"},
@@ -6123,6 +6452,7 @@ def main() -> int:
         "train_step_launches": lmt["step"]["launches"]["flash_bwd"],
         "moe_train_step_launches": moe_step["flash_bwd"],
         "moe_train_step_routes": moe_run["scout_step"]["flash_bwd_routes"],
+        "train_cli_launches": cli_full["flash_bwd"],
         "hd128_timing": moe_t["flash_bwd_scout"],
         "lm_training": {k: v for k, v in lmt.items()
                         if k not in ("flash_timing", "flash_fp32_timing",
@@ -6223,6 +6553,7 @@ def main() -> int:
         "moe_serving_launches": {k: v["prefill"][2] + v["decode"][2]
                                  for k, v in moe_serve.items()},
         "moe_train_step_launches": moe_step["rmsnorm"],
+        "train_cli_launches": cli_full["rmsnorm"],
         "moe_timings": moe_t["rms"],
     }, {
         "name": "rmsnorm_bwd",
@@ -6255,6 +6586,7 @@ def main() -> int:
         "train_step_launches": lmt["step"]["launches"]["rmsnorm_bwd"],
         "moe_train_step_launches": moe_step["rmsnorm_bwd"],
         "moe_train_step_routes": moe_run["scout_step"]["rmsnorm_bwd_routes"],
+        "train_cli_launches": cli_full["rmsnorm_bwd"],
         "d5120_timing": moe_t["rms_bwd_scout"],
     }]}
     log(f"chip_smoke: all phases held in "

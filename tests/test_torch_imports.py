@@ -37,13 +37,16 @@ def test_training_modules_are_checked():
     without JAX (``test_package_imports_without_jax`` walks them too)."""
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"optim/__init__.py", "optim/optimizers.py",
-            "launch/fl_train_lm.py", "models/lm.py"} <= names
+            "launch/fl_train_lm.py", "models/lm.py", "launch/train.py",
+            "launch/quickstart.py", "launch/stateful_scaffold.py"} <= names
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
             "from repro_torch.optim import adamw, fedyogi, sgd\n"
             "from repro_torch.data import make_lm_clients\n"
             "from repro_torch.launch import fl_train_lm\n"
+            "from repro_torch.launch import quickstart, stateful_scaffold\n"
+            "from repro_torch.launch import train\n"
             "from repro_torch.models.lm import make_train_step\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
