@@ -90,7 +90,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    params allclose, every fold a launch of the leaves form, and tasks
    carried, chunks stolen and stale chunks folded; (b) phase 4's model
    under ``dynamic_env(4, 5)`` with ``benchmarks/bench_round_modes.py``'s
-   engine options: 3 timed windows of each engine, every fold a launch of
+   engine options: 1 timed window of each engine, every fold a launch of
    the leaves form and one launch for each group the chunks folded; a
    profiled window of each; one async window with top-k 0.01 (one launch
    for each span shipped, the kernel equal to its plain version on a real
@@ -136,7 +136,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    makespans, cohorts and fault counters equal the uninterrupted run's.
 11. Placement, gang dispatch and collective comm on phase 4's model under
    a ``TickTimer`` (each executor one block of 4 a round), 1 warm-up and
-   3 timed rounds a variant (1 for (b) and (c), each held to serial's
+   1 timed round a variant (1 for (b) and (c), each held to serial's
    params after as many rounds), every number printed beside the card's name
    and power limit: (a) serial against a one-device
    ``DevicePlacement`` with the gang: schedules and makespans equal,
@@ -161,16 +161,16 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    (``dynamic_env(4, 3)``, the uniform 2e5 / 1e6 B/s link with 0.05 s
    latency, ``telemetry=True``, ``ControlPlane.adaptive()``) under BSP,
    semi-sync (deadline 0.7, over-selection 1.2, chunks of 4) and async
-   (λ 0.5, chunks of 4), 2 rounds each on the card and on the CPU under a
+   (λ 0.5, chunks of 4), 1 round each on the card and on the CPU under a
    ``TickTimer``: traces, registries without ``host/`` and the λ and
    deadline trajectories identical, params after each round within 1e-4,
    each exported trace valid, every fold of the leaves form; (b) the same
-   engines, 3 rounds each under the default ``perf_counter`` timer on the
+   engines, 2 rounds each under the default ``perf_counter`` timer on the
    card: per round the per-executor busy/comm/idle fractions, λ and
    deadline_frac, the host ms of ``Telemetry.on_round`` and the spans and
    instants emitted; (c) semi-sync and async with ``gang_waves`` off and
    on, a one-device placement, phase 8b's options, no network, a
-   ``TickTimer``, 3 windows each: gang == serial makespans exactly,
+   ``TickTimer``, 2 windows each: gang == serial makespans exactly,
    params within 1e-6, every ganged wave one client-step dispatch, per
    window the dispatches and fold launches, and a profiled semi-sync gang
    window.
@@ -198,13 +198,14 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    (the fp32 round, every flash backward on ``tf32x3``), with the eval
    loss before and after each round, peak device memory, the idle share,
    and each round's launches held exactly to the schedule (24 flash and 49
-   norm launches forward and backward a local step of a client-step call,
+   norm launches forward and backward a local step of a client-step call
+   at full depth, 6 / 13 at the 6 of 24 layers it runs since phase 18,
    the flash backward's all on its dtype's route,
    padded steps included; one leaves-form fold a ``fold_block`` group at n
-   = 494,032,768; no scan, no top-k); (d) one ``make_train_step`` at (4,
+   = 225,609,856; no scan, no top-k); (d) one ``make_train_step`` at (4,
    1024): train tokens/s and its launches; (e) qwen2's widths cut to 2
    layers, fp32, card (kernels) against CPU (plain): the gradients leaf by
-   leaf within 1e-4 relative, one train step and 2 FL rounds under a
+   leaf within 1e-4 relative, one train step and 1 FL round under a
    ``TickTimer``; (f) at full width in bf16 the gradients
    of the ``pallas`` route against the ``chunked`` route, each leaf's norm
    within 2e-2.
@@ -225,10 +226,10 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    a profiled step (idle share; xlstm's at 2 layers), and
    at xlstm's 2 layers the peak beside a step whose sLSTM runs
    ``slstm_apply_plain`` (4 recompute chunks of 256 against every step's
-   gates kept); (d) FedAvg in fl_train_lm's traffic: full-width
-   xlstm-125m, one round (bf16 params), and hymba-1.5b cut to 8 layers
-   (its widths whole: 32 layers would need ~77 GB), round 0 (bf16) and
-   round 1 (fp32); launches held exactly to the local steps and the
+   gates kept); (d) FedAvg in fl_train_lm's traffic, widths whole:
+   xlstm-125m cut to 2 of its 12 layers, one round (bf16 params), and
+   hymba-1.5b cut to 2 of 32 layers, round 0 (bf16) and round 1 (fp32);
+   launches held exactly to the local steps and the
    backwards' routes, one leaves-form fold a group, eval loss, peak;
    (e) each arch cut to 2 layers, fp32, card against CPU: gradients leaf
    by leaf within 1e-4 (relative 2-norms), loss 1e-5.
@@ -258,8 +259,8 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
 16. ``launch/heterogeneous_cluster.py`` (the example's twin): every cell at
    2 rounds on the card and on the CPU under a ``TickTimer``, makespans and
    estimation errors equal exactly (fold and top-k launches on the card);
-   then the Hete. GPU section under the default timer at 6 rounds (3
-   measured after the example's 3 warm-up rounds), its speedup printed.
+   then the Hete. GPU section under the default timer at 2 rounds (the
+   last measured after the example's warm-up), its speedup printed.
 17. The training CLI ``launch/train.py`` and the two last example twins,
    (a)-(d) on the card and on the CPU under a ``TickTimer``, each held to
    equal makespans, selected clients, executor counts, failures and comm
@@ -269,7 +270,7 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    under topk, none under int8); (c) SCAFFOLD through the CLI's
    checkpoint: ``--ckpt-every 2 --rounds 2``, then a fresh ``run`` with
    ``--resume --rounds 3``, whose ``params_digest`` and rows equal (a)'s
-   uninterrupted SCAFFOLD run's on the card; (d) ``launch/quickstart.py``'s 10 rounds and
+   uninterrupted SCAFFOLD run's on the card; (d) ``launch/quickstart.py``'s 5 rounds and
    ``launch/stateful_scaffold.py`` at 4 rounds (executor 5 failing in
    round 3: K 7 and one failure there; spills equal and nonzero), then the
    restart restored at round 4 onto 6 executors for 2; (e) on the card
@@ -279,12 +280,25 @@ Phases (each raises, and the script exits non-zero, on any mismatch):
    steps, launches by kernel and route held exactly to the steps (flash
    and the norm forward and backward, the fold), the peak and the eval
    loss before and after.
+18. The dry run (``launch/dryrun.py``): (a) qwen2-0.5b at full width on a
+   1×1 mesh, its own attention impl, a (4, 1024) train step and prefill
+   each traced on meta tensors and run once on the card under the same
+   dispatch counter (``run_cell(..., execute=True)``): the card run's
+   FLOPs equal the trace's exactly, argument bytes equal, the norm's
+   launches exact (49 a forward, 49 backward in the step), the trace's
+   argument + temp bytes within [0.5, 2] of the step's own peak
+   (``max_memory_allocated`` less what was held before it);
+   (b) qwen2-0.5b ``train_4k`` traced on the 16×16 mesh over a fake
+   process group of 256 ranks: ``ok``, its per-device FLOPs, bytes,
+   memory and collective bytes by kind printed, 256 × its FLOPs at least
+   the one-device trace's of the same step, no process group left.
 
 Every phase prints its seconds (``phase N: X s``).  Phases 3, 4, 5, 6(c),
 7(d), 7(e), 8(a), 8(b), 9(a) (the resumed run), 9(b), 10(a)-(d), 11(a)'s
 gang rounds, 12(a)'s card runs, 12(c)'s gang runs, 13(c)'s rounds, 14(c)'s
 steps, 14(d)'s rounds, 15(b)-(c)'s serving runs and train step, 16's
-card cells and 17's card runs (in (c) the resumed run) are the main path:
+card cells, 17's card runs (in (c) the resumed run) and 18(a)'s card runs
+are the main path:
 kernel launch counters are set
 to 0 just before each and read just after, and every kernel of the path
 must have launched.  The second-to-last line is the ``{"kernels": [...]}``
@@ -2157,7 +2171,7 @@ DES_FULL = {
     "async": {"staleness_lambda": 0.5, "chunk_size": 8},
 }
 DES_WINDOWS = 5        # the dynamic_env horizon of phases 8-10
-DES_TIMED = 2          # timed windows an engine in 8b (3 before phase 14)
+DES_TIMED = 1          # timed windows an engine in 8b (2 before phase 18)
 DES_KEYS = ("carried_tasks", "landed_clients", "steals", "stale_folds",
             "mean_staleness", "in_system")
 
@@ -3315,8 +3329,8 @@ def phase_net_faults(T, ops, plain):
 # phase 11: placement, gang dispatch and collective comm
 # ---------------------------------------------------------------------------
 
-GANG_TIMED = 2        # timed rounds a variant, after one warm-up round (3
-                      # before the backward kernels' builds grew)
+GANG_TIMED = 1        # timed rounds a variant, after one warm-up round (2
+                      # before phase 18, 3 before the backward kernels' builds)
 SHORT_TIMED = 1       # timed rounds of the nonblocking and parallel variants
 
 
@@ -3752,9 +3766,9 @@ CTRL_ENGINES = {
     "semi-sync": {"deadline_frac": 0.7, "over_select": 1.2, "chunk_size": 4},
     "async": {"staleness_lambda": 0.5, "chunk_size": 4},
 }
-CTRL_ROUNDS = 3        # the perf_counter rounds (12b); dynamic_env(4, 3)
-CTRL_CHECKED = 2       # rounds card vs CPU under a TickTimer (12a)
-GANG_DES_WINDOWS = 3   # windows a (engine, gang on/off) cell (12c)
+CTRL_ROUNDS = 2        # the perf_counter rounds (12b); dynamic_env(4, 2)
+CTRL_CHECKED = 1       # rounds card vs CPU under a TickTimer (12a; 2 before phase 18)
+GANG_DES_WINDOWS = 2   # windows a (engine, gang on/off) cell (12c; 3 before phase 18)
 
 
 def ctrl_run(T, device, engine, rounds, **kw):
@@ -3785,7 +3799,7 @@ def ctrl_state(srv):
 
 
 def phase_ctrl_check(T, ops, card, work):
-    """12(a): each engine 2 rounds on the card and on the CPU under a
+    """12(a): each engine CTRL_CHECKED rounds on the card and on the CPU under a
     TickTimer: traces, registries (without ``host/``) and controller
     trajectories identical; params after each round within 1e-4; each
     exported trace validates; every fold of the card run a leaves-form
@@ -4079,6 +4093,10 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 1024
 # 13(c)'s timed rounds (bf16 params), before the profiled one (fp32): 2
 # before phase 14 was paid for
 LM_FL_ROUNDS = 1
+# 13(c)'s rounds at 6 of qwen2's 24 layers, widths whole (a depth cut to
+# pay for phase 18): 17(e) runs the full depth through the CLI
+QWEN_FL_LAYERS = 6
+QWEN_FL_PARAMS = 225609856
 QWEN_PARAMS = 494032768
 # 13(f): each leaf's gradient norm, pallas route against chunked route, in
 # bf16 at full width: both routes round activations to bf16 at the same
@@ -4094,6 +4112,7 @@ CUT_SAMPLES, CUT_BATCH = 2, 2
 # the CPU) are at most 8.2e-7 a leaf at this cut, and a zeroed dq, dk or dv
 # moves a leaf by 1 (scripts/cut_grad_routes.py)
 CUT_GRAD_RTOL = 1e-4
+CUT_FL_ROUNDS = 1     # 13(e)'s FL rounds card vs CPU (2 before phase 18)
 
 
 def flash_bwd_bound_ms(B, S, H, KV, hd, itemsize):
@@ -4495,9 +4514,9 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
     params = lm.init_params(torch.Generator(device="cuda").manual_seed(0),
                             cfg)
     n = sum(a.numel() for a in tree.leaves(params))
-    if n != QWEN_PARAMS:
-        raise AssertionError(f"qwen2-0.5b: {n} params, expected "
-                             f"{QWEN_PARAMS}")
+    if n != QWEN_FL_PARAMS:
+        raise AssertionError(f"qwen2-0.5b at {cfg.n_layers} layers: {n} "
+                             f"params, expected {QWEN_FL_PARAMS}")
     data = fl.lm_data(cfg)
     batch = fl.eval_batch(cfg)
     set_up_s = time.perf_counter() - t0
@@ -4557,7 +4576,8 @@ def phase_lm_fl(T, ops, lm, tree, fl, cfg, card):
                 f"{wall:.3f} s, makespan "
                 f"{m.makespan:.3f} s, {m.n_clients} clients in "
                 f"{len(steps.calls)} client-step calls ({s} local steps, "
-                f"padded included); launches {got} (== 24/49 a step "
+                f"padded included); launches {got} (== {L}/{2 * L + 1} a "
+                f"step "
                 f"forward and backward, one leaves-form fold a group at n = "
                 f"{n}); eval loss {before:.4f} -> {loss:.4f}")
         peak = torch.cuda.max_memory_allocated()
@@ -4757,7 +4777,7 @@ def phase_lm_cut(T, ops, lm, tree, cfg, make_clients, card):
         for key, params in (("card", p_card), ("cpu", p_cpu)):
             srv = cut_server(T, lm, cut, params, params["embed"]["w"].device,
                              os.path.join(sd, key), make_clients)
-            for _ in range(2):
+            for _ in range(CUT_FL_ROUNDS):
                 srv.run_round()
             hist[key] = ([(m.round, m.makespan, m.n_clients)
                           for m in srv.history],
@@ -4775,8 +4795,8 @@ def phase_lm_cut(T, ops, lm, tree, cfg, make_clients, card):
         f"(kernels: {launches}) vs CPU (plain): gradients of "
         f"{len(grad_rel)} leaves |g_card - g_cpu| / |g_cpu| up to "
         f"{max(grad_rel):.3g} <= {CUT_GRAD_RTOL}; one train step loss "
-        f"|diff| {loss_err:.3g} <= 1e-5, params {step_err:.3g} <= 1e-4; 2 FL "
-        f"rounds"
+        f"|diff| {loss_err:.3g} <= 1e-5, params {step_err:.3g} <= 1e-4; "
+        f"{CUT_FL_ROUNDS} FL round(s)"
         f" under a TickTimer ({CUT_PER_ROUND} of {CUT_CLIENTS} clients a "
         f"round, {CUT_SEQ} tokens): makespans {[h[1] for h in hist['card'][0]]}"
         f" identical, params |diff| {fl_err:.3g} <= 1e-4")
@@ -4822,7 +4842,8 @@ def phase_lm_train(T, ops, lm, tree, fl, get_arch, make_clients, card):
     part("rms_timing", time_rms_bwd, ops, rmsnorm_bwd_plain, timer)
     del timer
     cfg = dataclasses.replace(get_arch("qwen2-0.5b"), attention_impl="pallas")
-    part("fl", phase_lm_fl, T, ops, lm, tree, fl, cfg, card)
+    part("fl", phase_lm_fl, T, ops, lm, tree, fl,
+         dataclasses.replace(cfg, n_layers=QWEN_FL_LAYERS), card)
     part("step", phase_lm_step, ops, lm, tree, cfg, card)
     part("routes", phase_lm_routes, T, lm, tree, cfg, card)
     part("cut", phase_lm_cut, T, ops, lm, tree, cfg, make_clients, card)
@@ -4863,8 +4884,8 @@ REC_STEP = {"hymba-1.5b": lambda L: {"flash": L, "ssm_scan": L,
                                      "rmsnorm": 2 * L + 1},
             "xlstm-125m": lambda L: {"flash": 0, "ssm_scan": L // 2,
                                      "rmsnorm": L + 1}}
-# 14(d): full-width xlstm-125m's round (bf16 params; its 75 local steps run
-# the sLSTM's host loop, ~0.4 s a step, so one round);
+# 14(d): xlstm-125m's round (bf16 params; its 75 local steps run the
+# sLSTM's host loop, so one round);
 # hymba-1.5b's two rounds (round 0 on bf16 params, round 1 fp32) at
 # HYMBA_FL_LAYERS of its 32 layers, its widths whole: qwen2-0.5b's rounds
 # peaked at 20.7-25.9 GB for 494 M params (~47 B a param), so hymba's
@@ -4872,8 +4893,13 @@ REC_STEP = {"hymba-1.5b": lambda L: {"flash": L, "ssm_scan": L,
 # 486,942,592 (jax.eval_shape leaf total)
 XLSTM_FL_ROUNDS = 1
 HYMBA_FL_ROUNDS = 2
-HYMBA_FL_LAYERS = 8
-HYMBA_FL_PARAMS = 486942592
+# depth cut to pay for phase 18: xlstm's round at 2 of its 12
+# layers (one mLSTM, one sLSTM; was full depth), hymba's at 2 of 32 (was
+# 8); widths whole
+XLSTM_FL_LAYERS = 2
+XLSTM_FL_PARAMS = 93209864
+HYMBA_FL_LAYERS = 2
+HYMBA_FL_PARAMS = 198539248
 # 14(c): xlstm's profiled step and the peak-memory comparison with the
 # plain sLSTM loop run at 2 layers (one mLSTM, one sLSTM) and full width,
 # before the full step, which they warm: a first step of these shapes pays
@@ -5256,8 +5282,9 @@ def phase_rec_train(T, ops, lm, ssm, tree, fl, get_arch, card):
     """Phase 14: recurrent LM training on the card -- (a) the scan's
     backward kernel against its plain version, (b) timed at both training
     shapes, (c) one full-width train step of each arch at (4, 1024), (d)
-    FedAvg rounds in fl_train_lm's traffic (full-width xlstm; hymba at
-    HYMBA_FL_LAYERS layers), (e) 2-layer fp32 cuts card vs CPU."""
+    FedAvg rounds in fl_train_lm's traffic (xlstm at XLSTM_FL_LAYERS,
+    hymba at HYMBA_FL_LAYERS layers, widths whole), (e) 2-layer fp32 cuts
+    card vs CPU."""
     from repro_torch.kernels.ssm_scan import (ssm_scan_bwd_plain,
                                               ssm_scan_plain)
     t0 = time.perf_counter()
@@ -5282,8 +5309,9 @@ def phase_rec_train(T, ops, lm, ssm, tree, fl, get_arch, card):
                                 attention_impl="pallas")
     part("hymba_step", phase_rec_step, ops, lm, ssm, hymba, card)
     part("xlstm_step", phase_rec_step, ops, lm, ssm, xlstm, card)
-    part("xlstm_fl", phase_rec_fl, T, ops, lm, tree, fl, xlstm, card,
-         XLSTM_FL_ROUNDS, XLSTM_PARAMS)
+    part("xlstm_fl", phase_rec_fl, T, ops, lm, tree, fl,
+         dataclasses.replace(xlstm, n_layers=XLSTM_FL_LAYERS), card,
+         XLSTM_FL_ROUNDS, XLSTM_FL_PARAMS)
     part("hymba_fl", phase_rec_fl, T, ops, lm, tree, fl,
          dataclasses.replace(hymba, n_layers=HYMBA_FL_LAYERS), card,
          HYMBA_FL_ROUNDS, HYMBA_FL_PARAMS)
@@ -5309,7 +5337,7 @@ MOE_SERVE_LAYERS = 2
 # micro-batch's gradients 12.4, the head's fp32 update 4.1), else 1
 SCOUT_TRAIN_LAYERS = (2, 1)
 MOE_TRAIN_CAP = 70e9
-MOE_TIMED = 5             # timed calls of a full-width MoE layer
+MOE_TIMED = 3             # timed calls of a full-width MoE layer
 # one layer's two dispatches in bf16: the same assignments and expert
 # products, the combine summed in another order (an einsum over the slots
 # against a scatter-add of k terms); tests/test_torch_moe.py's bound
@@ -5809,7 +5837,7 @@ def phase_moe(T, ops, lm, moe, tree, generate, make_prompt, get_arch,
 HETERO_ROUNDS = 2      # rounds a cell, card against CPU under a TickTimer
 # the Hete. GPU section under the default timer: the example's 3 warm-up
 # rounds and 3 measured ones (the example runs 10)
-HETE_TIMED_ROUNDS = 6
+HETE_TIMED_ROUNDS = 2
 
 
 def phase_hetero(T, ops, hc, card):
@@ -5884,7 +5912,7 @@ CLI_TOL = 1e-5
 # twin's rounds before and after the restart (the example's: 6, 2; 4 still
 # holds the round-3 failure and a checkpoint after it)
 CLI_RESUME = (2, CLI_ROUNDS)
-QUICKSTART_ROUNDS = 10
+QUICKSTART_ROUNDS = 5
 SCAFFOLD_ROUNDS = (4, 2)
 CLI_FULL = ["--model", "lm", "--arch", "qwen2-0.5b", "--full-config",
             "--attention-impl", "pallas", "--clients", "8",
@@ -6163,6 +6191,102 @@ def phase_cli(T, ops, tree, train, quickstart, scaffold, fl, card):
             "twins": twins, "full_width": full, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the dry run (launch/dryrun.py)
+# ---------------------------------------------------------------------------
+
+DRY_ARCH = "qwen2-0.5b"
+DRY_CUT = {"global_batch": 4, "seq_len": 1024}   # the real runs' (B, S)
+DRY_NORMS = 49        # qwen2's norm launches a forward: 2 a layer + final
+DRY_MEM_RATIO = (0.5, 2.0)   # (argument + temp) / max_memory_allocated
+DRY_MAX_RATIO = 1.15      # 256 x FLOPs a device / the 1x1 count, 18(b)
+DRY_DIR = os.path.join(HERE, "results", "dryrun_torch")
+
+
+def phase_dryrun(ops, dryrun, mesh):
+    """(a) qwen2-0.5b at full width on a 1×1 mesh: a (4, 1024) train step
+    and prefill each traced on meta tensors and run once on the card under
+    the same counter -- FLOPs and argument bytes equal exactly, the norm's
+    launches exact, the trace's argument + temp against the card's peak;
+    (b) qwen2-0.5b train_4k traced on the 16×16 fake mesh: ok, per-device
+    cost printed, 256 × its FLOPs within [1, DRY_MAX_RATIO] × the 1×1
+    trace of the same step (no sharded work lost, little repeated)."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    out = {"real": {}}
+    host = mesh.make_host_mesh(1)
+    for shape_name, kind in (("train_4k", "train"),
+                             ("prefill_32k", "prefill")):
+        ops.reset_rmsnorm_counts()
+        ops.reset_flash_counts()
+        torch.cuda.empty_cache()
+        rec = dryrun.run_cell(DRY_ARCH, shape_name, mesh=host,
+                              shape_overrides=DRY_CUT, execute=True,
+                              device="cuda:0", out_dir=DRY_DIR,
+                              verbose=False)
+        assert rec["status"] == "ok", rec.get("traceback", rec)
+        ex = rec["execute"]
+        mem = rec["memory"]
+        assert ex["flops"] == rec["flops_per_device"] > 0, \
+            (ex["flops"], rec["flops_per_device"])
+        assert ex["argument_size_in_bytes"] == \
+            mem["argument_size_in_bytes"], (ex, mem)
+        want = {"rmsnorm": DRY_NORMS,
+                "rmsnorm_bwd": DRY_NORMS if kind == "train" else 0,
+                "flash": 0, "flash_bwd": 0}
+        got = {k: ex["launches"][k] for k in want}
+        assert got == want, (kind, got, want)
+        est = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        # the card's peak less what earlier phases still held when the
+        # cell began
+        ratio = est / ex["peak_allocated"]
+        assert DRY_MEM_RATIO[0] <= ratio <= DRY_MEM_RATIO[1], \
+            (kind, est, ex["peak_allocated"], ex["max_memory_allocated"])
+        log(f"phase 18a [cuda:0]: {DRY_ARCH} {kind} at {DRY_CUT} on a 1x1 "
+            f"mesh: trace {rec['trace_s']} s, FLOPs "
+            f"{rec['flops_per_device']:.6e} (trace) == {ex['flops']:.6e} "
+            f"(card run, "
+            f"{ex['seconds']} s); argument {mem['argument_size_in_bytes']} B "
+            f"both; norm launches {got}; trace argument + temp {est} B vs "
+            f"the card's peak {ex['peak_allocated']} B (max_memory_allocated"
+            f" {ex['max_memory_allocated']} B less what was held before): "
+            f"ratio {ratio:.4f}")
+        out["real"][kind] = {"trace_s": rec["trace_s"],
+                             "flops": rec["flops_per_device"],
+                             "memory": mem, "execute": ex,
+                             "memory_ratio": ratio}
+    # the same step on one device, abstract, at the production shape
+    one = dryrun.run_cell(DRY_ARCH, "train_4k", mesh=host, out_dir=DRY_DIR,
+                          verbose=False)
+    assert one["status"] == "ok", one.get("traceback", one)
+    prod = dryrun.run_cell(DRY_ARCH, "train_4k", multi_pod=False,
+                           out_dir=DRY_DIR, verbose=False)
+    assert prod["status"] == "ok", prod.get("traceback", prod)
+    assert not dist.is_initialized()
+    n = prod["n_devices"]
+    ratio = n * prod["flops_per_device"] / one["flops_per_device"]
+    # no sharded work lost, and none repeated past qwen2's 14 heads padded
+    # to 16 on the model axis
+    assert n == 256 and 1.0 <= ratio <= DRY_MAX_RATIO, \
+        (n, prod["flops_per_device"], one["flops_per_device"], ratio)
+    coll = prod["collectives"]
+    log(f"phase 18b: {DRY_ARCH} train_4k on the 16x16 fake mesh: trace "
+        f"{prod['trace_s']} s; per device FLOPs "
+        f"{prod['flops_per_device']:.6e}, bytes "
+        f"{prod['bytes_per_device']:.6e}, memory {prod['memory']}, "
+        f"collective bytes {coll['bytes_by_kind']} (counts "
+        f"{coll['count_by_kind']}); 256 x FLOPs / the 1x1 trace's "
+        f"{one['flops_per_device']:.6e} = {ratio:.4f} (held to [1, "
+        f"{DRY_MAX_RATIO}]; 1x1 trace {one['trace_s']} s)")
+    out["production"] = {k: prod[k] for k in (
+        "trace_s", "flops_per_device", "bytes_per_device", "memory",
+        "collectives", "n_devices")}
+    out["one_device_flops"] = one["flops_per_device"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 18: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_seconds(n, t0):
     """Log phase ``n``'s seconds since ``t0``; return the time now."""
     t = time.perf_counter()
@@ -6191,8 +6315,9 @@ def main() -> int:
     from repro_torch.kernels.ssm_scan import ssm_scan_plain
     from repro_torch.kernels.topk_compress import blocks as topk_blocks
     from repro_torch.kernels.topk_compress import topk_with_residual_plain
-    from repro_torch.launch import (fl_train_lm, heterogeneous_cluster,
-                                    quickstart, stateful_scaffold, train)
+    from repro_torch.launch import (dryrun, fl_train_lm,
+                                    heterogeneous_cluster, mesh, quickstart,
+                                    stateful_scaffold, train)
     from repro_torch.launch.serve import generate, make_prompt
     from repro_torch.models import lm, moe, ssm
 
@@ -6273,6 +6398,7 @@ def main() -> int:
                      "(e) full width": cli_full["fold"]})
     cli_fold.update({run["label"]: run["launches"]["fold"]
                      for run in cli["twins"].values()})
+    dry = phase_dryrun(ops, dryrun, mesh)
 
     main_t = next(t for t in timings if (t["n"], t["C"]) == MAIN_SHAPE)
     rms_main = next(t for t in rec_t["rmsnorm"]
@@ -6554,6 +6680,9 @@ def main() -> int:
                                  for k, v in moe_serve.items()},
         "moe_train_step_launches": moe_step["rmsnorm"],
         "train_cli_launches": cli_full["rmsnorm"],
+        "dryrun_launches": {k: v["execute"]["launches"]["rmsnorm"]
+                            for k, v in dry["real"].items()},
+        "dryrun": dry,
         "moe_timings": moe_t["rms"],
     }, {
         "name": "rmsnorm_bwd",
@@ -6587,6 +6716,8 @@ def main() -> int:
         "moe_train_step_launches": moe_step["rmsnorm_bwd"],
         "moe_train_step_routes": moe_run["scout_step"]["rmsnorm_bwd_routes"],
         "train_cli_launches": cli_full["rmsnorm_bwd"],
+        "dryrun_launches": dry["real"]["train"]["execute"]["launches"][
+            "rmsnorm_bwd"],
         "d5120_timing": moe_t["rms_bwd_scout"],
     }]}
     log(f"chip_smoke: all phases held in "

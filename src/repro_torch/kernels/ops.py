@@ -2,10 +2,18 @@
 ``repro/kernels/ops.py``: the aggregation fold, the fused top-k, flash
 attention, the SSD scan and RMSNorm).
 
-A wrapper picks the kernel or its plain version by the device of the tensor
-it is given, and by nothing else: a CPU tensor takes the plain PyTorch
-version; a CUDA tensor launches the hand-written Hopper kernel or raises.
-There is no fallback from a failed build or launch.
+A wrapper picks the kernel or its plain version by the tensor it is given,
+and by nothing else: a CPU tensor takes the plain PyTorch version; a CUDA
+tensor launches the hand-written Hopper kernel or raises.  A tensor without
+data -- on the meta device, a ``FakeTensor`` on any device, or a
+``DTensor`` over such local shards (the dry run's abstract trace,
+``launch/dryrun.py``) -- takes the plain version too, which then only
+propagates shapes.  There is no fallback from a failed build or launch.
+
+While a dispatch-trace counter counts (``launch/hlo_analysis.py`` sets
+:data:`shadow_plain`), each kernel launch also runs its plain version on
+meta tensors of the launch's shapes, so the counter sees the same ops on
+the card as on an abstract trace of the same step.
 
 Each kernel has two plain-integer counters (``agg_dispatch_count``'s
 counterparts):
@@ -61,6 +69,8 @@ from array import array
 from typing import Sequence, Tuple, Union
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import agg_weighted_sum as _agg
 from repro_torch.kernels import flash_attention as _fa
@@ -96,6 +106,50 @@ rmsnorm_launches = 0
 rmsnorm_bwd_dispatches = 0
 rmsnorm_bwd_launches = 0
 _count_lock = threading.Lock()
+# set by a dispatch-trace counter while it counts (see the module docstring)
+shadow_plain = False
+
+
+def _abstract(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds no data: a meta tensor or a ``FakeTensor``."""
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+def _plain(t: torch.Tensor, what: str) -> bool:
+    """The route of a call on ``t``: True for the plain version (a CPU
+    tensor, a tensor without data, a ``DTensor`` over CPU or data-less
+    shards), False for the kernel (a real CUDA tensor); raises for any
+    other tensor."""
+    if type(t) is torch.Tensor:                 # the main path's tensors
+        kind = t.device.type
+        if kind == "cuda":
+            return False
+        if kind in ("cpu", "meta"):
+            return True
+        raise ValueError(f"no {what} kernel for device {t.device}")
+    if isinstance(t, DTensor):
+        local = t.to_local()
+        if _abstract(local) or local.device.type == "cpu":
+            return True
+        raise ValueError(f"no {what} kernel for a DTensor on {local.device}")
+    kind = t.device.type
+    if kind in ("cpu", "meta") or isinstance(t, FakeTensor):
+        return True
+    if kind == "cuda":
+        return False
+    raise ValueError(f"no {what} kernel for device {t.device}")
+
+
+def _meta(t):
+    return (torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                device="meta")
+            if isinstance(t, torch.Tensor) else t)
+
+
+def _shadow(plain, *args, **kwargs) -> None:
+    """Run ``plain`` on meta copies of ``args`` while a counter counts."""
+    if shadow_plain:
+        plain(*[_meta(a) for a in args], **kwargs)
 
 
 def reset_agg_counts() -> None:
@@ -410,8 +464,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"q, k and v must lie on one device, got "
                          f"{q.device}, {k.device}, {v.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no flash attention kernel for device {q.device}")
+    _plain(q, "flash attention")
     if _traced(q, k, v):
         return _FlashFn.apply(q, k, v, bool(causal), int(window))[0]
     return _flash_fwd(q, k, v, bool(causal), int(window), False)
@@ -421,11 +474,13 @@ def _flash_fwd(q, k, v, causal: bool, window: int, with_lse: bool):
     """The forward on plain tensors: ``o``, or ``(o, lse)`` with the rows'
     log-sum-exp (B, H, Sq) fp32."""
     global flash_launches
-    if q.device.type == "cpu":
+    if _plain(q, "flash attention"):
         o, lse = _fa.flash_attention_fwd_plain(q, k, v, causal=causal,
                                                window=window)
         return (o, lse) if with_lse else o
     _check_flash(q, k, v)
+    _shadow(_fa.flash_attention_fwd_plain, q, k, v, causal=causal,
+            window=window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = (torch.empty((q.shape[0], q.shape[2], q.shape[1]),
                        dtype=torch.float32, device=q.device)
@@ -442,10 +497,12 @@ def _flash_bwd(do, q, k, v, o, lse, causal: bool, window: int):
     global flash_bwd_dispatches, flash_bwd_launches
     flash_bwd_dispatches += 1
     do = do.to(q.dtype)
-    if q.device.type == "cpu":
+    if _plain(q, "flash attention"):
         return _fa.flash_attention_bwd_plain(do, q, k, v, o, lse,
                                              causal=causal, window=window)
     _check_flash(q, k, v)
+    _shadow(_fa.flash_attention_bwd_plain, do, q, k, v, o, lse,
+            causal=causal, window=window)
     do, o = do.contiguous(), o.contiguous()
     lse = lse.contiguous()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -573,8 +630,7 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v and log_a must lie on one device, got "
                          f"{q.device}, {k.device}, {v.device}, "
                          f"{log_a.device}")
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no scan kernel for device {q.device}")
+    _plain(q, "scan")
     if _traced(q, k, v, log_a):
         return _SsmScanFn.apply(q, k, v, log_a, int(chunk))
     return _ssm_fwd(q, k, v, log_a, int(chunk))
@@ -583,9 +639,10 @@ def ssm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _ssm_fwd(q, k, v, log_a, chunk: int):
     """The forward on plain tensors -> (y, h_final)."""
     global ssm_scan_launches
-    if q.device.type == "cpu":
+    if _plain(q, "scan"):
         return _ssm.ssm_scan_plain(q, k, v, log_a, chunk)
     _check_ssm(q, k, v, log_a)
+    _shadow(_ssm.ssm_scan_plain, q, k, v, log_a, chunk)
     B, S, H, N = q.shape
     y = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     P = v.shape[3]
@@ -617,9 +674,10 @@ def _ssm_bwd(dy, dh, q, k, v, log_a, chunk: int):
     ssm_scan_bwd_dispatches += 1
     if dy is None:
         dy = torch.zeros(v.shape, dtype=v.dtype, device=v.device)
-    if q.device.type == "cpu":
+    if _plain(q, "scan"):
         return _ssm.ssm_scan_bwd_plain(dy, dh, q, k, v, log_a, chunk)
     _check_ssm(q, k, v, log_a)
+    _shadow(_ssm.ssm_scan_bwd_plain, dy, dh, q, k, v, log_a, chunk)
     B, S, H, N = q.shape
     P = v.shape[3]
     if dy.shape != v.shape or (dh is not None and dh.shape != (B, H, N, P)):
@@ -749,23 +807,27 @@ def rmsnorm(x: torch.Tensor, g: torch.Tensor,
     if g.device != x.device:
         raise ValueError(f"x and g must lie on one device, got {x.device}, "
                          f"{g.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no rmsnorm kernel for device {x.device}")
+    _plain(x, "rmsnorm")
     if _traced(x, g):
         return _RmsNormFn.apply(x, g[None], float(eps))
     return _rms_fwd(x, g, float(eps))
+
+
+def _rms_fwd_plain(x, g, eps: float):
+    if g.dim() == 1 or g.shape[0] == 1:
+        return _rms.rmsnorm_plain(x, g.reshape(-1), eps)
+    x2 = x.reshape(-1, x.shape[-1])
+    return _rms.rmsnorm_grouped_plain(x2, g, eps).reshape(x.shape)
 
 
 def _rms_fwd(x, g, eps: float):
     """The forward on plain tensors; g (d,) or a (V, d) table (row t of
     x's rows reads g row ``t // (T // V)``)."""
     global rmsnorm_launches
-    if x.device.type == "cpu":
-        if g.dim() == 1 or g.shape[0] == 1:
-            return _rms.rmsnorm_plain(x, g.reshape(-1), eps)
-        x2 = x.reshape(-1, x.shape[-1])
-        return _rms.rmsnorm_grouped_plain(x2, g, eps).reshape(x.shape)
+    if _plain(x, "rmsnorm"):
+        return _rms_fwd_plain(x, g, eps)
     x2 = _check_rmsnorm(x, g)
+    _shadow(_rms_fwd_plain, x, g, eps)
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
     _rms.rmsnorm_cuda(x2, g, out.view(-1, x.shape[-1]), eps)
     rmsnorm_launches += 1
@@ -779,10 +841,11 @@ def _rms_bwd(dy, x, g_table, eps: float):
     rmsnorm_bwd_dispatches += 1
     d = x.shape[-1]
     dy2 = dy.to(x.dtype).reshape(-1, d)
-    if x.device.type == "cpu":
+    if _plain(x, "rmsnorm"):
         dx, dg = _rms.rmsnorm_bwd_plain(dy2, x.reshape(-1, d), g_table, eps)
         return dx.reshape(x.shape), dg
     x2 = _check_rmsnorm(x, g_table)
+    _shadow(_rms.rmsnorm_bwd_plain, dy2, x.reshape(-1, d), g_table, eps)
     dy2 = dy2.contiguous()
     T, V = x2.shape[0], g_table.shape[0]
     dx = torch.empty((T, d), dtype=x.dtype, device=x.device)

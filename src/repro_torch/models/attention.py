@@ -12,10 +12,11 @@ where ``pos[s]`` is the absolute position stored in slot ``s`` (-1 = empty).
 For full-attention archs Smax == seq_len and the ring never wraps; for
 sliding-window archs Smax == window and old entries are overwritten.
 
-Two intended differences from the JAX package: the caches are updated in
+One intended difference from the JAX package: the caches are updated in
 place (the layer returns the same dict it was given, so a decode step copies
-no cache), and there is no mesh policy, so the ``constrain`` hints and the
-tensor-parallel head padding (identities without a mesh) are gone.
+no cache).  The ``constrain`` hints and the tensor-parallel head padding
+are JAX's: identities unless a dry run's activation policy is active
+(``sharding/specs.py``).
 """
 from __future__ import annotations
 
@@ -23,9 +24,15 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers
+from repro_torch.sharding.specs import (constrain, head_tp_active,
+                                        local_call, matmul, model_offset,
+                                        on_mesh, placed_like, reshape,
+                                        shardwise, tp_padded_heads,
+                                        zero_gather)
 
 NEG_INF = -1e30
 
@@ -56,9 +63,10 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
 def _proj_heads(p, x):
     """x: (B,S,d) @ (d,Hn,hd) -> (B,S,Hn,hd)."""
     d, Hn, hd = p["w"].shape
-    y = (x @ p["w"].reshape(d, Hn * hd)).reshape(x.shape[:-1] + (Hn, hd))
+    y = reshape(matmul(x, reshape(p["w"], d, Hn * hd)), *x.shape[:-1], Hn,
+                hd)
     if "b" in p:
-        y = y + p["b"]
+        y = y + zero_gather(p["b"])
     return y
 
 
@@ -90,15 +98,16 @@ def _mask(qpos, kpos, causal: bool, window: int):
     return mask
 
 
-def dense_attention(q, k, v, *, causal: bool,
-                    window: int = 0) -> torch.Tensor:
-    """Reference attention.  q: (B,Sq,H,hd); k,v: (B,Skv,H,hd)."""
+def dense_attention(q, k, v, *, causal: bool, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Reference attention.  q: (B,Sq,H,hd); k,v: (B,Skv,H,hd); the
+    queries sit at positions ``q_offset + [0, Sq)`` of the keys'."""
     Sq, hd = q.shape[1], q.shape[3]
     Skv = k.shape[1]
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     scores = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32),
                           k.to(torch.float32)) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
     mask = _mask(qpos, kpos, causal, window)
     scores = torch.where(mask[None, None], scores,
@@ -108,10 +117,11 @@ def dense_attention(q, k, v, *, causal: bool,
 
 
 def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
-                      chunk: int = 512) -> torch.Tensor:
+                      chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
     """Online-softmax attention over KV chunks (flash-style), a Python loop
     in place of ``lax.scan``.  Never materialises the (Sq, Skv) score
-    matrix; peak transient is (B, H, Sq, chunk)."""
+    matrix; peak transient is (B, H, Sq, chunk).  The queries sit at
+    positions ``q_offset + [0, Sq)`` of the keys'."""
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     if Skv % chunk:
@@ -119,7 +129,7 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0,
     n_chunks = Skv // chunk
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32))
     qf = q.to(torch.float32) * scale
-    qpos = torch.arange(Sq, device=q.device)[:, None]
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
 
     m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
@@ -164,6 +174,69 @@ def _cache_attend(q, cache, cfg, qpos):
     return out.to(q.dtype)
 
 
+def _self_attend(q, k, v, cfg, use: str, q_offset: int = 0):
+    """Causal self-attention of q (B,Sq,H,hd) over k, v (B,S,KV,hd) by the
+    impl ``use``; the queries at positions ``q_offset + [0, Sq)``."""
+    if use == "pallas":
+        if q_offset or q.shape[1] != k.shape[1]:
+            raise ValueError("the pallas route attends aligned sequences")
+        # the kernel reads each KV head in place for its query heads
+        return kops.flash_attention(q, k, v, causal=True,
+                                    window=cfg.sliding_window)
+    groups = q.shape[2] // k.shape[2]
+    kk = _repeat_kv(k, groups)
+    vv = _repeat_kv(v, groups)
+    if use == "dense":
+        return dense_attention(q, kk, vv, causal=True,
+                               window=cfg.sliding_window, q_offset=q_offset)
+    # chunked reference
+    return chunked_attention(q, kk, vv, causal=True,
+                             window=cfg.sliding_window,
+                             chunk=min(cfg.attn_chunk, k.shape[1]),
+                             q_offset=q_offset)
+
+
+def _local_attend(q, k, v, cfg, use: str):
+    """``_self_attend``; for DTensors (a dry run) on each device's own part:
+    its batch rows and heads, k and v repeated to q's heads first (DTensor
+    would gather the heads to merge them with the batch in the products);
+    where the heads do not divide the model axis and the policy shards the
+    sequence there instead (its sequence-TP fallback), its own query rows
+    over the whole of k and v."""
+    if not on_mesh(q):
+        return _self_attend(q, k, v, cfg, use)
+    groups = q.shape[2] // k.shape[2]
+    k, v = _repeat_kv(k, groups), _repeat_kv(v, groups)
+    B, S, H = q.shape[:3]
+    if head_tp_active(H) or S == 1 or not head_tp_active(S):
+        bh = (0, 2)
+        return local_call(lambda *a: _self_attend(*a, cfg, use), (q, k, v),
+                          (bh, bh, bh), (bh,), B, H)
+    off = model_offset(q, S)
+    rows, whole = (0, 1), (0, None)
+    return local_call(
+        lambda *a: _self_attend(*a, cfg, use, q_offset=off), (q, k, v),
+        (rows, whole, whole), (rows,), B, S)
+
+
+def _write_slots(ring, slot, tail) -> None:
+    """``ring[:, slot] = tail`` in place.  A DTensor ring (a dry run) is
+    written row-locally on a copy whose slots are replicated, then copied
+    back: DTensor has no in-place indexed write into a sharded dim."""
+    if not on_mesh(ring):
+        ring[:, slot] = tail
+        return
+
+    def write(r, t):
+        r = r.clone()
+        r[:, slot] = t
+        return r
+
+    rows = (0, None)
+    ring.copy_(placed_like(local_call(write, (ring, tail), (rows, rows),
+                                      (rows,), ring.shape[0]), ring))
+
+
 def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
               impl: Optional[str] = None):
     """Full GQA attention layer.
@@ -178,9 +251,19 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
     """
     B, S, _ = x.shape
     H, KV = cfg.n_heads, cfg.n_kv_heads
-    q = _proj_heads(params["wq"], x)                       # (B,S,H,hd)
-    k = _proj_heads(params["wk"], x)
-    v = _proj_heads(params["wv"], x)
+    wq, wo = params["wq"], zero_gather(params["wo"]["w"])
+    Hp = tp_padded_heads(H, KV) if cache is None else H
+    if Hp != H:
+        # zero-pad query heads to the TP multiple (exact: padded wo rows are
+        # zero, so phantom heads contribute nothing)
+        wq = {k_: shardwise(lambda t: F.pad(t, (0, 0, 0, Hp - H)), v_)
+              for k_, v_ in wq.items()}
+        wo = shardwise(lambda t: F.pad(t, (0, 0, 0, 0, 0, Hp - H)), wo)
+        H = Hp
+    kv_kind = "kv_heads" if head_tp_active(H) else "heads"
+    q = constrain(_proj_heads(wq, x), "heads")             # (B,S,H,hd)
+    k = constrain(_proj_heads(params["wk"], x), kv_kind)
+    v = constrain(_proj_heads(params["wv"], x), kv_kind)
     q = layers.apply_rope(q, positions, cfg.rope_theta)
     k = layers.apply_rope(k, positions, cfg.rope_theta)
     groups = H // KV
@@ -194,24 +277,13 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
         out = _cache_attend(q, cache, cfg, positions.reshape(1))
     else:
         use = impl or cfg.attention_impl
-        if use == "pallas":
-            # the kernel reads each KV head in place for its query heads
-            out = kops.flash_attention(q, k, v, causal=True,
-                                       window=cfg.sliding_window)
-        else:
-            kk = _repeat_kv(k, groups)
-            vv = _repeat_kv(v, groups)
-            if use == "dense":
-                out = dense_attention(q, kk, vv, causal=True,
-                                      window=cfg.sliding_window)
-            else:  # chunked reference
-                out = chunked_attention(q, kk, vv, causal=True,
-                                        window=cfg.sliding_window,
-                                        chunk=min(cfg.attn_chunk, S))
+        out = _local_attend(q, k, v, cfg, use)
         if cache is not None:  # prefill: write the (possibly windowed) tail
             smax = cache["k"].shape[1]
-            ktail = k[:, -smax:].to(cache["k"].dtype)
-            vtail = v[:, -smax:].to(cache["v"].dtype)
+            ktail = placed_like(k[:, -smax:].to(cache["k"].dtype),
+                                cache["k"])
+            vtail = placed_like(v[:, -smax:].to(cache["v"].dtype),
+                                cache["v"])
             tailpos = positions[-smax:].to(torch.int32)
             if smax == S:
                 # full cache, prefill from position 0: slots are identity
@@ -221,9 +293,9 @@ def attention(params, x, cfg, *, positions, cache=None, cache_index=None,
             else:
                 # sliding window or a longer cache: the tail at its slots
                 slot = tailpos.long() % smax
-                cache["k"][:, slot] = ktail
-                cache["v"][:, slot] = vtail
+                _write_slots(cache["k"], slot, ktail)
+                _write_slots(cache["v"], slot, vtail)
                 cache["pos"][slot] = tailpos
-    Hn, hd, d = params["wo"]["w"].shape
-    out = out.reshape(B, S, Hn * hd) @ params["wo"]["w"].reshape(Hn * hd, d)
+    Hn, hd, d = wo.shape
+    out = matmul(reshape(out, B, S, Hn * hd), reshape(wo, Hn * hd, d))
     return out, cache

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.sharding.specs import lookup, matmul, rowwise, zero_gather
 
 Params = dict
 
@@ -45,9 +46,9 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
 
 
 def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
-        y = y + p["b"]
+        y = y + zero_gather(p["b"])
     return y
 
 
@@ -56,7 +57,7 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
 
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return p["w"][ids.long()]
+    return lookup(p["w"], ids)
 
 
 def rmsnorm_init(d: int, dtype, device=None) -> Params:
@@ -65,8 +66,9 @@ def rmsnorm_init(d: int, dtype, device=None) -> Params:
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Computed in fp32, cast back to x's dtype: the hand-written kernel
-    for a CUDA tensor, its plain version for a CPU one (``ops.rmsnorm``)."""
-    return kops.rmsnorm(x, p["g"], eps)
+    for a CUDA tensor, its plain version for a CPU one (``ops.rmsnorm``);
+    a DTensor's rows on each shard (``specs.rowwise``)."""
+    return rowwise(lambda x_, g: kops.rmsnorm(x_, g, eps), x, p["g"])
 
 
 def layernorm_init(d: int, dtype, device=None) -> Params:

@@ -30,6 +30,9 @@ import torch
 from repro_torch.core import tree
 from repro_torch.device import as_tensor
 from repro_torch.models import layers, transformer
+from repro_torch.sharding.specs import (constrain, logsumexp, matmul,
+                                        place_caches, placed_like,
+                                        reduce_partial)
 
 
 def init_params(gen: torch.Generator, cfg) -> dict:
@@ -56,7 +59,7 @@ def _embed_inputs(params, inputs, cfg):
 
 def _head(params, h, cfg):
     if cfg.tie_embeddings:
-        return h @ params["embed"]["w"].T
+        return matmul(h, params["embed"]["w"].T)
     return layers.dense(params["lm_head"], h)
 
 
@@ -65,7 +68,7 @@ def forward(params, inputs, cfg, *, positions=None, caches=None,
     """inputs: (B,S) ids or (B,S,d) embeddings -> (hidden (B,S,d), caches,
     aux); aux is the blocks' summed auxiliary loss: the MoE FFNs' in fp32,
     0.0 for a model without one."""
-    x = _embed_inputs(params, inputs, cfg)
+    x = constrain(_embed_inputs(params, inputs, cfg), "residual")
     if positions is None:
         positions = torch.arange(x.shape[1], device=x.device)
     x, new_caches, aux = transformer.stack_apply(
@@ -80,10 +83,13 @@ def _device(params) -> torch.device:
 
 
 def _xent(logits, labels):
-    """Summed token cross-entropy, fp32.  logits: (T,V); labels: (T,)."""
+    """Summed token cross-entropy, fp32.  logits: (..., V); labels:
+    (...)."""
     logits = logits.to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    lse = logsumexp(logits)
+    gold = reduce_partial(torch.gather(logits, -1,
+                                       labels[..., None].long()))
+    gold = gold[..., 0]
     return torch.sum(lse - gold)
 
 
@@ -94,6 +100,10 @@ def chunked_xent(params, h, labels, cfg):
     fp32 total, as the JAX package's scan does.  The head's product runs in
     the parameter dtype; the logits are upcast to fp32 for the loss."""
     B, S, _ = h.shape
+    # undo sequence parallelism before the vocab-parallel head (JAX
+    # constrains each chunk; here the whole h, once, before the slices,
+    # each of which would otherwise gather the sharded sequence)
+    h = constrain(h, "loss_chunk")
     T = B * S
     chunk_tokens = cfg.logit_chunk or T
     nc = 1
@@ -102,8 +112,7 @@ def chunked_xent(params, h, labels, cfg):
     Sc = S // nc
 
     def one(hc, lc):
-        logits = _head(params, hc, cfg)
-        return _xent(logits.reshape(-1, logits.shape[-1]), lc.reshape(-1))
+        return _xent(_head(params, hc, cfg), lc)
 
     if nc == 1:
         return one(h, labels) / T
@@ -127,7 +136,23 @@ def _batch_on(batch: Dict[str, Any], device: torch.device):
     return {k: as_tensor(v, device) for k, v in batch.items()}
 
 
-def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
+def _autograd_grad_and_value(params, batch, cfg):
+    """``grad_and_value(loss_and_aux)`` through ``torch.autograd.grad``
+    (for DTensor params, which ``torch.func`` transforms wrap)."""
+    leaves, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in leaves]
+    with torch.enable_grad():
+        loss = loss_and_aux(tree.unflatten(treedef, leaves), batch, cfg)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a leaf the loss does not read (an embedding fed precomputed
+    # embeddings) gets zeros, as under torch.func
+    grads = [torch.zeros_like(p) if g is None else placed_like(g, p)
+             for g, p in zip(grads, leaves)]
+    return tree.unflatten(treedef, grads), loss.detach()
+
+
+def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0, *,
+                    functional: bool = True):
     """Plain-SGD client local step (the FL inner loop; see core/algorithms
     for the federated wrappers).  ``train_step(params, batch) -> (new
     params, {"loss": fp32 scalar})``; the batch may be numpy or tensors.
@@ -137,9 +162,14 @@ def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
     slice's gradients freed before the next slice's), then divides the loss
     and the gradients by k.  The update is ``(p − lr·g)`` in fp32, cast
     back to the parameter's dtype, leaf by leaf, with at most one leaf's
-    fp32 buffer beyond the fp32 accumulators."""
+    fp32 buffer beyond the fp32 accumulators.
+
+    ``functional=False`` takes the gradients with ``torch.autograd.grad``
+    in place of ``torch.func`` (the dry run's DTensor params; the step then
+    does not compose with ``vmap``)."""
     micro = micro_batches or getattr(cfg, "train_microbatches", 1) or 1
-    grad_fn = torch.func.grad_and_value(loss_and_aux)
+    grad_fn = (torch.func.grad_and_value(loss_and_aux) if functional
+               else _autograd_grad_and_value)
 
     def train_step(params, batch):
         batch = _batch_on(batch, _device(params))
@@ -153,8 +183,9 @@ def make_train_step(cfg, lr: float = 0.05, micro_batches: int = 0):
             n = B // micro
             loss = torch.zeros((), dtype=torch.float32,
                                device=_device(params))
-            grads = tree.map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            grads = tree.map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32,
+                memory_format=torch.contiguous_format), params)
             for i in range(micro):
                 mb = {k: v[i * n:(i + 1) * n] for k, v in batch.items()}
                 g, l = grad_fn(params, mb, cfg)
@@ -189,9 +220,9 @@ def make_prefill_step(cfg, batch: int, seq_len: int, cache_len: int = 0):
     cache_len = cache_len or seq_len
 
     def prefill_step(params, inputs):
-        caches = transformer.stack_cache(cfg, batch, cache_len,
-                                         layers.dtype_of(cfg.dtype),
-                                         _device(params))
+        caches = place_caches(transformer.stack_cache(
+            cfg, batch, cache_len, layers.dtype_of(cfg.dtype),
+            _device(params)))
         h, new_caches, _ = forward(params, inputs, cfg, caches=caches,
                                    cache_index=0)
         logits = _head(params, h[:, -1:], cfg)

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers
+from repro_torch.sharding.specs import constrain, local_call, reshape
 
 
 def moe_init(gen: torch.Generator, cfg) -> dict:
@@ -93,12 +94,24 @@ def _routing(params, xg, m):
 
 
 def _expert_ffn(params, h):
-    """h: (..., E, C, d) -> (..., E, C, d): each expert's SwiGLU on its
-    slots, as batched products over the expert axis."""
-    up = torch.einsum("...ecd,edf->...ecf", h, params["wi"])
-    gate = torch.einsum("...ecd,edf->...ecf", h, params["wg"])
-    return torch.einsum("...ecf,efd->...ecd", F.silu(gate) * up,
-                        params["wo"])
+    """h: (G, E, C, d) -> (G, E, C, d): each expert's SwiGLU on its
+    slots, as batched products over the expert axis.  The weights pass
+    JAX's explicit ZeRO gather points (``constrain``); on DTensors (a dry
+    run) each device runs its own groups through its f shards, the output
+    a sum over the f shards."""
+    wi = constrain(params["wi"], "moe_weight")
+    wg = constrain(params["wg"], "moe_weight")
+    wo = constrain(params["wo"], "moe_weight_row")
+    f = params["wi"].shape[-1]
+    return local_call(_swiglu_experts, (h, wi, wg, wo),
+                      ((0, None), (None, 2), (None, 2), (None, 1)),
+                      ((0, "sum"),), h.shape[0], f)
+
+
+def _swiglu_experts(h, wi, wg, wo):
+    up = torch.einsum("...ecd,edf->...ecf", h, wi)
+    gate = torch.einsum("...ecd,edf->...ecf", h, wg)
+    return torch.einsum("...ecf,efd->...ecd", F.silu(gate) * up, wo)
 
 
 def _slots(topk_idx, E):
@@ -190,25 +203,27 @@ def _group(x, m):
     T = B * S
     gs = min(m.group_size, T)
     pad = 0 if (S % gs == 0 or gs % S == 0) else (-T) % gs
-    xf = x.reshape(T, d)
+    xf = reshape(x, T, d)
     if pad:
         xf = torch.cat([xf, torch.zeros((pad, d), dtype=x.dtype,
                                         device=x.device)])
-    return xf.reshape((T + pad) // gs, gs, d), pad
+    return reshape(xf, (T + pad) // gs, gs, d), pad
 
 
 def moe_ffn(params, x, cfg):
     """x: (B, S, d) -> (out (B,S,d), aux fp32 scalar)."""
     m = cfg.moe
     B, S, d = x.shape
-    xg, pad = _group(x, m)
+    # tokens over dp alone before the grouping merges batch and sequence
+    xg, pad = _group(constrain(x, "tokens"), m)
+    xg = constrain(xg, "moe_group")
     if m.dispatch_impl == "gather":
         out, aux = _moe_gather(params, xg, m)
     else:
         out, aux = _moe_gshard(params, xg, m)
     if pad:
-        out = out.reshape(B * S + pad, d)[:B * S]
-    return out.reshape(B, S, d), aux
+        out = reshape(out, B * S + pad, d)[:B * S]
+    return reshape(out, B, S, d), aux
 
 
 def routing_stats(params, x, cfg) -> dict:

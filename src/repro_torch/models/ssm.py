@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ssm_scan import ssm_scan_plain
 from repro_torch.models import layers
+from repro_torch.sharding.specs import (head_tp_active, local_call, reshape,
+                                        shardwise)
 
 f32 = torch.float32
 
@@ -48,10 +50,26 @@ def chunked_linear_scan(q, k, v, log_a, h0: Optional[torch.Tensor],
     """q,k: (B,S,H,N); v: (B,S,H,P); log_a: (B,S,H) (<= 0); h0: (B,H,N,P)
     or None (a zero state: the prefill, which takes ``ops.ssm_scan``).
 
-    Returns (y: (B,S,H,P) in v's dtype, h_final: (B,H,N,P) fp32)."""
-    if h0 is None:
-        return kops.ssm_scan(q, k, v, log_a, chunk=chunk)
-    return ssm_scan_plain(q, k, v, log_a, chunk, h0)
+    Returns (y: (B,S,H,P) in v's dtype, h_final: (B,H,N,P) fp32).  On
+    DTensors (a dry run) each device scans its own batch rows and heads, or,
+    where the heads do not divide the model axis and the value columns do,
+    its own value columns (each column of v, the state and y is a scan of
+    its own)."""
+    def scan(q, k, v, log_a, h0):
+        if h0 is None:
+            return kops.ssm_scan(q, k, v, log_a, chunk=chunk)
+        return ssm_scan_plain(q, k, v, log_a, chunk, h0)
+
+    H, P = v.shape[2], v.shape[3]
+    if head_tp_active(H) or not head_tp_active(P):
+        bh = (0, 2)
+        return local_call(scan, (q, k, v, log_a, h0),
+                          (bh, bh, bh, bh, (0, 1)), (bh, (0, 1)), q.shape[0],
+                          H)
+    rows, cols = (0, None), (0, 3)
+    return local_call(scan, (q, k, v, log_a, h0),
+                      (rows, rows, cols, rows, cols), (cols, cols),
+                      q.shape[0], P)
 
 
 def linear_scan_step(q_t, k_t, v_t, a_t, h):
@@ -131,14 +149,14 @@ def mamba_apply(params, x, cfg, conv_state=None, h0=None):
     dt = F.softplus(layers.dense(params["dt_proj"], xc).to(f32))
     A = -torch.exp(params["log_neg_a"])                      # (H,) < 0
     log_a = dt * A                                           # (B,S,H)
-    v = xc.reshape(B, S, H, P) * dt[..., None].to(xc.dtype)
+    v = reshape(xc, B, S, H, P) * dt[..., None].to(xc.dtype)
     # the heads share q and k: views with a stride of 0 along H
     q = Cm[:, :, None, :].expand(B, S, H, N)
     k = Bm[:, :, None, :].expand(B, S, H, N)
     y, h_final = chunked_linear_scan(q, k, v, log_a, h0, sc.chunk_size)
-    y = y + xc.reshape(B, S, H, P) * \
+    y = y + reshape(xc, B, S, H, P) * \
         params["d_skip"][None, None, :, None].to(xc.dtype)
-    y = y.reshape(B, S, H * P) * F.silu(z)
+    y = reshape(y, B, S, H * P) * F.silu(z)
     return layers.dense(params["out_proj"], y), (new_conv, h_final)
 
 
@@ -185,15 +203,17 @@ def _mlstm_core(params, xs, cfg, h0):
     B, S, di = xs.shape
     H = cfg.n_heads
     P = di // H
-    q = layers.dense(params["wq"], xs).reshape(B, S, H, P)
+    q = reshape(layers.dense(params["wq"], xs), B, S, H, P)
     # JAX divides by the numpy scalar np.sqrt(P), which is not weakly typed:
     # k is promoted to fp32 whatever cfg.dtype is, and the port keeps that
-    k = layers.dense(params["wk"], xs).reshape(B, S, H, P).to(f32) / \
+    k = reshape(layers.dense(params["wk"], xs), B, S, H, P).to(f32) / \
         math.sqrt(P)
-    v = layers.dense(params["wv"], xs).reshape(B, S, H, P)
+    v = reshape(layers.dense(params["wv"], xs), B, S, H, P)
     # exponential-family gates kept in (0,1) via log-sigmoid for stability
-    log_f = F.logsigmoid(layers.dense(params["wf"], xs).to(f32))   # (B,S,H)
-    i_gate = torch.exp(F.logsigmoid(layers.dense(params["wi"], xs).to(f32)))
+    log_f = shardwise(F.logsigmoid,
+                      layers.dense(params["wf"], xs).to(f32))     # (B,S,H)
+    i_gate = torch.exp(shardwise(F.logsigmoid,
+                                 layers.dense(params["wi"], xs).to(f32)))
     kg = k * i_gate[..., None].to(k.dtype)
     # append a ones-channel to v to carry the normaliser n_t
     v1 = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
@@ -201,7 +221,7 @@ def _mlstm_core(params, xs, cfg, h0):
                                       cfg.xlstm.chunk_size)
     y, n = y1[..., :P], y1[..., P:]
     y = y / torch.clamp_min(torch.abs(n), 1.0).to(y.dtype)
-    return y.reshape(B, S, di), h_final
+    return reshape(y, B, S, di), h_final
 
 
 def mlstm_apply(params, x, cfg, h0=None):
@@ -380,8 +400,12 @@ def slstm_apply(params, x, cfg, state=None):
     Tc = _slstm_chunk(cfg, S)
     carry = (st["c"], st["n"], st["h"], st["m"])
     hs = []
+    rows, whole = (0, None), (None, None)
     for c0 in range(0, S, Tc):
-        hc, *carry = _SlstmChunkFn.apply(gx[:, c0:c0 + Tc], wh, *carry)
+        # on DTensors (a dry run) each device runs its own batch rows
+        hc, *carry = local_call(_SlstmChunkFn.apply,
+                                (gx[:, c0:c0 + Tc], wh, *carry),
+                                (rows, whole) + (rows,) * 4, (rows,) * 5, B)
         hs.append(hc)
     y = torch.cat(hs, dim=1).to(x.dtype)
     return layers.dense(params["out"], y), dict(zip("cnhm", carry))

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.core import tree
 from repro_torch.models import attention, layers, moe, ssm
+from repro_torch.sharding.specs import constrain
 
 KINDS = ("dense", "hybrid", "mlstm", "slstm")
 
@@ -114,6 +115,12 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
     block of an MoE config, and 0.0 for every other block."""
     _check_kind(kind)
     aux = 0.0
+    # under a dry run's policy the products read the normed input as the
+    # residual lays it out (``specs.matmul`` gathers the sequence only for
+    # weights sharded over "model"), the recurrent mixers read it whole
+    # along the sequence, and each output is laid out as the residual
+    # before the add, so the backward's products see the batch alone
+    # sharded
     h = layers.rmsnorm(p["norm1"], x, cfg.norm_eps)
     if kind in ("dense", "hybrid"):
         attn_cache = cache.get("attn") if cache else None
@@ -121,6 +128,7 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
             p["attn"], h, cfg, positions=positions, cache=attn_cache,
             cache_index=cache_index)
         if kind == "hybrid":
+            h = constrain(h, "tokens")
             if decode:
                 m_out, new_m = ssm.mamba_step(p["mamba"], h, cache["mamba"],
                                               cfg)
@@ -131,16 +139,18 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
                     # prefill: seed the decode state from the scan tail
                     _store(cache["mamba"], {"conv": _conv_tail(p, h, cfg),
                                             "h": h_st})
-            a_out = (a_out + m_out) * 0.5
-        x = x + a_out
+            a_out = (constrain(a_out, "residual")
+                     + constrain(m_out, "residual")) * 0.5
+        x = x + constrain(a_out, "residual")
         if cfg.d_ff > 0:
             h2 = layers.rmsnorm(p["norm2"], x, cfg.norm_eps)
             if cfg.moe is not None and kind == "dense":
                 f_out, aux = moe.moe_ffn(p["ffn"], h2, cfg)
             else:
                 f_out = layers.swiglu(p["ffn"], h2)
-            x = x + f_out
+            x = x + constrain(f_out, "residual")
     elif kind == "mlstm":
+        h = constrain(h, "tokens")
         if decode:
             m_out, st = ssm.mlstm_step(p["mixer"], h, cache["mixer"], cfg)
             _store(cache["mixer"], st)
@@ -148,15 +158,16 @@ def block_apply(p, x, cfg, kind: str, *, positions, cache=None,
             m_out, h_final = ssm.mlstm_apply(p["mixer"], h, cfg)
             if cache is not None:
                 _store(cache["mixer"], {"h": h_final})
-        x = x + m_out
+        x = x + constrain(m_out, "residual")
     else:
+        h = constrain(h, "tokens")
         if decode:
             m_out, st = ssm.slstm_step(p["mixer"], h, cache["mixer"], cfg)
         else:
             m_out, st = ssm.slstm_apply(p["mixer"], h, cfg)
         if cache is not None:
             _store(cache["mixer"], st)
-        x = x + m_out
+        x = x + constrain(m_out, "residual")
     return x, cache, aux
 
 
@@ -204,6 +215,7 @@ def stack_apply(params, x, cfg, *, positions, caches=None, cache_index=None,
     aux_tot = 0.0
     per_rep = [_unstack(p, n_rep(cfg)) for p in params]
     for r in range(n_rep(cfg)):
+        x = constrain(x, "residual")
         for i, kind in enumerate(pat):
             up = per_rep[i][r]
             uc = tree.map(lambda a: a[r], caches[i]) if has_cache else None

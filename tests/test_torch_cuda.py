@@ -2042,3 +2042,37 @@ def test_cuda_moe_lm_vmapped_grad_equals_cpu(cuda, name):
         res[str(dev)] = grad(tree.map(lambda a: a.to(dev), p), b)
     for a, b in zip(tree.leaves(res[str(cuda)]), tree.leaves(res["cpu"])):
         assert float((a.cpu() - b).norm()) <= 1e-4 * float(b.norm()) + 1e-7
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill"])
+def test_cuda_dryrun_execute_equals_the_abstract_trace(cuda, kind, tmp_path):
+    """``launch/dryrun.run_cell(..., execute=True)`` on the card: a reduced
+    qwen2 step, flash on the kernel route, counts the FLOPs and argument
+    bytes of its meta trace exactly (each launch counted as its plain
+    version on meta tensors), launches each kernel, and reports a peak
+    allocation."""
+    import dataclasses as dc
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = dc.replace(ARCHS["qwen2-0.5b"].reduced(), attention_impl="pallas",
+                     dtype="bfloat16")
+    ov = {f.name: getattr(cfg, f.name) for f in dc.fields(cfg)
+          if f.name != "name"}
+    rec = dryrun.run_cell("qwen2-0.5b", {"train": "train_4k",
+                                         "prefill": "prefill_32k"}[kind],
+                          mesh=make_host_mesh(1), overrides=ov,
+                          shape_overrides={"global_batch": 2,
+                                           "seq_len": 64},
+                          execute=True, device=str(cuda),
+                          out_dir=str(tmp_path), verbose=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    ex = rec["execute"]
+    assert ex["flops"] == rec["flops_per_device"] > 0
+    assert ex["argument_size_in_bytes"] == \
+        rec["memory"]["argument_size_in_bytes"]
+    L = cfg.n_layers
+    want = {"flash": L, "rmsnorm": 2 * L + 1,
+            "flash_bwd": L if kind == "train" else 0,
+            "rmsnorm_bwd": 2 * L + 1 if kind == "train" else 0}
+    assert {k: ex["launches"][k] for k in want} == want
+    assert ex["max_memory_allocated"] > ex["argument_size_in_bytes"]

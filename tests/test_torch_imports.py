@@ -38,7 +38,10 @@ def test_training_modules_are_checked():
     names = {str(p.relative_to(PORT)) for p in FILES if PORT in p.parents}
     assert {"optim/__init__.py", "optim/optimizers.py",
             "launch/fl_train_lm.py", "models/lm.py", "launch/train.py",
-            "launch/quickstart.py", "launch/stateful_scaffold.py"} <= names
+            "launch/quickstart.py", "launch/stateful_scaffold.py",
+            "sharding/__init__.py", "sharding/specs.py", "launch/mesh.py",
+            "launch/inputs.py", "launch/hlo_analysis.py",
+            "launch/dryrun.py"} <= names
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['repro'] = None\n"
@@ -47,6 +50,9 @@ def test_training_modules_are_checked():
             "from repro_torch.launch import fl_train_lm\n"
             "from repro_torch.launch import quickstart, stateful_scaffold\n"
             "from repro_torch.launch import train\n"
+            "from repro_torch.launch import (dryrun, hlo_analysis, inputs,\n"
+            "                                mesh)\n"
+            "from repro_torch.sharding import specs\n"
             "from repro_torch.models.lm import make_train_step\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -388,8 +388,11 @@ def test_flash_refuses_a_device_mix():
     q = torch.zeros(1, 8, 2, 16)
     with pytest.raises(ValueError, match="one device"):
         ops.flash_attention(q, q.to("meta"), q)
-    with pytest.raises(ValueError):
-        ops.flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
+    # all on the meta device (the dry run's abstract trace): the plain
+    # version, which only propagates the shapes
+    m = q.to("meta")
+    out = ops.flash_attention(m, m, m)
+    assert out.is_meta and out.shape == q.shape
 
 
 def test_flash_checks_what_the_kernel_takes():
